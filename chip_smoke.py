@@ -1,0 +1,512 @@
+#!/usr/bin/env python3
+"""Smoke run of yolort_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. device: needs CUDA; prints the card's name and power limit; TF32 off;
+  2. build: compiles the CUDA kernels from yolort_tpu_torch/csrc/;
+  3. kernels: nms_mask, bisect_count and row_fetch against their plain
+     PyTorch versions on the card, at the main path's shapes, batch 8;
+     results must be bit-identical;
+  4. slice: yolov5s at full width, seeded random weights with the head
+     biases shifted to a realistic candidate load, serves uint8 frames of
+     three sizes in float32 and bfloat16 under the eval (0.005 / 4096) and
+     serving (0.25 / 512) configs; every kernel must have launched, every
+     image must carry detections, and the card's postprocess must agree
+     with the CPU run of the port on the same head outputs;
+  5. times: each kernel's median time beside its plain version's, and the
+     slice's images/s at batch 32.
+The last line is {"ok": true, "device": {...}}; the line before it lists
+the kernels as JSON.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+B = 8  # images per kernel check
+EVAL = dict(score_thresh=0.005, pre_nms_topk=4096)
+SERVING = dict(score_thresh=0.25, pre_nms_topk=512)
+TPU_KERNELS = {
+    "nms_mask": ("yolort_tpu_torch/csrc/nms_mask.cu",
+                 "yolort_tpu/ops/pallas/nms_kernel.py:149"),
+    "bisect_count": ("yolort_tpu_torch/csrc/bisect_count.cu",
+                     "yolort_tpu/ops/pallas/lookup_kernel.py:382"),
+    "row_fetch": ("yolort_tpu_torch/csrc/row_fetch.cu",
+                  "yolort_tpu/ops/pallas/lookup_kernel.py:481"),
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, launches: int = 20, repeats: int = 5) -> float:
+    """Time of one call on the card: CUDA events around ``launches``
+    back-to-back calls, divided by the count; the median of ``repeats``
+    such runs, after a warm-up.  Includes any host gaps between launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def device_profile(fn, iters: int = 5):
+    """Device time per call from torch.profiler: (total ms, [(kernel name,
+    ms), ...] by time), over the device-side events only (kernels, copies,
+    memsets; the host-side aten ops that launched them are not summed
+    again).  Total is None when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((e.key, us / iters / 1e3))
+    rows.sort(key=lambda r: -r[1])
+    total = sum(ms for _, ms in rows)
+    return (total if total > 0 else None), rows
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+# --------------------------------------------------------------------------
+# phase 3 inputs
+# --------------------------------------------------------------------------
+
+def nms_inputs(seed: int, bsz: int, k: int, device):
+    """Score-sorted, class-offset candidates, 70% valid: (boxes, valid,
+    scores, labels, offset_boxes)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    cxy = rng.uniform(0, 400, (bsz, k, 2))
+    wh = rng.uniform(5, 200, (bsz, k, 2))
+    boxes = np.clip(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1), 0, 640).astype(np.float32)
+    labels = rng.integers(0, 4, (bsz, k)).astype(np.int32)
+    scores = -np.sort(-rng.uniform(0.3, 1.0, (bsz, k)).astype(np.float32), axis=1)
+    valid = np.zeros((bsz, k), bool)
+    valid[:, : int(k * 0.7)] = True
+    t = {n: torch.from_numpy(v).to(device) for n, v in
+         dict(boxes=boxes, valid=valid, scores=scores, labels=labels).items()}
+    max_coord = torch.where(t["valid"][..., None], t["boxes"], 0.0).amax(dim=(1, 2))
+    t["offset"] = (t["boxes"] + (t["labels"].float() * (max_coord[:, None] + 1.0))[..., None]).contiguous()
+    return t
+
+
+def score_table(seed: int, bsz: int, m: int, device, valid_frac: float = 1.0):
+    """(B, m, 128) sigmoid-product scores; entries past valid_frac zeroed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((bsz, m * 128)) * 2.0 - 1.0
+    c = rng.standard_normal((bsz, m * 128)) * 2.0 - 1.0
+    s = (1 / (1 + np.exp(-a))) * (1 / (1 + np.exp(-c)))
+    s[:, int(m * 128 * valid_frac):] = 0.0
+    return torch.from_numpy(s.astype(np.float32).reshape(bsz, m, 128)).to(device)
+
+
+def special_table(seed: int, bsz: int, m: int, w: int, dtype, device):
+    """A random table with sign/exponent corners and NaN payloads."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    tab = rng.standard_normal((bsz, m, w)).astype(np.float32)
+    specials = np.asarray([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45,
+                           3.4e38, -3.4e38, 0.005, 1e-8], np.float32)
+    tab[:, : len(specials), 0] = specials
+    tab[:, : len(specials), w - 1] = specials[::-1]
+    t = torch.from_numpy(tab)
+    if dtype == torch.bfloat16:
+        t = t.to(torch.bfloat16)
+        bits = t.view(torch.int16)
+        bits[:, 20, 5] = -(2**15)
+        bits[:, 21, 5] = 2**15 - 1
+        bits[:, 22, 5] = 0x7FC1  # a NaN with a payload
+    else:
+        bits = t.view(torch.int32)
+        bits[:, 20, 5] = -(2**31)
+        bits[:, 21, 5] = 2**31 - 1
+        bits[:, 22, 5] = 0x7FC00123
+    return t.to(device)
+
+
+# --------------------------------------------------------------------------
+# phases
+# --------------------------------------------------------------------------
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke needs a CUDA device; torch.cuda.is_available() is False")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
+          f"| count {torch.cuda.device_count()}", flush=True)
+    return card
+
+
+def phase_build():
+    from yolort_tpu_torch.ops.cuda import _build
+
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.library()
+    dt = time.perf_counter() - t0
+    log = path.with_suffix(".log").read_text() if path.with_suffix(".log").exists() else ""
+    print(f"[build] {path.name} from yolort_tpu_torch/csrc/{{{','.join(_build.SOURCES)}}} "
+          f"in {dt:.1f} s", flush=True)
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line.lower():
+            print(f"[build]   {line.strip()}")
+    return dt
+
+
+def phase_kernels(device, card: str) -> dict:
+    """Each kernel against its plain version, bit for bit, and timed."""
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import (
+        bisect_count, bisect_count_reference, nms_mask, nms_mask_reference,
+        row_fetch, row_fetch_reference,
+    )
+    from yolort_tpu_torch.ops.nms import _compact_detections
+
+    res = {}
+    # --- nms_mask --------------------------------------------------------
+    err = 0.0
+    for seed, k in ((0, 512), (1, 4096)):
+        t = nms_inputs(seed, B, k, device)
+        got = nms_mask(t["offset"], t["valid"], 0.45, tile_size=256, stop_after=300)
+        ref = nms_mask_reference(t["offset"], t["valid"], 0.45, tile_size=256, stop_after=300)
+        torch.cuda.synchronize()
+        # exact through the first 300 keeps of the plain version
+        rank = ref.long().cumsum(1)
+        upto = rank <= 300
+        if not torch.equal(got & upto, ref & upto):
+            raise AssertionError(f"nms_mask K={k}: mask differs within the first 300 keeps")
+        dg = _compact_detections(got, t["boxes"], t["scores"], t["labels"], 300)
+        dr = _compact_detections(ref, t["boxes"], t["scores"], t["labels"], 300)
+        for a, b in zip(dg, dr):
+            if not torch.equal(a, b):
+                raise AssertionError(f"nms_mask K={k}: compacted detections differ")
+            err = max(err, (a.double() - b.double()).abs().max().item())
+        keeps = ref.sum(1).tolist()
+        print(f"[kernels] nms_mask K={k}: equal through 300 keeps, compacted equal, whole mask "
+              f"equal={torch.equal(got, ref)}, keeps/img={keeps}", flush=True)
+        ms = median_ms(lambda: nms_mask(t["offset"], t["valid"], 0.45, 256, 300))
+        pms = median_ms(lambda: nms_mask_reference(t["offset"], t["valid"], 0.45, 256, 300), 5)
+        dev = device_profile(lambda: nms_mask(t["offset"], t["valid"], 0.45, 256, 300))[0]
+        pdev = device_profile(lambda: nms_mask_reference(t["offset"], t["valid"], 0.45, 256, 300))[0]
+        print(f"[times] nms_mask B={B} K={k}: kernel {ms:.4f} ms (device {fmt_ms(dev)}), "
+              f"plain {pms:.4f} ms (device {fmt_ms(pdev)}) | {card}")
+    res["nms_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, at=f"B={B}, K=4096, stop_after=300")
+
+    # --- bisect_count ----------------------------------------------------
+    cases = [
+        ("serving", score_table(2, B, 325, device), 512, 0.25),
+        ("eval", score_table(3, B, 2565, device), 4096, 0.005),
+        ("fewer-than-k", score_table(4, B, 325, device, valid_frac=0.002), 512, 0.25),
+        ("none-valid", score_table(5, B, 325, device) * 0.1, 512, 0.25),
+    ]
+    err = 0.0
+    for name, tab, k, thr in cases:
+        thr_bits = int(np.float32(thr).view(np.int32))
+        got = bisect_count(tab, k, thr_bits)
+        ref = bisect_count_reference(tab, k, thr_bits)
+        for a, b in zip(got, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"bisect_count {name}: differs from the plain version")
+            err = max(err, (a.double() - b.double()).abs().max().item())
+        print(f"[kernels] bisect_count {name} {tuple(tab.shape)} k={k}: equal, "
+              f"t={[hex(v) for v in got[0][:2].tolist()]}", flush=True)
+        if name in ("serving", "eval"):
+            ms = median_ms(lambda: bisect_count(tab, k, thr_bits))
+            pms = median_ms(lambda: bisect_count_reference(tab, k, thr_bits), 5)
+            dev = device_profile(lambda: bisect_count(tab, k, thr_bits))[0]
+            pdev = device_profile(lambda: bisect_count_reference(tab, k, thr_bits))[0]
+            print(f"[times] bisect_count B={B} {tuple(tab.shape[1:])} k={k}: kernel {ms:.4f} ms "
+                  f"(device {fmt_ms(dev)}), plain {pms:.4f} ms (device {fmt_ms(pdev)}) | {card}")
+    res["bisect_count"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, at=f"B={B}, (2565,128), k=4096")
+
+    # --- row_fetch -------------------------------------------------------
+    rng = np.random.default_rng(6)
+    err = 0.0
+    for m, w, k, dtype in ((325, 128, 512, torch.float32), (2565, 128, 4096, torch.float32),
+                           (325, 128, 512, torch.bfloat16), (300, 85, 520, torch.bfloat16)):
+        tab = special_table(m + k, B, m, w, dtype, device)
+        idx = torch.from_numpy(rng.integers(-5, m + 5, (B, k)).astype(np.int32)).to(device)
+        idx[:, :30] = torch.arange(30, dtype=torch.int32)
+        got = row_fetch(tab, idx)
+        ref = row_fetch_reference(tab, idx)
+        iv = torch.int32 if dtype == torch.float32 else torch.int16
+        if not torch.equal(got.view(iv), ref.view(iv)):
+            raise AssertionError(f"row_fetch {dtype} ({m},{w}) k={k}: bits differ")
+        # on the bit patterns: NaN payloads count as values too
+        err = max(err, (got.view(iv).double() - ref.view(iv).double()).abs().max().item())
+        print(f"[kernels] row_fetch {dtype} ({m},{w}) k={k}: bit-identical", flush=True)
+        if w == 128 and dtype == torch.float32:
+            ms = median_ms(lambda: row_fetch(tab, idx))
+            pms = median_ms(lambda: row_fetch_reference(tab, idx))
+            dev = device_profile(lambda: row_fetch(tab, idx))[0]
+            pdev = device_profile(lambda: row_fetch_reference(tab, idx))[0]
+            print(f"[times] row_fetch B={B} ({m},{w}) f32 k={k}: kernel {ms:.4f} ms "
+                  f"(device {fmt_ms(dev)}), plain {pms:.4f} ms (device {fmt_ms(pdev)}) | {card}")
+    res["row_fetch"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, at=f"B={B}, (2565,128) f32, k=4096")
+    return res
+
+
+def frames(seed: int, n: int, h: int, w: int):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def calibrate_candidate_density(yolo, requests, target: int = 120, margin: float = 0.5) -> float:
+    """Head-bias shift that gives every image at least ``target`` pairs with
+    score > 0.25: seeded random weights keep scores near 1e-4, which would
+    leave the selection and NMS kernels with no work.  Bisects the shift
+    on the model's own logits of the requests' frames, as
+    bench.calibrate_candidate_density does, then adds ``margin``: random
+    weights make the count a cliff in the shift, and the margin keeps a
+    bias rounded to bfloat16 on the busy side of it."""
+    import torch
+
+    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
+
+    dtype = next(yolo.parameters()).dtype
+    logits = []
+    for raw_u8 in requests:
+        x = torch.from_numpy(np.stack(raw_u8)).to(next(yolo.parameters()).device)
+        plan = make_plan([tuple(x.shape[1:3])])[0]
+        with torch.inference_mode():
+            outs = yolo.head_outputs(letterbox_batch(x.to(dtype) / 255.0, plan))
+        logits.append(np.concatenate(
+            [o.reshape(o.shape[0], -1, 5 + yolo.num_classes).float().cpu().numpy() for o in outs], axis=1))
+
+    def count_at(d):
+        counts = []
+        for lg in logits:
+            obj, cls = lg[..., 4], lg[..., 5:]
+            s = 1 / (1 + np.exp(-(obj + d)))[..., None] * (1 / (1 + np.exp(-(cls + d))))
+            counts.append((s > 0.25).sum(axis=(1, 2)).min())
+        return min(counts)
+
+    lo, hi = 0.0, 20.0
+    for _ in range(30):
+        mid = (lo + hi) / 2
+        if count_at(mid) < target:
+            lo = mid
+        else:
+            hi = mid
+    return hi + margin
+
+
+def shift_head_bias(yolo, delta: float) -> None:
+    import torch
+
+    with torch.no_grad():
+        for conv in yolo.head.children():
+            conv.bias.view(yolo.num_anchors, -1)[:, 4:] += delta
+
+
+def pair_detections(a, b, label: str) -> int:
+    """Pair the card's detections ``a`` with the CPU's ``b`` image by
+    image: equal counts, >= 99% paired by label with score within 1e-5
+    relative and IoU > 0.999.  Returns the number of unpaired detections."""
+    import torch
+
+    from yolort_tpu_torch.ops.boxes import box_iou_matrix
+
+    unpaired = 0
+    for i in range(a.num.shape[0]):
+        n, n_ref = int(a.num[i]), int(b.num[i])
+        if n != n_ref:
+            raise AssertionError(f"{label} image {i}: {n} detections on the card, {n_ref} on the CPU")
+        if n == 0:
+            raise AssertionError(f"{label} image {i}: no detections")
+        ba, sa, la = a.boxes[i, :n].cpu().float(), a.scores[i, :n].cpu().float(), a.labels[i, :n].cpu()
+        bb, sb, lb = b.boxes[i, :n].float(), b.scores[i, :n].float(), b.labels[i, :n]
+        iou = box_iou_matrix(ba, bb)
+        ok = ((la[:, None] == lb[None, :]) & (iou > 0.999)
+              & ((sa[:, None] - sb[None, :]).abs() <= 1e-5 * sb[None, :].abs()))
+        used = torch.zeros(n, dtype=torch.bool)
+        paired = 0
+        for r in range(n):
+            cand = torch.nonzero(ok[r] & ~used).flatten()
+            if len(cand):
+                used[cand[0]] = True
+                paired += 1
+        unpaired += n - paired
+        if paired < 0.99 * n:
+            raise AssertionError(f"{label} image {i}: only {paired}/{n} detections paired")
+    return unpaired
+
+
+def phase_slice(device, card: str) -> dict:
+    import torch
+
+    import yolort_tpu_torch
+    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
+    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    requests = [frames(10, 8, 720, 1280), frames(11, 4, 480, 640), frames(12, 1, 1080, 1920)]
+    t0 = time.perf_counter()
+    models = {dt: yolort_tpu_torch.yolov5s(device=device, dtype=dt, seed=0)
+              for dt in (torch.float32, torch.bfloat16)}
+    for dt, m in models.items():
+        delta = calibrate_candidate_density(m.model, requests)
+        shift_head_bias(m.model, delta)
+        print(f"[slice] yolov5s {dt} built, head bias shift {delta:.4f}", flush=True)
+    print(f"[slice] models ready in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    runs = [(dt, name, cfg) for dt in (torch.float32, torch.bfloat16)
+            for name, cfg in (("eval", EVAL), ("serving", SERVING))]
+    reset_launch_counts()
+    outs = {}
+    for dt, name, cfg in runs:
+        m = models[dt]
+        m.model.score_thresh, m.model.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+        outs[(dt, name)] = [m(req) for req in requests]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    print(f"[slice] main path launches: {launches}", flush=True)
+    for kname, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {kname} was not launched on the main path")
+    for (dt, name), res in outs.items():
+        dets = [d for req in res for d in req]
+        counts = [len(d["boxes"]) for d in dets]
+        for d in dets:
+            if not len(d["boxes"]):
+                raise AssertionError(f"{dt} {name}: an image has no detections")
+            if not (np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all()):
+                raise AssertionError(f"{dt} {name}: non-finite detections")
+            if d["boxes"].shape[1] != 4 or not (d["labels"] >= 0).all() or not (d["labels"] < 80).all():
+                raise AssertionError(f"{dt} {name}: malformed detections")
+        print(f"[slice] {str(dt):>14} {name:>7}: detections/img {counts}", flush=True)
+
+    # the card's postprocess against the CPU run of the port, same head outputs
+    total_unpaired = 0
+    for dt in (torch.float32, torch.bfloat16):
+        yolo = models[dt].model
+        for name, cfg in (("eval", EVAL), ("serving", SERVING)):
+            yolo.score_thresh, yolo.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+            for req in requests:
+                x = torch.from_numpy(np.stack(req)).to(device)
+                plan = make_plan([tuple(x.shape[1:3])])[0]
+                with torch.inference_mode():
+                    heads = yolo.head_outputs(letterbox_batch(x.to(dt) / 255.0, plan))
+                    det_gpu = yolo.postprocess(heads)
+                    det_cpu = yolo.postprocess([h.cpu() for h in heads])
+                label = f"{dt} {name} {tuple(x.shape[1:3])}"
+                un = pair_detections(det_gpu, det_cpu, label)
+                total_unpaired += un
+                print(f"[slice] card vs CPU {label}: counts equal, {un} unpaired", flush=True)
+    return dict(launches=launches, unpaired=total_unpaired, models=models)
+
+
+def phase_throughput(models, card: str) -> None:
+    """Images/s at batch 32 in the serving config, then where a batch's
+    time goes: network and postprocess by CUDA events, device busy time
+    and the heaviest kernels by torch.profiler."""
+    import torch
+
+    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
+
+    batch = frames(20, 32, 640, 640)
+    for dt, m in models.items():
+        m.model.score_thresh, m.model.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+        m(batch)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m(batch)
+            ts.append(time.perf_counter() - t0)
+        sec = float(np.median(ts))
+        print(f"[times] yolov5s serving {dt} batch 32 @640x640 uint8 -> detections: "
+              f"{32 / sec:.1f} images/s ({sec * 1e3:.2f} ms/batch, host clock, median of 5) | {card}",
+              flush=True)
+
+        yolo = m.model
+        x = torch.from_numpy(np.stack(batch)).to(m.device)
+        plan = make_plan([tuple(x.shape[1:3])])[0]
+        with torch.inference_mode():
+            def net():
+                return yolo.head_outputs(letterbox_batch(x.to(dt) * (1.0 / 255.0), plan))
+
+            heads = net()
+            net_ms = median_ms(net, 5, 3)
+            post_ms = median_ms(lambda: yolo.postprocess(heads), 5, 3)
+        busy, rows = device_profile(lambda: m(batch), iters=3)
+        top = ", ".join(f"{name[:48]} {ms:.3f}" for name, ms in rows[:6])
+        print(f"[breakdown] {dt} batch 32: letterbox+network {net_ms:.2f} ms, postprocess "
+              f"{post_ms:.2f} ms (CUDA events); whole call device-busy {fmt_ms(busy)} of "
+              f"{sec * 1e3:.2f} ms wall | {card}", flush=True)
+        print(f"[breakdown] {dt} heaviest kernels (ms per call): {top}", flush=True)
+        ours = {n: ms for n, ms in rows if any(k in n for k in ("iou_mask", "greedy_walk", "bisect_count",
+                                                                "row_fetch"))}
+        print(f"[breakdown] {dt} hand-written kernels (ms per call): "
+              f"{ {n[:40]: round(v, 4) for n, v in ours.items()} }", flush=True)
+
+
+def main() -> int:
+    import torch
+
+    card = phase_device()
+    import yolort_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    device = torch.device("cuda", 0)
+    phase_build()
+    res = phase_kernels(device, card)
+    sl = phase_slice(device, card)
+    phase_throughput(sl["models"], card)
+    kernels = []
+    for name, (source, replaces) in TPU_KERNELS.items():
+        kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                            launches=sl["launches"][name], **res[name]))
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,11 @@ setup(
     description="TPU-native YOLOv5 runtime stack (JAX/XLA/Pallas)",
     long_description=(Path(__file__).parent / "README.md").read_text(),
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["yolort_tpu", "yolort_tpu.*"]),
+    packages=find_packages(
+        include=["yolort_tpu", "yolort_tpu.*", "yolort_tpu_torch", "yolort_tpu_torch.*"]
+    ),
+    # the port's CUDA sources, compiled with nvcc at first kernel launch
+    package_data={"yolort_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -18,6 +22,7 @@ setup(
         "convert": ["torch"],  # only needed to ingest ultralytics .pt checkpoints
         "vision": ["opencv-python", "pillow"],
         "train": ["optax"],
+        "torch": ["torch"],  # yolort_tpu_torch, the PyTorch/CUDA port
     },
     entry_points={
         "console_scripts": [

@@ -1,0 +1,102 @@
+"""Shared helpers of the parity tests between ``yolort_tpu`` (JAX) and
+``yolort_tpu_torch`` (PyTorch): the same numpy inputs, made from a seed, go
+through both.
+
+The tiny model is r6.0 at depth 0.33 and width 0.125 (widths 8..128,
+80 classes).  Its JAX params are given random BatchNorm statistics, and
+every other conv is folded to the fused form, so both Conv param forms
+cross the bridge.
+"""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+import torch
+
+from yolort_tpu.models.yolo import YOLO as JaxYOLO
+from yolort_tpu.ops.blocks import fuse_conv_bn
+from yolort_tpu_torch.models._bridge import params_from_jax
+from yolort_tpu_torch.models.yolo import YOLO
+
+# the gate runs several xdist workers on few cores
+torch.set_num_threads(1)
+
+DEPTH, WIDTH = 0.33, 0.125
+
+
+def to_numpy(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def randomize_convs(params, seed: int = 0):
+    """Random BatchNorm statistics on every unfused conv leaf, then every
+    other such leaf folded to {'w', 'b'}.  Returns a new numpy tree."""
+    rng = np.random.default_rng(seed)
+    count = [0]
+
+    def walk(p):
+        if isinstance(p, dict) and "gamma" in p:
+            c = p["gamma"].shape[0]
+            q = dict(
+                w=np.asarray(p["w"], np.float32),
+                gamma=rng.uniform(0.5, 1.5, c).astype(np.float32),
+                beta=(rng.standard_normal(c) * 0.1).astype(np.float32),
+                mean=(rng.standard_normal(c) * 0.1).astype(np.float32),
+                var=rng.uniform(0.5, 1.5, c).astype(np.float32),
+            )
+            count[0] += 1
+            if count[0] % 2:
+                w, b = fuse_conv_bn(q["w"], q["gamma"], q["beta"], q["mean"], q["var"])
+                return {"w": w, "b": b}
+            return q
+        if isinstance(p, dict):
+            return {k: walk(v) for k, v in p.items()}
+        return np.asarray(p)
+
+    return walk(to_numpy(params))
+
+
+def shift_head_bias(params, delta: float, num_anchors: int = 3):
+    """Raise every head level's obj and class logits by ``delta`` so random
+    weights produce candidates above the score thresholds."""
+    out = dict(params)
+    head = {}
+    for key, leaf in params["head"].items():
+        b = np.asarray(leaf["b"], np.float32).reshape(num_anchors, -1).copy()
+        b[:, 4:] += delta
+        head[key] = dict(leaf, b=b.reshape(-1))
+    out["head"] = head
+    return out
+
+
+def tiny_pair(seed: int = 0, head_shift: float = 0.0, **kwargs):
+    """(JAX YOLO, numpy params, port YOLO on the CPU) holding the same weights."""
+    jm = JaxYOLO(DEPTH, WIDTH, **kwargs)
+    params = randomize_convs(jm.init(jax.random.PRNGKey(seed)), seed)
+    if head_shift:
+        params = shift_head_bias(params, head_shift)
+    tm = YOLO(DEPTH, WIDTH, device="cpu", **kwargs)
+    params_from_jax(params, tm)
+    return jm, params, tm
+
+
+def nhwc_to_port(x: np.ndarray) -> torch.Tensor:
+    """NHWC numpy -> the port's channels_last NCHW tensor."""
+    return torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
+
+
+def port_to_nhwc(y: torch.Tensor) -> np.ndarray:
+    return y.permute(0, 2, 3, 1).detach().numpy()
+
+
+def random_heads(seed: int, grids, batch: int = 2, nc: int = 80, na: int = 3,
+                 shift: float = 0.0):
+    """Per-level NHWC head logits; ``shift`` raises the obj/class logits."""
+    rng = np.random.default_rng(seed)
+    heads = []
+    for h, w in grids:
+        x = rng.standard_normal((batch, h, w, na, 5 + nc)).astype(np.float32) * 2.0
+        x[..., 4:] += shift
+        heads.append(x.reshape(batch, h, w, na * (5 + nc)))
+    return heads

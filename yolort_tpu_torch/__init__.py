@@ -1,0 +1,19 @@
+"""yolort_tpu_torch: the YOLOv5 runtime of ``yolort_tpu`` in PyTorch, with
+hand-written CUDA kernels for an NVIDIA H100 (Hopper, sm_90a).
+
+Imports torch and numpy only.  The kernels are built with ``nvcc`` at
+their first launch (``ops/cuda/_build.py``); on CPU tensors every kernel
+wrapper takes its plain PyTorch version.
+"""
+
+from yolort_tpu_torch.models import (  # noqa: F401
+    YOLO,
+    YOLOv5,
+    yolov5l,
+    yolov5m,
+    yolov5n,
+    yolov5s,
+    yolov5x,
+)
+
+__all__ = ["YOLO", "YOLOv5", "yolov5n", "yolov5s", "yolov5m", "yolov5l", "yolov5x"]

@@ -1,0 +1,101 @@
+"""YOLO model: backbone -> PAN -> head -> postprocess.
+
+Port of ``yolort_tpu/models/yolo.py`` for r6.0 with three levels.  The
+module takes NHWC images, runs the network in channels_last NCHW, returns
+NHWC head outputs and padded ``Detections``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from yolort_tpu_torch.models.darknet import DarkNet, make_divisible
+from yolort_tpu_torch.models.head import DEFAULT_ANCHOR_GRIDS, DEFAULT_STRIDES, YOLOHead
+from yolort_tpu_torch.models.pan import PathAggregationNetwork
+from yolort_tpu_torch.ops.nms import Detections, batched_postprocess_from_heads
+
+
+class YOLO(nn.Module):
+    """YOLOv5 r6.0.  ``depth_multiple``/``width_multiple`` select the size;
+    the postprocess thresholds are plain attributes (the defaults are the
+    eval config).  Weights are drawn from ``torch.Generator(seed)`` on the
+    CPU, then the module moves to ``device`` and ``dtype``."""
+
+    def __init__(
+        self,
+        depth_multiple: float,
+        width_multiple: float,
+        *,
+        device,
+        dtype: torch.dtype = torch.float32,
+        num_classes: int = 80,
+        strides: Optional[Sequence[int]] = None,
+        anchor_grids: Optional[Sequence[Sequence[float]]] = None,
+        score_thresh: float = 0.005,
+        nms_thresh: float = 0.45,
+        detections_per_img: int = 300,
+        pre_nms_topk: int = 4096,
+        pre_nms_anchors: Optional[int] = None,
+        nms_tile_size: int = 256,
+        seed: int = 0,
+    ):
+        super().__init__()
+        self.num_classes = num_classes
+        self.strides = tuple(strides or DEFAULT_STRIDES)
+        self.anchor_grids = tuple(tuple(a) for a in (anchor_grids or DEFAULT_ANCHOR_GRIDS))
+        self.score_thresh = score_thresh
+        self.nms_thresh = nms_thresh
+        self.detections_per_img = detections_per_img
+        self.pre_nms_topk = pre_nms_topk
+        self.pre_nms_anchors = pre_nms_anchors
+        self.nms_tile_size = nms_tile_size
+
+        gen = torch.Generator().manual_seed(seed)
+        in_channels = tuple(make_divisible(c * width_multiple, 8) for c in (256, 512, 1024))
+        self.backbone = DarkNet(depth_multiple, width_multiple, gen=gen)
+        self.pan = PathAggregationNetwork(in_channels, depth_multiple, gen=gen)
+        self.head = YOLOHead(in_channels, self.num_anchors, self.strides, num_classes, gen=gen)
+        self.eval().requires_grad_(False)  # inference only: no autograd graph
+        self.to(device=device, dtype=dtype, memory_format=torch.channels_last)
+
+    @property
+    def num_anchors(self) -> int:
+        return len(self.anchor_grids[0]) // 2
+
+    def features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """images (B, H, W, 3) letterboxed float -> PAN outputs (channels_last NCHW)."""
+        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        return self.pan(self.backbone(x))
+
+    def head_outputs(self, images: torch.Tensor) -> List[torch.Tensor]:
+        """Per-level raw logits (B, Hl, Wl, A*(5+nc)), NHWC."""
+        return self.head(self.features(images))
+
+    def postprocess(self, head_outputs: Sequence[torch.Tensor]) -> Detections:
+        """Padded detections, in canvas coordinates, of per-level logits."""
+        return batched_postprocess_from_heads(
+            head_outputs, self.strides, self.anchor_grids,
+            num_classes=self.num_classes, score_thresh=self.score_thresh,
+            nms_thresh=self.nms_thresh, detections_per_img=self.detections_per_img,
+            pre_nms_topk=self.pre_nms_topk, pre_nms_anchors=self.pre_nms_anchors,
+            nms_tile_size=self.nms_tile_size,
+        )
+
+    def forward(self, images: torch.Tensor) -> Detections:
+        """images (B, H, W, 3) letterboxed -> padded Detections, canvas coordinates."""
+        return self.postprocess(self.head_outputs(images))
+
+
+_SIZES = {"n": (0.33, 0.25), "s": (0.33, 0.5), "m": (0.67, 0.75), "l": (1.0, 1.0), "x": (1.33, 1.25)}
+
+ARCHS = {f"yolov5_darknet_pan_{s}_r60": s for s in _SIZES}
+
+
+def build_yolo(arch: str, *, device, num_classes: int = 80, **kwargs) -> YOLO:
+    if arch not in ARCHS:
+        raise ValueError(f"Unknown arch '{arch}'. Available: {sorted(ARCHS)}")
+    dm, wm = _SIZES[ARCHS[arch]]
+    return YOLO(dm, wm, device=device, num_classes=num_classes, **kwargs)

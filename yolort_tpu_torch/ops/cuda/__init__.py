@@ -1,0 +1,19 @@
+"""Hand-written Hopper kernels of the port, each beside its plain PyTorch
+version.  A wrapper given CUDA tensors launches its kernel or raises; given
+CPU tensors it takes the plain version.  Nothing is built at import."""
+
+from yolort_tpu_torch.ops.cuda.lookup_kernel import (  # noqa: F401
+    bisect_count,
+    bisect_count_reference,
+    row_fetch,
+    row_fetch_reference,
+)
+from yolort_tpu_torch.ops.cuda.nms_kernel import nms_mask, nms_mask_reference  # noqa: F401
+
+KERNELS = (nms_mask, bisect_count, row_fetch)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNELS:
+        fn.launches = 0

@@ -1,0 +1,110 @@
+"""Greedy NMS keep mask: the CUDA kernel ``csrc/nms_mask.cu`` and its plain
+PyTorch version.
+
+Replaces ``yolort_tpu/ops/pallas/nms_kernel.py`` (``_nms_kernel`` /
+``pallas_nms_mask``).  The kernel writes the upper-triangular
+``iou > thr`` relation as 64-bit words, then one warp per image walks the
+candidates in score order with the removed-set in registers; the source
+note says what bounds it on the H100.  Both versions compute what
+``yolort_tpu.ops.nms.greedy_nms_mask`` computes, for the whole mask: exact
+sequential greedy NMS through the tile at which ``stop_after`` keeps are
+final, validity passed through after it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from yolort_tpu_torch.ops.boxes import box_iou_matrix
+from yolort_tpu_torch.ops.cuda import _build
+
+
+def nms_mask_reference(
+    boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+    tile_size: int = 256, stop_after: int = 0,
+) -> torch.Tensor:
+    """Plain batched greedy NMS: boxes (B, K, 4) xyxy f32, score-sorted and
+    class-offset; valid (B, K) bool -> keep (B, K) bool.
+
+    Tiles of ``tile_size`` take suppression from the finalized earlier
+    tiles, then iterate ``alive <- valid & ~any(sup & alive)`` to its fixed
+    point, which is the sequential greedy result because ``sup`` is strictly
+    upper-triangular in score order.  With ``stop_after > 0`` an image stops
+    at the first tile boundary with that many keeps; its later tiles keep
+    their validity."""
+    bsz, k, _ = boxes.shape
+    t = min(tile_size, k)
+    pad = (-k) % t
+    if pad:
+        boxes = torch.cat([boxes, boxes.new_zeros(bsz, pad, 4)], dim=1)
+        valid = torch.cat([valid, valid.new_zeros(bsz, pad)], dim=1)
+    kp = k + pad
+    thr = torch.tensor(iou_thresh, dtype=torch.float32, device=boxes.device)
+    stop = stop_after if stop_after > 0 else kp
+    tri = torch.ones(t, t, dtype=torch.bool, device=boxes.device).triu(1)
+    alive = valid.clone()
+    kept = torch.zeros(bsz, dtype=torch.int64, device=boxes.device)
+    for start in range(0, kp, t):
+        active = kept < stop
+        if not bool(active.any()):
+            break
+        iou = box_iou_matrix(boxes[:, start:start + t], boxes[:, :start + t]) > thr
+        sup_prev = (iou[:, :, :start] & alive[:, None, :start]).any(-1)
+        tile_valid = valid[:, start:start + t] & ~sup_prev
+        sup_tt = iou[:, :, start:start + t] & tri
+        a = tile_valid
+        while True:
+            new = tile_valid & ~(sup_tt & a[:, :, None]).any(1)
+            if torch.equal(new, a):
+                break
+            a = new
+        tile_alive = torch.where(active[:, None], a, alive[:, start:start + t])
+        alive[:, start:start + t] = tile_alive
+        kept += tile_alive.sum(-1)
+    return alive[:, :k]
+
+
+def nms_mask(
+    boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+    tile_size: int = 256, stop_after: int = 0,
+) -> torch.Tensor:
+    """Greedy NMS keep mask, (B, K, 4) f32 + (B, K) bool -> (B, K) bool.
+
+    CUDA tensors launch ``csrc/nms_mask.cu`` on the current stream (no
+    synchronisation); CPU tensors take ``nms_mask_reference``.  Any other
+    device, or input the kernel does not take, raises."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
+        raise ValueError(f"boxes must be (B, K, 4) float32, got {tuple(boxes.shape)} {boxes.dtype}")
+    if valid.shape != boxes.shape[:2] or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be (B, K) bool, got {tuple(valid.shape)} {valid.dtype}")
+    if valid.device != boxes.device:
+        raise ValueError("boxes and valid must be on one device")
+    if tile_size <= 0:
+        raise ValueError(f"tile_size must be positive, got {tile_size}")
+    if boxes.device.type == "cpu":
+        return nms_mask_reference(boxes, valid, iou_thresh, tile_size, stop_after)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"nms_mask runs on cuda or cpu tensors, not {boxes.device}")
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("nms_mask needs contiguous boxes and valid")
+    if boxes.data_ptr() % 16:
+        raise ValueError("nms_mask needs 16-byte aligned boxes (the kernel loads float4)")
+    bsz, k, _ = boxes.shape
+    words = -(-k // 64)
+    if words > 256:
+        raise ValueError(f"nms_mask takes K <= 16384 candidates, got {k}")
+    keep = torch.empty_like(valid)
+    scratch = torch.empty(bsz * k * words, dtype=torch.int64, device=boxes.device)
+    stop = stop_after if stop_after > 0 else k + 1
+    lib = _build.library()
+    with torch.cuda.device(boxes.device):
+        rc = lib.yt_nms_mask(
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), scratch.data_ptr(),
+            bsz, k, float(iou_thresh), min(tile_size, k), stop, _build.stream_of(boxes),
+        )
+    _build.check(rc, "nms_mask")
+    nms_mask.launches += 1
+    return keep
+
+
+nms_mask.launches = 0

@@ -1,0 +1,190 @@
+"""Fixed-shape batched postprocess: candidate selection, class-aware
+greedy NMS, compaction to padded ``Detections``.
+
+Port of the cell-major path of ``yolort_tpu/ops/nms.py``, the one the JAX
+package resolves to on an accelerator (``flatten_pad='cell'``,
+``topk_impl='bisect'``, ``row_gather='pallas_bisect'``, Pallas NMS):
+
+  1. stage 1: each anchor's best-class score from the conv-layout head rows,
+     then the top k1 anchors (``select_topk_indices``);
+  2. lazy decode of the k1 anchors, then the top k (anchor, class) pairs
+     above the score threshold (``select_topk_threshold``, which runs the
+     ``bisect_count`` and ``row_fetch`` kernels);
+  3. the class-offset trick and greedy NMS (the ``nms_mask`` kernel);
+  4. compaction of the kept candidates into ``detections_per_img`` slots.
+
+Batch is the leading dimension throughout.  Thresholds are taken as
+float32 values, as the JAX program compares them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from yolort_tpu_torch.models.head import anchor_props_from_index
+from yolort_tpu_torch.ops.boxes import cxcywh_to_xyxy
+from yolort_tpu_torch.ops.cuda.nms_kernel import nms_mask
+from yolort_tpu_torch.ops.select import select_topk_indices, select_topk_threshold
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32, so a comparison in any precision agrees with
+    the float32 comparison of the JAX program."""
+    return float(np.float32(x))
+
+
+def nms_keep_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
+                  tile_size: int = 256, stop_after: int = 0) -> torch.Tensor:
+    """Greedy NMS keep mask over score-sorted, class-offset candidates,
+    (B, K, 4) + (B, K) -> (B, K) bool: the ``nms_mask`` kernel on the
+    card, its plain version on the CPU."""
+    return nms_mask(boxes.float().contiguous(), valid.contiguous(), iou_thresh,
+                    tile_size=tile_size, stop_after=stop_after)
+
+
+class Detections(NamedTuple):
+    """Padded, fixed-shape detections, batched."""
+
+    boxes: torch.Tensor  # (B, D, 4) xyxy f32
+    scores: torch.Tensor  # (B, D) f32
+    labels: torch.Tensor  # (B, D) int32
+    valid: torch.Tensor  # (B, D) bool
+    num: torch.Tensor  # (B,) int32
+
+
+@dataclass(frozen=True)
+class NMSConfig:
+    """The postprocess configuration: the semantics axes plus the NMS tile.
+
+    score_thresh / nms_thresh / detections_per_img: the thresholds;
+    pre_nms_topk: the fixed-shape candidate cap k; pre_nms_anchors: the
+    stage-1 screen size k1 (None = k + 8, which makes the two-stage
+    selection exact); nms_tile_size: the granularity of the NMS early exit.
+    """
+
+    num_classes: int
+    num_anchors: int = 3
+    grid_sizes: Tuple[Tuple[int, int], ...] = ()
+    strides: Tuple[int, ...] = ()
+    anchor_grids: Tuple[Tuple[float, ...], ...] = ()
+    score_thresh: float = 0.005
+    nms_thresh: float = 0.45
+    detections_per_img: int = 300
+    pre_nms_topk: int = 4096
+    pre_nms_anchors: Optional[int] = None
+    nms_tile_size: int = 256
+
+
+def _compact_detections(keep, cand_boxes, top_scores, labels, d: int):
+    """Compact kept candidates (score-ordered) into d padded slots; each
+    slot receives exactly one candidate, empty slots are zero."""
+    bsz = keep.shape[0]
+    rank = keep.long().cumsum(1) - 1
+    slot = torch.where(keep & (rank < d), rank, d)  # slot d collects the rest
+    out_boxes = cand_boxes.new_zeros(bsz, d + 1, 4).scatter_(1, slot[..., None].expand(-1, -1, 4), cand_boxes)
+    out_scores = top_scores.new_zeros(bsz, d + 1).scatter_(1, slot, top_scores)
+    out_labels = labels.new_zeros(bsz, d + 1).scatter_(1, slot, labels)
+    num = keep.sum(1).clamp(max=d).to(torch.int32)
+    out_valid = torch.arange(d, device=keep.device)[None, :] < num[:, None]
+    return Detections(out_boxes[:, :d], out_scores[:, :d], out_labels[:, :d], out_valid, num)
+
+
+def _nms_and_compact(cand_boxes, top_scores, labels, valid, *, nms_thresh, detections_per_img,
+                     nms_tile_size) -> Detections:
+    """Class-offset trick (boxes of different classes never overlap), greedy
+    suppression, compaction."""
+    max_coord = torch.where(valid[..., None], cand_boxes, 0.0).amax(dim=(1, 2))
+    offset_boxes = cand_boxes + (labels.to(cand_boxes.dtype) * (max_coord[:, None] + 1.0))[..., None]
+    keep = nms_keep_mask(offset_boxes, valid, nms_thresh, tile_size=nms_tile_size,
+                         stop_after=detections_per_img)
+    return _compact_detections(keep, cand_boxes, top_scores, labels, detections_per_img)
+
+
+def _stage1_per_anchor(rows: torch.Tensor, A: int, kw: int) -> torch.Tensor:
+    """Per-anchor best-class score of (..., A*kw) conv-layout rows:
+    sigmoid(max class logit) * sigmoid(obj logit), in the rows' dtype.
+    Logits are floored at -1e4 as the JAX masked reductions floor them."""
+    x = rows.unflatten(-1, (A, kw))
+    neg = torch.tensor(-1.0e4, dtype=rows.dtype, device=rows.device)
+    obj = torch.maximum(x[..., 4], neg)
+    cls = torch.maximum(x[..., 5:].amax(-1), neg)
+    return torch.sigmoid(cls) * torch.sigmoid(obj)
+
+
+def _decode_stage2_nms(sel_sig, anchor_sel, s1_ok, cfg: NMSConfig, k: int, k1: int) -> Detections:
+    """Lazy box decode of the k1 stage-1 anchors, stage-2 pair selection,
+    NMS and compaction.  sel_sig (B, k1, 5+nc) f32 sigmoids."""
+    nc = cfg.num_classes
+    g, s, st = anchor_props_from_index(anchor_sel, cfg.grid_sizes, cfg.strides, cfg.anchor_grids)
+    xy = (sel_sig[..., 0:2] * 2.0 - 0.5 + g) * st[..., None]
+    wh2 = sel_sig[..., 2:4] * 2.0
+    wh = wh2 * wh2 * s
+    sel_boxes = cxcywh_to_xyxy(torch.cat([xy, wh], dim=-1))  # (B, k1, 4)
+
+    sel_scores = sel_sig[..., 5:5 + nc] * sel_sig[..., 4:5]
+    # slots past the valid-anchor count must not become candidates
+    sel_scores = torch.where(s1_ok[..., None], sel_scores, 0.0)
+    score_thresh = _f32(cfg.score_thresh)
+    top_scores, top_idx = select_topk_threshold(
+        sel_scores.reshape(sel_scores.shape[0], -1), min(k, k1 * nc), score_thresh
+    )
+    labels = (top_idx % nc).to(torch.int32)
+    cand_boxes = torch.gather(sel_boxes, 1, (top_idx // nc)[..., None].expand(-1, -1, 4))
+    valid = top_scores > score_thresh
+    return _nms_and_compact(
+        cand_boxes, top_scores, labels, valid, nms_thresh=_f32(cfg.nms_thresh),
+        detections_per_img=cfg.detections_per_img, nms_tile_size=cfg.nms_tile_size,
+    )
+
+
+def _nms_cells(cells: torch.Tensor, cfg: NMSConfig) -> Detections:
+    """Cell-major lazy-decode postprocess.  cells: (B, n_cells, A*(5+nc))
+    raw logits in conv channel layout, levels concatenated."""
+    A, nc = cfg.num_anchors, cfg.num_classes
+    kw = 5 + nc
+    bsz, n_cells, _ = cells.shape
+    na = n_cells * A
+    k = min(cfg.pre_nms_topk, na * nc)
+    k1 = min(cfg.pre_nms_anchors if cfg.pre_nms_anchors is not None else k + 8, na)
+
+    per_anchor = _stage1_per_anchor(cells, A, kw).reshape(bsz, na)
+    s1_ok, anchor_sel = select_topk_indices(per_anchor.float(), k1)
+    # anchor index = cell * A + a, so the (B, na, kw) view holds each
+    # anchor's segment as one row
+    seg = torch.gather(cells.reshape(bsz, na, kw), 1, anchor_sel[..., None].expand(-1, -1, kw))
+    sel_sig = torch.sigmoid(seg.float())
+    return _decode_stage2_nms(sel_sig, anchor_sel, s1_ok, cfg, k, k1)
+
+
+def batched_postprocess_from_heads(
+    head_outputs: Sequence[torch.Tensor],
+    strides: Sequence[int],
+    anchor_grids: Sequence[Sequence[float]],
+    *,
+    num_classes: int,
+    score_thresh: float = 0.005,
+    nms_thresh: float = 0.45,
+    detections_per_img: int = 300,
+    pre_nms_topk: int = 4096,
+    pre_nms_anchors: Optional[int] = None,
+    nms_tile_size: int = 256,
+) -> Detections:
+    """Batched postprocess from raw per-level head logits (B, H, W, A*(5+nc)),
+    NHWC, in the model dtype."""
+    cfg = NMSConfig(
+        num_classes=num_classes,
+        num_anchors=len(anchor_grids[0]) // 2,
+        grid_sizes=tuple((int(o.shape[1]), int(o.shape[2])) for o in head_outputs),
+        strides=tuple(strides),
+        anchor_grids=tuple(tuple(a) for a in anchor_grids),
+        score_thresh=score_thresh, nms_thresh=nms_thresh,
+        detections_per_img=detections_per_img, pre_nms_topk=pre_nms_topk,
+        pre_nms_anchors=pre_nms_anchors, nms_tile_size=nms_tile_size,
+    )
+    bsz = head_outputs[0].shape[0]
+    cells = torch.cat([o.reshape(bsz, -1, o.shape[3]) for o in head_outputs], dim=1)
+    return _nms_cells(cells, cfg)
