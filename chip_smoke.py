@@ -5,18 +5,29 @@
 
 Phases, each fatal on failure:
   1. device: needs CUDA; prints the card's name and power limit; TF32 off;
-  2. build: compiles the CUDA kernels from yolort_tpu_torch/csrc/;
+  2. build: compiles the CUDA kernels from yolort_tpu_torch/csrc/ (one
+     nvcc per source, in parallel);
   3. kernels: nms_mask, bisect_count and row_fetch against their plain
      PyTorch versions on the card, at the main path's shapes, batch 8;
      results must be bit-identical;
   4. slice: yolov5s at full width, seeded random weights with the head
      biases shifted to a realistic candidate load, serves uint8 frames of
      three sizes in float32 and bfloat16 under the eval (0.005 / 4096) and
-     serving (0.25 / 512) configs; every kernel must have launched, every
-     image must carry detections, and the card's postprocess must agree
-     with the CPU run of the port on the same head outputs;
-  5. times: each kernel's median time beside its plain version's, and the
-     slice's images/s at batch 32.
+     serving (0.25 / 512) configs; every postprocess kernel must have
+     launched, every image must carry detections, and the card's
+     postprocess must agree with the CPU run of the port on the same head
+     outputs;
+  5. int8: the same yolov5s calibrated on 4 batches of 2 letterboxed 640
+     frames, quantized and finalized (ops/quantization.py); qconv1x1 and
+     qconv_kxk against their plain versions at every distinct conv shape of
+     the int8 network at batch 8 @640, on its own activations (int8 and
+     float outputs bit-identical); then the int8 model serves the same
+     requests in both dtypes and configs: both qconv kernels and the
+     postprocess kernels must launch, every image must carry detections,
+     and the card's int8 head outputs must agree with the CPU run of the
+     port on one 480x640 frame within the bound printed there;
+  6. times: each kernel's time beside its plain version's, and images/s of
+     the float and int8 slices at batch 32.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.  Imports nothing of JAX.
 """
@@ -40,7 +51,10 @@ TPU_KERNELS = {
                      "yolort_tpu/ops/pallas/lookup_kernel.py:382"),
     "row_fetch": ("yolort_tpu_torch/csrc/row_fetch.cu",
                   "yolort_tpu/ops/pallas/lookup_kernel.py:481"),
+    "qconv1x1": ("yolort_tpu_torch/csrc/qconv.cu", "yolort_tpu/ops/pallas/qconv.py:144"),
+    "qconv_kxk": ("yolort_tpu_torch/csrc/qconv.cu", "yolort_tpu/ops/pallas/qconv.py:238"),
 }
+POSTPROCESS_KERNELS = ("nms_mask", "bisect_count", "row_fetch")
 
 
 def card_line() -> str:
@@ -405,10 +419,10 @@ def phase_slice(device, card: str) -> dict:
         outs[(dt, name)] = [m(req) for req in requests]
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in KERNELS}
-    print(f"[slice] main path launches: {launches}", flush=True)
-    for kname, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {kname} was not launched on the main path")
+    print(f"[slice] float path launches: {launches}", flush=True)
+    for kname in POSTPROCESS_KERNELS:
+        if launches[kname] <= 0:
+            raise AssertionError(f"kernel {kname} was not launched on the float path")
     for (dt, name), res in outs.items():
         dets = [d for req in res for d in req]
         counts = [len(d["boxes"]) for d in dets]
@@ -438,13 +452,207 @@ def phase_slice(device, card: str) -> dict:
                 un = pair_detections(det_gpu, det_cpu, label)
                 total_unpaired += un
                 print(f"[slice] card vs CPU {label}: counts equal, {un} unpaired", flush=True)
-    return dict(launches=launches, unpaired=total_unpaired, models=models)
+    return dict(launches=launches, unpaired=total_unpaired, models=models, requests=requests)
 
 
-def phase_throughput(models, card: str) -> None:
+def build_int8(device, requests, batch):
+    """yolov5s int8 by the bench recipe: the seeded float32 model with its
+    head biases shifted, calibrated on 4 batches of 2 letterboxed frames
+    of ``batch``, quantized, and its scales finalized on one frame."""
+    import torch
+
+    import yolort_tpu_torch
+    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
+    from yolort_tpu_torch.ops.blocks import Conv, Conv2dOnly
+    from yolort_tpu_torch.ops.quantization import (
+        calibrate_activations, finalize_scales, quantize_compute_params,
+    )
+
+    t0 = time.perf_counter()
+    m = yolort_tpu_torch.yolov5s(device=device, dtype=torch.float32, seed=0)
+    delta = calibrate_candidate_density(m.model, requests)
+    shift_head_bias(m.model, delta)
+    x = torch.from_numpy(np.stack(batch[:8])).to(device)
+    plan = make_plan([tuple(x.shape[1:3])])[0]
+    cal = [letterbox_batch(x[i:i + 2].float() / 255.0, plan) for i in (0, 2, 4, 6)]
+    calibrate_activations(m.model, cal)
+    qmodel = quantize_compute_params(m.model)
+    finalize_scales(qmodel, cal[0][:1])
+    convs = [mod for mod in qmodel.modules() if isinstance(mod, (Conv, Conv2dOnly))]
+    if not all(mod.quantized for mod in convs):
+        raise AssertionError("yolov5s int8: a conv was left in float")
+    torch.cuda.synchronize()
+    print(f"[int8] yolov5s head bias shift {delta:.4f}, calibrated on 4x2 frames "
+          f"{tuple(cal[0].shape[1:3])}, {len(convs)} convs quantized, scales finalized in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return qmodel
+
+
+def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
+    """qconv1x1 and qconv_kxk against their plain versions at every distinct
+    conv shape of the int8 yolov5s at batch 8 @640, on the activations the
+    network itself produces there; each timed beside its plain version."""
+    import torch
+
+    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
+    from yolort_tpu_torch.ops.blocks import Conv, Conv2dOnly
+    from yolort_tpu_torch.ops.cuda import (
+        qconv1x1, qconv1x1_reference, qconv_kxk, qconv_kxk_reference,
+    )
+
+    seen = {}
+
+    def hook(mod, inputs, output):
+        x = inputs[0]
+        shape = tuple((x.q if hasattr(x, "q") else x).shape)
+        act = "silu" if isinstance(mod, Conv) else "none"
+        key = (mod.k, mod.s, mod.pad, shape[1], mod.wq.shape[0], shape[2], shape[3], act,
+               mod.os is None)
+        seen.setdefault(key, (mod, x))
+
+    hooks = [mod.register_forward_hook(hook) for mod in qmodel.modules()
+             if isinstance(mod, (Conv, Conv2dOnly))]
+    x = torch.from_numpy(np.stack(batch[:B])).to(device)
+    plan = make_plan([tuple(x.shape[1:3])])[0]
+    with torch.inference_mode():
+        qmodel.head_outputs(letterbox_batch(x.float() / 255.0, plan))
+    for h in hooks:
+        h.remove()
+
+    res = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, shapes=0) for n in ("qconv1x1", "qconv_kxk")}
+    calls = {n: [] for n in res}
+    for (k, s, pad, cin, cout, h, w, act, float_out), (mod, xin) in sorted(seen.items()):
+        xq, scale, bias, os, ft = mod.qconv_operands(xin)
+        args = (xq, mod.wq, scale, bias)
+        kw = dict(inv_out_scale=None if os is None else 1.0 / os, out_dtype=ft)
+        if k == 1 and s == 1 and pad == 0:
+            name = "qconv1x1"
+            run = lambda a=args, kw=kw, act=act: qconv1x1(*a, act=act, **kw)  # noqa: E731
+            plain = lambda a=args, kw=kw, act=act: qconv1x1_reference(*a, act=act, **kw)  # noqa: E731
+        else:
+            name = "qconv_kxk"
+            g = dict(k=k, stride=s, pad=pad, act=act)
+            run = lambda a=args, kw=kw, g=g: qconv_kxk(*a, **g, **kw)  # noqa: E731
+            plain = lambda a=args, kw=kw, g=g: qconv_kxk_reference(*a, **g, **kw)  # noqa: E731
+        with torch.inference_mode():
+            got, ref = run(), plain()
+            torch.cuda.synchronize()
+            if got.dtype != ref.dtype or got.shape != ref.shape:
+                raise AssertionError(f"{name} {k}x{k}/s{s} {cin}->{cout} @{h}x{w}: "
+                                     f"{got.dtype} {tuple(got.shape)} vs {ref.dtype} {tuple(ref.shape)}")
+            err = (got.double() - ref.double()).abs().max().item()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{name} {k}x{k}/s{s} {cin}->{cout} @{h}x{w} {act}: differs from "
+                                     f"the plain version (max abs err {err})")
+            ms = median_ms(run, 10, 3)
+            pms = median_ms(plain, 2, 3)
+        r = res[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["shapes"] += 1
+        calls[name].append((run, plain))
+        out = "float" if float_out else "int8"
+        print(f"[kernels] {name} B={B} {k}x{k}/s{s} {cin}->{cout} @{h}x{w} {act} -> {out}: "
+              f"bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms (events) | {card}", flush=True)
+    for name, r in res.items():
+        if not r["shapes"]:
+            raise AssertionError(f"{name}: no conv of the int8 network runs on it")
+        with torch.inference_mode():
+            r["device_ms"] = device_profile(lambda c=calls[name]: [run() for run, _ in c], iters=3)[0]
+            r["plain_device_ms"] = device_profile(lambda c=calls[name]: [p() for _, p in c], iters=1)[0]
+        r["at"] = f"B={B} @640, sum over the {r['shapes']} distinct shapes of the int8 network"
+        print(f"[times] {name} B={B}, all {r['shapes']} shapes: kernel {r['ms']:.4f} ms (device "
+              f"{fmt_ms(r['device_ms'])}), plain {r['plain_ms']:.4f} ms (device "
+              f"{fmt_ms(r['plain_device_ms'])}) | {card}", flush=True)
+    return res
+
+
+def phase_int8_slice(qmodel, requests, device, card: str) -> dict:
+    """The int8 model through ``YOLOv5.__call__`` in both dtypes and configs,
+    then the card against the CPU run of the port on one frame."""
+    import copy
+
+    import torch
+
+    from yolort_tpu_torch import YOLOv5
+    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
+    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    models = {dt: YOLOv5(model=qmodel, device=device, dtype=dt) for dt in (torch.float32, torch.bfloat16)}
+    reset_launch_counts()
+    outs = {}
+    for dt, m in models.items():
+        for name, cfg in (("eval", EVAL), ("serving", SERVING)):
+            qmodel.score_thresh, qmodel.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+            outs[(dt, name)] = [m(req) for req in requests]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    print(f"[int8] int8 path launches: {launches}", flush=True)
+    for kname, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {kname} was not launched on the int8 path")
+    for (dt, name), res in outs.items():
+        dets = [d for req in res for d in req]
+        for d in dets:
+            if not len(d["boxes"]):
+                raise AssertionError(f"int8 {dt} {name}: an image has no detections")
+            if not (np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all()):
+                raise AssertionError(f"int8 {dt} {name}: non-finite detections")
+            if d["boxes"].shape[1] != 4 or not ((d["labels"] >= 0) & (d["labels"] < 80)).all():
+                raise AssertionError(f"int8 {dt} {name}: malformed detections")
+        print(f"[int8] {str(dt):>14} {name:>7}: detections/img {[len(d['boxes']) for d in dets]}",
+              flush=True)
+
+    # the card's int8 network against the CPU run of the port (plain
+    # versions) on one 480x640 frame, same float32 canvas
+    raw = torch.from_numpy(np.stack(frames(13, 1, 480, 640)))
+    canvas = letterbox_batch(raw.float() / 255.0, make_plan([tuple(raw.shape[1:3])])[0])
+    cpu_model = copy.deepcopy(qmodel).cpu()
+    with torch.inference_mode():
+        feats_gpu = qmodel.features(canvas.to(device))
+        feats_cpu = cpu_model.features(canvas)
+        heads_gpu = qmodel.head(feats_gpu)
+        heads_cpu = cpu_model.head(feats_cpu)
+    flips = []
+    for fg, fc in zip(feats_gpu, feats_cpu):
+        d = (fg.q.cpu().int() - fc.q.int()).abs()
+        flips.append((int((d > 0).sum()), d.numel(), int(d.max())))
+    head_err = max((hg.cpu() - hc).abs().max().item() for hg, hc in zip(heads_gpu, heads_cpu))
+    head_max = max(hc.abs().max().item() for hc in heads_cpu)
+    print(f"[int8] card vs CPU, 1x480x640 float32: PAN int8 features differing (count, of, max levels) "
+          f"{flips}; head logits max abs diff {head_err:.3e} (max |logit| {head_max:.3f})", flush=True)
+    # bound: the int8 activations identical but where the card's and the
+    # CPU's sigmoid differ by an ulp at a rounding boundary (a one-level
+    # flip, rarely more after it propagates), and logits within 1e-3 of the
+    # largest logit
+    for n, total, mx in flips:
+        if n > 1e-3 * total or mx > 2:
+            raise AssertionError(f"int8 card vs CPU: {n}/{total} feature values differ, up to {mx} levels")
+    if head_err > 1e-3 * head_max:
+        raise AssertionError(f"int8 card vs CPU: head logits differ by {head_err} (max |logit| {head_max})")
+
+    unpaired = 0
+    for dt in (torch.float32, torch.bfloat16):
+        with torch.inference_mode():
+            heads = qmodel.head_outputs(canvas.to(device, dt))
+        for name, cfg in (("eval", EVAL), ("serving", SERVING)):
+            qmodel.score_thresh, qmodel.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+            with torch.inference_mode():
+                det_gpu = qmodel.postprocess(heads)
+                det_cpu = qmodel.postprocess([h.cpu() for h in heads])
+            un = pair_detections(det_gpu, det_cpu, f"int8 {dt} {name}")
+            unpaired += un
+            print(f"[int8] card vs CPU postprocess, int8 {dt} {name} (480, 640): counts equal, "
+                  f"{un} unpaired", flush=True)
+    return dict(launches=launches, models=models, unpaired=unpaired)
+
+
+def phase_throughput(models, card: str, label: str) -> None:
     """Images/s at batch 32 in the serving config, then where a batch's
-    time goes: network and postprocess by CUDA events, device busy time
-    and the heaviest kernels by torch.profiler."""
+    time goes: network and postprocess by CUDA events, device busy time,
+    the heaviest kernels and the hand-written kernels' share by
+    torch.profiler."""
     import torch
 
     from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
@@ -460,7 +668,7 @@ def phase_throughput(models, card: str) -> None:
             m(batch)
             ts.append(time.perf_counter() - t0)
         sec = float(np.median(ts))
-        print(f"[times] yolov5s serving {dt} batch 32 @640x640 uint8 -> detections: "
+        print(f"[times] yolov5s {label} serving {dt} batch 32 @640x640 uint8 -> detections: "
               f"{32 / sec:.1f} images/s ({sec * 1e3:.2f} ms/batch, host clock, median of 5) | {card}",
               flush=True)
 
@@ -476,14 +684,21 @@ def phase_throughput(models, card: str) -> None:
             post_ms = median_ms(lambda: yolo.postprocess(heads), 5, 3)
         busy, rows = device_profile(lambda: m(batch), iters=3)
         top = ", ".join(f"{name[:48]} {ms:.3f}" for name, ms in rows[:6])
-        print(f"[breakdown] {dt} batch 32: letterbox+network {net_ms:.2f} ms, postprocess "
+        print(f"[breakdown] {label} {dt} batch 32: letterbox+network {net_ms:.2f} ms, postprocess "
               f"{post_ms:.2f} ms (CUDA events); whole call device-busy {fmt_ms(busy)} of "
               f"{sec * 1e3:.2f} ms wall | {card}", flush=True)
-        print(f"[breakdown] {dt} heaviest kernels (ms per call): {top}", flush=True)
+        print(f"[breakdown] {label} {dt} heaviest kernels (ms per call): {top}", flush=True)
         ours = {n: ms for n, ms in rows if any(k in n for k in ("iou_mask", "greedy_walk", "bisect_count",
-                                                                "row_fetch"))}
-        print(f"[breakdown] {dt} hand-written kernels (ms per call): "
-              f"{ {n[:40]: round(v, 4) for n, v in ours.items()} }", flush=True)
+                                                                "row_fetch", "qconv_kernel"))}
+        qms = sum(ms for n, ms in ours.items() if "qconv_kernel" in n)
+        share = f"{100 * qms / busy:.1f}%" if busy else "not measured"
+        by_kernel = {}
+        for n, ms in ours.items():
+            short = next(k for k in ("iou_mask", "greedy_walk", "bisect_count", "row_fetch",
+                                     "qconv_kernel") if k in n)
+            by_kernel[short] = round(by_kernel.get(short, 0.0) + ms, 4)
+        print(f"[breakdown] {label} {dt} hand-written kernels (ms per call): {by_kernel}; "
+              f"qconv kernels {qms:.3f} ms, {share} of device-busy", flush=True)
 
 
 def main() -> int:
@@ -496,11 +711,18 @@ def main() -> int:
     phase_build()
     res = phase_kernels(device, card)
     sl = phase_slice(device, card)
-    phase_throughput(sl["models"], card)
+    batch = frames(20, 32, 640, 640)
+    qmodel = build_int8(device, sl["requests"], batch)
+    res.update(phase_qconv_kernels(qmodel, batch, device, card))
+    q8 = phase_int8_slice(qmodel, sl["requests"], device, card)
+    phase_throughput(sl["models"], card, "float")
+    phase_throughput(q8["models"], card, "int8")
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
+        by_path = {"float": sl["launches"][name], "int8": q8["launches"][name]}
+        r = {k: v for k, v in res[name].items() if k != "shapes"}
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=sl["launches"][name], **res[name]))
+                            launches=sum(by_path.values()), launches_by_path=by_path, **r))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,10 @@ import torch
 import yolort_tpu_torch
 from yolort_tpu_torch.ops.cuda import (
     KERNELS, _build, bisect_count, bisect_count_reference, nms_mask, nms_mask_reference,
-    reset_launch_counts, row_fetch, row_fetch_reference,
+    qconv, qconv1x1, qconv1x1_reference, qconv_kxk, qconv_kxk_reference, reset_launch_counts,
+    row_fetch, row_fetch_reference,
 )
+from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, padded_depth
 
 PKG = Path(yolort_tpu_torch.__file__).parent
 
@@ -61,7 +63,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     for a, b in zip(bisect_count(table, 300, 0x3E800000), bisect_count_reference(table, 300, 0x3E800000)):
         assert torch.equal(a, b)
     assert torch.equal(row_fetch(table, idx), row_fetch_reference(table, idx))
-    assert [fn.launches for fn in KERNELS] == [0, 0, 0]
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
     assert not _build._loaded  # nothing was built or loaded
 
 
@@ -150,3 +152,78 @@ def test_row_fetch_kernel_matches_plain(cuda_device):
     for tab in (table, table.to(torch.bfloat16), table[..., :85].contiguous().to(torch.bfloat16)):
         iv = torch.int32 if tab.dtype == torch.float32 else torch.int16
         assert torch.equal(row_fetch(tab, idx).view(iv), row_fetch_reference(tab, idx).view(iv))
+
+
+def _qconv_operands(k, n, h, w, c, co, seed, device="cpu"):
+    """Seeded int8 activations (channels_last), packed int8 weights, f32
+    scale and bias."""
+    rng = np.random.default_rng(seed)
+    xq = torch.from_numpy(rng.integers(-127, 128, (n, h, w, c), dtype=np.int8))
+    wq = pack_weight(rng.integers(-10, 11, (k, k, c, co), dtype=np.int8))
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, (co,)).astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-1, 1, (co,)).astype(np.float32))
+    xq = xq.permute(0, 3, 1, 2)  # NHWC bytes seen as channels_last NCHW
+    return tuple(t.to(device) for t in (xq, wq, scale, bias))
+
+
+def test_pack_weight_layout():
+    wq = np.random.default_rng(0).integers(-127, 128, (6, 6, 3, 5), dtype=np.int8)
+    packed = pack_weight(wq)
+    assert packed.shape == (5, padded_depth(6, 3)) == (5, 108)
+    np.testing.assert_array_equal(packed.numpy()[2, :3], wq[0, 0, :, 2])
+    np.testing.assert_array_equal(packed.numpy()[2, 3:6], wq[0, 1, :, 2])
+    odd = pack_weight(wq[:3, :3, :, :])  # K = 27 -> padded to 28 with a zero
+    assert odd.shape == (5, 28) and (odd[:, 27] == 0).all()
+
+
+def test_qconv_cpu_tensors_take_the_plain_versions():
+    reset_launch_counts()
+    xq, wq, scale, bias = _qconv_operands(3, 1, 8, 10, 16, 32, seed=1)
+    for fn, ref, kw in ((qconv1x1, qconv1x1_reference, {}),
+                        (qconv_kxk, qconv_kxk_reference, dict(k=3))):
+        w = wq[:, :16].contiguous() if fn is qconv1x1 else wq
+        got = fn(xq, w, scale, bias, inv_out_scale=4.0, **kw)
+        assert torch.equal(got, ref(xq, w, scale, bias, inv_out_scale=4.0, **kw))
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
+    assert not _build._loaded
+
+
+def test_qconv_wrappers_check_their_inputs_and_refuse_groups():
+    xq, wq, scale, bias = _qconv_operands(3, 1, 8, 10, 16, 32, seed=2)
+    with pytest.raises(ValueError, match="groups"):
+        qconv(xq, wq, scale, bias, k=3, groups=2)
+    with pytest.raises(ValueError, match="wq"):
+        qconv_kxk(xq, wq[:, :-4], scale, bias, k=3)
+    with pytest.raises(ValueError, match="int8"):
+        qconv_kxk(xq.float(), wq, scale, bias, k=3)
+    with pytest.raises(ValueError, match="scale"):
+        qconv_kxk(xq, wq, scale.double(), bias, k=3)
+    with pytest.raises(ValueError, match="act"):
+        qconv_kxk(xq, wq, scale, bias, k=3, act="relu")
+    with pytest.raises(ValueError, match="out_dtype"):
+        qconv_kxk(xq, wq, scale, bias, k=3, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        qconv_kxk(*(t.to("meta") for t in (xq, wq, scale, bias)), k=3)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        qconv1x1(*(t.to("meta") for t in (xq, wq[:, :16].contiguous(), scale, bias)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s,pad,n,h,w,c,co", [
+    (6, 2, 2, 2, 64, 96, 3, 32),
+    (3, 2, 1, 2, 40, 48, 32, 64),
+    (3, 1, 1, 2, 20, 24, 64, 64),
+    (1, 1, 0, 2, 20, 24, 128, 96),
+    (1, 1, 0, 1, 7, 9, 36, 255),
+])
+def test_qconv_kernels_match_plain(cuda_device, k, s, pad, n, h, w, c, co):
+    args = _qconv_operands(k, n, h, w, c, co, seed=k + c, device=cuda_device)
+    for act in ("silu", "none"):
+        kw = dict(k=k, stride=s, pad=pad, act=act)
+        want = qconv_kxk_reference(*args, inv_out_scale=6.0, **kw)
+        got = qconv(*args, inv_out_scale=6.0, **kw)
+        assert torch.equal(got, want)
+        for dt in (torch.float32, torch.bfloat16):
+            wantf = qconv_kxk_reference(*args, out_dtype=dt, **kw)
+            gotf = qconv(*args, out_dtype=dt, **kw)
+            assert gotf.dtype == dt and torch.equal(gotf, wantf)

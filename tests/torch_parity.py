@@ -15,9 +15,10 @@ import numpy as np
 import torch
 
 from yolort_tpu.models.yolo import YOLO as JaxYOLO
-from yolort_tpu.ops.blocks import fuse_conv_bn
+from yolort_tpu.ops.blocks import StaticScale, fuse_conv_bn
 from yolort_tpu_torch.models._bridge import params_from_jax
 from yolort_tpu_torch.models.yolo import YOLO
+from yolort_tpu_torch.ops.blocks import Conv, Conv2dOnly
 
 # the gate runs several xdist workers on few cores
 torch.set_num_threads(1)
@@ -100,3 +101,38 @@ def random_heads(seed: int, grids, batch: int = 2, nc: int = 80, na: int = 3,
         x[..., 4:] += shift
         heads.append(x.reshape(batch, h, w, na * (5 + nc)))
     return heads
+
+
+def unwrap_static(tree):
+    """A finalized JAX int8 tree as numpy leaves and float scales."""
+    if isinstance(tree, dict):
+        return {k: unwrap_static(v) for k, v in tree.items()}
+    if isinstance(tree, StaticScale):
+        return tree.v
+    return np.asarray(tree)
+
+
+MARKS = ("_absmax", "_out_absmax", "_add_absmax")
+
+
+def copy_marks(tree, module):
+    """Put the calibration marks of a calibrated JAX tree on the port's
+    modules (the bridge carries weights, not marks)."""
+    for key in MARKS:
+        if key in tree:
+            setattr(module, key, float(tree[key]))
+    if isinstance(module, (Conv, Conv2dOnly)):
+        return
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            copy_marks(sub, module._modules[key])
+
+
+def port_int8_leaf(module) -> dict:
+    """A quantized port conv as {'wq' packed (Cout, Kpad), 'ws', 'xs'[, 'os'],
+    'b'} (the port always holds a bias, zeros if the conv had none)."""
+    leaf = {"wq": module.wq.numpy(), "ws": module.ws_bits.view(torch.float32).numpy(),
+            "xs": module.xs, "b": module.b_bits.view(torch.float32).numpy()}
+    if module.os is not None:
+        leaf["os"] = module.os
+    return leaf

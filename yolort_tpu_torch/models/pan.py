@@ -3,6 +3,7 @@
 Port of ``yolort_tpu/models/pan.py``: the first inner block is SPP (the
 r6.0 layout), the rest are C3 / Conv.  ``inner`` and ``layer`` children
 carry the JAX params keys (the upsample slots "2" and "5" hold no params).
+On an int8 model the features are ``QTensor``s and the concats stay int8.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 from torch import nn
 
 from yolort_tpu_torch.models.darknet import depth_gain
-from yolort_tpu_torch.ops.blocks import C3, SPP, Conv, upsample2x
+from yolort_tpu_torch.ops.blocks import C3, SPP, Conv, _qconcat, upsample2x
 
 
 class PathAggregationNetwork(nn.Module):
@@ -45,10 +46,10 @@ class PathAggregationNetwork(nn.Module):
         p3, p4, p5 = feats
         inner = self.inner
         top = inner["1"](inner["0"](p5))
-        mid = inner["4"](inner["3"](torch.cat([upsample2x(top), p4], dim=1)))
-        low = torch.cat([upsample2x(mid), p3], dim=1)
+        mid = inner["4"](inner["3"](_qconcat([upsample2x(top), p4])))
+        low = _qconcat([upsample2x(mid), p3])
         layer = self.layer
         out3 = layer[0](low)
-        out4 = layer[2](torch.cat([layer[1](out3), mid], dim=1))
-        out5 = layer[4](torch.cat([layer[3](out4), top], dim=1))
+        out4 = layer[2](_qconcat([layer[1](out3), mid]))
+        out5 = layer[4](_qconcat([layer[3](out4), top]))
         return out3, out4, out5

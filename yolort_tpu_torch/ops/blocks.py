@@ -1,10 +1,21 @@
-"""YOLOv5 building blocks as ``nn.Module``s, float path.
+"""YOLOv5 building blocks as ``nn.Module``s, float and int8 paths.
 
 Port of ``yolort_tpu/ops/blocks.py`` (Conv, Conv2dOnly, Bottleneck, C3,
-SPP/SPPF, ``max_pool_same``, ``upsample2x``).  Activations are NCHW in
-``channels_last`` memory; weights are OIHW.  Child names mirror the JAX
-params tree (``cv1``, ``m.0``, ...), so ``models/_bridge.py`` loads a JAX
-tree by walking it.
+SPP/SPPF, ``max_pool_same``, ``upsample2x``, and the int8-compute glue:
+``QTensor``, ``_as_float``, ``_qconcat``, ``_qadd``; the JAX
+``_quantize_input`` and ``_requantize`` are ``quantize_int8`` of the qconv
+module, whose kernel epilogue does the requantize).
+Activations are NCHW in ``channels_last`` memory; weights are OIHW.  Child
+names mirror the JAX params tree (``cv1``, ``m.0``, ...), so
+``models/_bridge.py`` loads a JAX tree by walking it.
+
+int8 compute: a quantized Conv / Conv2dOnly (``set_int8``, made by
+``ops/quantization.py`` or the bridge) runs its conv through the
+``qconv`` kernels, and a Conv with an output scale ``os`` hands the next
+block a ``QTensor``, so the activations between convs stay int8.  Scales
+are Python floats, the port's form of the JAX ``StaticScale``: after
+``finalize_scales`` they are fixed constants, and every concat group
+shares one scale.
 
 Initialisation draws from a ``torch.Generator`` on the CPU, so one seed
 gives the same weights on every device; the model is moved to its device
@@ -14,12 +25,14 @@ once built.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, qconv, quantize_int8
 
 # BatchNorm epsilon of the model zoo (as in the JAX package)
 BN_EPS = 1e-3
@@ -42,13 +55,116 @@ def _as_tensor(a, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32), device=like.device).to(like.dtype)
 
 
-class Conv2dOnly(nn.Module):
+# --- int8 compute path --------------------------------------------------
+
+# scale-group discovery (quantization.finalize_scales): when set to a list,
+# _qconcat records the scale objects of every concat's parts
+_UNIFY: Optional[List[list]] = None
+
+
+class QTensor(NamedTuple):
+    """int8 activation flowing between quantized convs: ``q`` int8 NCHW in
+    channels_last memory, value = q * s; ``s`` the per-tensor scale (a
+    Python float); ``dtype`` the float compute dtype to dequantize into."""
+
+    q: torch.Tensor
+    s: float
+    dtype: torch.dtype
+
+
+def _as_float(x):
+    """Dequantize a QTensor (identity on float tensors)."""
+    if isinstance(x, QTensor):
+        return x.q.to(x.dtype) * x.s
+    return x
+
+
+def _qconcat(parts, dim: int = 1):
+    """Channel concat that stays int8 when every part is a QTensor: parts
+    whose scale is below the largest are rescaled to it in the int8
+    domain (none are once ``finalize_scales`` has unified the group);
+    a float concat otherwise."""
+    if all(isinstance(p, QTensor) for p in parts):
+        if _UNIFY is not None:
+            _UNIFY.append([p.s for p in parts])
+        ft = parts[0].dtype
+        common = max(p.s for p in parts)
+        qs = [p.q if p.s == common else quantize_int8(p.q.to(ft), p.s / common) for p in parts]
+        return QTensor(torch.cat(qs, dim=dim), float(common), ft)
+    return torch.cat([_as_float(p) for p in parts], dim=dim)
+
+
+def _qadd(a, b, out_scale=None):
+    """Residual add.  Both QTensor: an int8-domain add requantized to the
+    calibrated post-add scale ``out_scale`` (else to the upper bound
+    sa + sb); a float add otherwise.  ``out_scale`` is carried by
+    reference: scale-group discovery matches scales by identity."""
+    if isinstance(a, QTensor) and isinstance(b, QTensor):
+        ft = a.dtype
+        sval = a.s + b.s if out_scale is None else out_scale
+        ta = a.q.to(ft) if a.s == sval else a.q.to(ft) * (a.s / sval)
+        tb = b.q.to(ft) if b.s == sval else b.q.to(ft) * (b.s / sval)
+        return QTensor(torch.round(ta + tb).clamp_(-127.0, 127.0).to(torch.int8), sval, ft)
+    return _as_float(a) + _as_float(b)
+
+
+def _f32_bits(a, device) -> torch.Tensor:
+    """float32 values held as int32 bits, so ``Module.to(dtype)`` leaves
+    them float32 (the epilogue's scale and bias stay f32, as in JAX)."""
+    return torch.tensor(np.asarray(a, np.float32), device=device).view(torch.int32)
+
+
+class _Int8Conv:
+    """The int8 form shared by Conv and Conv2dOnly: buffers ``wq`` (Cout,
+    Kpad) int8 packed for the qconv kernels, ``ws_bits`` / ``b_bits`` (the
+    per-channel weight scale and the folded bias, float32 as int32 bits),
+    and the activation scales ``xs`` (input) and ``os`` (output, or None:
+    float out) as Python floats."""
+
+    @property
+    def quantized(self) -> bool:
+        return "wq" in self._buffers
+
+    def set_int8(self, wq: np.ndarray, ws, xs: float, os: Optional[float] = None, b=None) -> None:
+        """Take the int8-compute form: ``wq`` HWIO int8, ``ws`` (Cout,), the
+        scales, ``b`` (Cout,) or None.  Drops the float weights."""
+        dev = next(t.device for t in (*self._parameters.values(), *self._buffers.values())
+                   if t is not None)
+        cout = wq.shape[3]
+        for name in ("weight", "bias"):
+            self._parameters.pop(name, None)
+        for name in ("gamma", "beta", "mean", "var"):
+            self._buffers.pop(name, None)
+        self.register_buffer("wq", pack_weight(np.asarray(wq)).to(dev))
+        self.register_buffer("ws_bits", _f32_bits(np.reshape(ws, cout), dev))
+        self.register_buffer("b_bits", _f32_bits(np.zeros(cout) if b is None else b, dev))
+        self.xs, self.os = xs, os
+
+    def qconv_operands(self, x):
+        """(xq, scale, bias, out_scale, float dtype) of this conv on input
+        ``x``: a QTensor's own int8 values and scale, or a float tensor
+        quantized under ``xs``; scale = f32(in_s) * ws."""
+        if isinstance(x, QTensor):
+            xq, in_s, ft = x.q, x.s, x.dtype
+        else:
+            xq, in_s, ft = quantize_int8(x, 1.0 / self.xs), self.xs, x.dtype
+        scale = self.ws_bits.view(torch.float32) * float(in_s)
+        return xq, scale, self.b_bits.view(torch.float32), self.os, ft
+
+    def _forward_int8(self, x, act: str):
+        xq, scale, bias, os, ft = self.qconv_operands(x)
+        y = qconv(xq, self.wq, scale, bias, k=self.k, stride=self.s, pad=self.pad, groups=self.g,
+                  act=act, inv_out_scale=None if os is None else 1.0 / os, out_dtype=ft)
+        return y if os is None else QTensor(y, os, ft)
+
+
+class Conv2dOnly(_Int8Conv, nn.Module):
     """Bare conv with optional bias (the detection-head 1x1 convs)."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
                  g: int = 1, bias: bool = True, *, gen: torch.Generator):
         super().__init__()
-        self.s, self.pad, self.g = s, autopad(k, p), g
+        self.k, self.s, self.pad, self.g = k, s, autopad(k, p), g
         bound = 1.0 / math.sqrt(k * k * (c1 // g))  # torch's Conv2d default init
         self.weight = nn.Parameter(_uniform(gen, (c2, c1 // g, k, k), bound))
         self.bias = nn.Parameter(_uniform(gen, (c2,), bound)) if bias else None
@@ -58,11 +174,13 @@ class Conv2dOnly(nn.Module):
         self.weight.data = _as_tensor(np.asarray(p["w"]).transpose(3, 2, 0, 1), self.weight)
         self.bias = nn.Parameter(_as_tensor(p["b"], self.weight)) if "b" in p else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight, self.bias, self.s, self.pad, 1, self.g)
+    def forward(self, x):
+        if self.quantized:
+            return self._forward_int8(x, "none")
+        return F.conv2d(_as_float(x), self.weight, self.bias, self.s, self.pad, 1, self.g)
 
 
-class Conv(nn.Module):
+class Conv(_Int8Conv, nn.Module):
     """Conv2d + BatchNorm + SiLU.
 
     Two parameter forms, as in JAX: fused (``weight`` + ``bias``; random
@@ -73,7 +191,7 @@ class Conv(nn.Module):
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
                  g: int = 1, *, gen: torch.Generator):
         super().__init__()
-        self.s, self.pad, self.g = s, autopad(k, p), g
+        self.k, self.s, self.pad, self.g = k, s, autopad(k, p), g
         bound = 1.0 / math.sqrt(k * k * (c1 // g))
         w = _uniform(gen, (c2, c1 // g, k, k), bound) * (1.0 / math.sqrt(1.0 + BN_EPS))
         self.weight = nn.Parameter(w)
@@ -91,7 +209,10 @@ class Conv(nn.Module):
             for name in ("gamma", "beta", "mean", "var"):
                 self.register_buffer(name, _as_tensor(p[name], self.weight))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if self.quantized:
+            return self._forward_int8(x, "silu")
+        x = _as_float(x)
         if self.bias is not None:
             return silu(F.conv2d(x, self.weight, self.bias, self.s, self.pad, 1, self.g))
         y = F.conv2d(x, self.weight, None, self.s, self.pad, 1, self.g)
@@ -112,10 +233,11 @@ class Bottleneck(nn.Module):
         self.cv1 = Conv(c1, c_, 1, 1, gen=gen)
         self.cv2 = Conv(c_, c2, 3, 1, g=g, gen=gen)
         self.add = shortcut and c1 == c2
+        self.as_: Optional[float] = None  # calibrated post-add scale (JAX 'as')
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         y = self.cv2(self.cv1(x))
-        return x + y if self.add else y
+        return _qadd(x, y, self.as_) if self.add else y
 
 
 class C3(nn.Module):
@@ -134,7 +256,7 @@ class C3(nn.Module):
         y1 = self.cv1(x)
         for b in self.m:
             y1 = b(y1)
-        return self.cv3(torch.cat([y1, self.cv2(x)], dim=1))
+        return self.cv3(_qconcat([y1, self.cv2(x)]))
 
 
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -152,17 +274,32 @@ class SPP(nn.Module):
         self.cv1 = Conv(c1, c_, 1, 1, gen=gen)
         self.cv2 = Conv(c_ * 4, c2, 1, 1, gen=gen)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
         x = self.cv1(x)
-        y1 = max_pool_same(x, 5)
-        y2 = max_pool_same(y1, 5)
-        y3 = max_pool_same(y2, 5)
-        return self.cv2(torch.cat([x, y1, y2, y3], dim=1))
+        y1 = _pool5(x)
+        y2 = _pool5(y1)
+        y3 = _pool5(y2)
+        return self.cv2(_qconcat([x, y1, y2, y3]))
 
 
 SPPF = SPP
 
 
-def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample."""
+def _pool5(v):
+    """SPPF's 5x5 pool.  Max commutes with dequantization, so a QTensor
+    pools its int8 values under the same scale (in the compute dtype,
+    which holds every int8 value exactly)."""
+    if isinstance(v, QTensor):
+        return QTensor(max_pool_same(v.q.to(v.dtype), 5).to(torch.int8), v.s, v.dtype)
+    return max_pool_same(v, 5)
+
+
+def upsample2x(x):
+    """Nearest-neighbour 2x upsample; a QTensor keeps its scale.  int8 is
+    repeated through the NHWC view (``F.interpolate`` takes no int8)."""
+    if isinstance(x, QTensor):
+        v = x.q.permute(0, 2, 3, 1)
+        n, h, w, c = v.shape
+        v = v[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
+        return QTensor(v.permute(0, 3, 1, 2), x.s, x.dtype)
     return F.interpolate(x, scale_factor=2.0, mode="nearest")

@@ -9,8 +9,15 @@ from yolort_tpu_torch.ops.cuda.lookup_kernel import (  # noqa: F401
     row_fetch_reference,
 )
 from yolort_tpu_torch.ops.cuda.nms_kernel import nms_mask, nms_mask_reference  # noqa: F401
+from yolort_tpu_torch.ops.cuda.qconv_kernel import (  # noqa: F401
+    qconv,
+    qconv1x1,
+    qconv1x1_reference,
+    qconv_kxk,
+    qconv_kxk_reference,
+)
 
-KERNELS = (nms_mask, bisect_count, row_fetch)
+KERNELS = (nms_mask, bisect_count, row_fetch, qconv1x1, qconv_kxk)
 
 
 def reset_launch_counts() -> None:

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written Hopper kernels.
 
-All sources in ``yolort_tpu_torch/csrc/`` go through one ``nvcc`` call into
-one shared library with a plain C interface, loaded with ``ctypes``.  The
+Each source in ``yolort_tpu_torch/csrc/`` is compiled by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``build/yolort_tpu_torch/`` beside the package (a directory
 ``.gitignore`` lists), named by a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses it.  Nothing is built at import: the
@@ -20,21 +21,25 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "yolort_tpu_torch"
-SOURCES = ("nms_mask.cu", "bisect_count.cu", "row_fetch.cu")
-# -fmad=false: no contraction of a*b+c, so the NMS IoU rounds per operation
-# exactly as the plain version does (the sources also use the _rn
-# intrinsics); -Xptxas -v writes registers/spills to the build log
+SOURCES = ("nms_mask.cu", "bisect_count.cu", "row_fetch.cu", "qconv.cu")
+# -fmad=false: no contraction of a*b+c, so the NMS IoU and the qconv
+# epilogue round per operation exactly as the plain versions do (the
+# sources also use the _rn intrinsics); -Xptxas -v writes registers/spills
+# to the build log
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *GENCODE, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     "yt_nms_mask": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
     "yt_bisect_count": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "yt_row_fetch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "yt_qconv1x1": (_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "yt_qconv_kxk": (_P, _P, _P, _P, _F, _P, *(_I,) * 12, _P),
 }
 
 _lock = threading.Lock()
@@ -67,14 +72,32 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / name)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, obj in zip(SOURCES, objs)
+    ]
+    logs = [f"== {name}\n{p.communicate()[0]}" for name, p in zip(SOURCES, procs)]
+    failed = [(name, p.returncode) for name, p in zip(SOURCES, procs) if p.returncode != 0]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    if not failed:
+        res = subprocess.run([nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             check=False)
+        logs.append(f"== link\n{res.stdout}")
+        if res.returncode != 0:
+            failed.append(("link", res.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "\n".join(logs)
+    out.with_suffix(".log").write_text(log)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc failed {failed}:\n{log[-4000:]}")
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
 

@@ -1,0 +1,209 @@
+"""int8 convolution kernels: ``qconv1x1`` and ``qconv_kxk``
+(``csrc/qconv.cu``), each with its plain PyTorch version.
+
+Replace ``yolort_tpu/ops/pallas/qconv.py``: ``qconv1x1`` and ``qconv3x3``
+with their shared ``_epilogue``.  On the TPU the Pallas kernels are an
+opt-in beside XLA's s8 conv; core PyTorch has no int8 CUDA convolution, so
+here they are the int8 conv itself, and ``qconv_kxk`` also runs the
+strided 3x3 downsamples and the 6x6/s2/p2 stem.
+
+Activations are int8 NCHW in ``channels_last`` memory (NHWC bytes).
+Weights are packed once, at quantization, to (Cout, Kpad) int8 with
+K = k*k*Cin in (ky, kx, ci) order and zero-padded to a multiple of 4
+(``pack_weight``).  The epilogue, in float32, is
+
+    y = f32(acc) * scale[co] + bias[co];  y = act(y)
+    out = clip(round_half_even(y * inv_out_scale), -127, 127) as int8
+
+or ``y`` cast to ``out_dtype`` when ``inv_out_scale`` is None.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from yolort_tpu_torch.ops.cuda import _build
+
+ACTS = {"none": 0, "silu": 1}
+_OUT_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def padded_depth(k: int, cin: int) -> int:
+    """Kpad: the reduction depth k*k*cin rounded up to a multiple of 4."""
+    return -(-(k * k * cin) // 4) * 4
+
+
+def pack_weight(w_hwio: np.ndarray) -> torch.Tensor:
+    """HWIO int8 weights (k, k, cin, cout) -> (cout, Kpad) int8, K in
+    (ky, kx, ci) order, zero-padded."""
+    kh, kw, cin, cout = w_hwio.shape
+    if kh != kw:
+        raise ValueError(f"square kernels only, got {kh}x{kw}")
+    rows = np.asarray(w_hwio, np.int8).transpose(3, 0, 1, 2).reshape(cout, -1)
+    out = np.zeros((cout, padded_depth(kh, cin)), np.int8)
+    out[:, : rows.shape[1]] = rows
+    return torch.from_numpy(out)
+
+
+def quantize_int8(x: torch.Tensor, inv_scale: float) -> torch.Tensor:
+    """clip(round_half_even(x * inv_scale), -127, 127) as int8, computed in
+    x's dtype (the requantize of the JAX package, ``blocks._requantize``)."""
+    return torch.round(x * inv_scale).clamp_(-127.0, 127.0).to(torch.int8)
+
+
+def _epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, act: str,
+              inv_out_scale: Optional[float], out_dtype: torch.dtype) -> torch.Tensor:
+    """The kernel's epilogue, one rounded float32 operation at a time."""
+    y = acc.to(torch.float32) * scale.view(1, -1, 1, 1)
+    y = y + bias.view(1, -1, 1, 1)
+    if act == "silu":
+        y = y * torch.sigmoid(y)
+    if inv_out_scale is not None:
+        return quantize_int8(y, inv_out_scale)
+    return y.to(out_dtype)
+
+
+def _check(xq, wq, scale, bias, k, act, inv_out_scale, out_dtype, name):
+    if xq.dim() != 4 or xq.dtype != torch.int8:
+        raise ValueError(f"{name}: xq must be (N, C, H, W) int8, got {tuple(xq.shape)} {xq.dtype}")
+    cin = xq.shape[1]
+    cout = scale.shape[0] if scale.dim() == 1 else -1
+    if wq.dtype != torch.int8 or tuple(wq.shape) != (cout, padded_depth(k, cin)):
+        raise ValueError(f"{name}: wq must be ({cout}, {padded_depth(k, cin)}) int8 for k={k}, "
+                         f"cin={cin}, got {tuple(wq.shape)} {wq.dtype}")
+    for t, what in ((scale, "scale"), (bias, "bias")):
+        if t.dtype != torch.float32 or tuple(t.shape) != (cout,):
+            raise ValueError(f"{name}: {what} must be ({cout},) float32, got {tuple(t.shape)} {t.dtype}")
+    if act not in ACTS:
+        raise ValueError(f"{name}: act must be one of {sorted(ACTS)}, got {act!r}")
+    want = torch.int8 if inv_out_scale is not None else out_dtype
+    if want not in _OUT_KINDS:
+        raise ValueError(f"{name}: out_dtype must be float32 or bfloat16, got {out_dtype}")
+    if len({t.device for t in (xq, wq, scale, bias)}) != 1:
+        raise ValueError(f"{name}: all tensors must be on one device")
+    return want
+
+
+def qconv1x1_reference(xq, wq, scale, bias, *, act="silu", inv_out_scale=None,
+                       out_dtype=torch.float32):
+    """Plain version of ``qconv1x1``: the exact s32 accumulator as a
+    float64 matmul over NHWC rows (|acc| <= Cin * 127^2 < 2^53), then the
+    epilogue."""
+    n, c, h, w = xq.shape
+    rows = xq.permute(0, 2, 3, 1).reshape(-1, c).double()
+    acc = (rows @ wq.double().t()).to(torch.int32)
+    acc = acc.view(n, h, w, -1).permute(0, 3, 1, 2)
+    return _epilogue(acc, scale, bias, act, inv_out_scale, out_dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+def qconv_kxk_reference(xq, wq, scale, bias, *, k, stride=1, pad=None, act="silu",
+                        inv_out_scale=None, out_dtype=torch.float32):
+    """Plain version of ``qconv_kxk``: the exact s32 accumulator as a
+    float64 ``F.conv2d`` of the int8 values, then the epilogue."""
+    pad = k // 2 if pad is None else pad
+    cout, cin = wq.shape[0], xq.shape[1]
+    w = wq[:, : k * k * cin].reshape(cout, k, k, cin).permute(0, 3, 1, 2).double()
+    acc = F.conv2d(xq.double(), w, None, stride, pad).to(torch.int32)
+    return _epilogue(acc, scale, bias, act, inv_out_scale, out_dtype).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _launch_setup(xq, wq, scale, bias, name):
+    if xq.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {xq.device}")
+    if not xq.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{name} needs xq in channels_last memory (NHWC bytes)")
+    if not (wq.is_contiguous() and scale.is_contiguous() and bias.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous wq, scale and bias")
+    if wq.data_ptr() % 4:
+        raise ValueError(f"{name} needs a 4-byte aligned wq (the kernel loads int8x4 words)")
+
+
+def qconv1x1(xq, wq, scale, bias, *, act="silu", inv_out_scale=None, out_dtype=torch.float32):
+    """1x1 stride-1 int8 conv with the fused epilogue.
+
+    xq (N, Cin, H, W) int8 channels_last, Cin % 4 == 0; wq (Cout, Cin) int8
+    packed; scale, bias (Cout,) float32.  Returns (N, Cout, H, W)
+    channels_last: int8 when ``inv_out_scale`` is given, else ``out_dtype``.
+    CUDA tensors launch the kernel on the current stream; CPU tensors take
+    ``qconv1x1_reference``."""
+    out_t = _check(xq, wq, scale, bias, 1, act, inv_out_scale, out_dtype, "qconv1x1")
+    if xq.device.type == "cpu":
+        return qconv1x1_reference(xq, wq, scale, bias, act=act, inv_out_scale=inv_out_scale,
+                                  out_dtype=out_dtype)
+    _launch_setup(xq, wq, scale, bias, "qconv1x1")
+    n, c, h, w = xq.shape
+    if c % 4 or xq.data_ptr() % 4:
+        raise ValueError(f"qconv1x1 needs Cin % 4 == 0 and a 4-byte aligned xq, got Cin={c}")
+    cout = wq.shape[0]
+    out = torch.empty((n, cout, h, w), dtype=out_t, device=xq.device,
+                      memory_format=torch.channels_last)
+    lib = _build.library()
+    with torch.cuda.device(xq.device):
+        rc = lib.yt_qconv1x1(
+            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, ACTS[act],
+            _OUT_KINDS[out_t], _build.stream_of(xq),
+        )
+    _build.check(rc, "qconv1x1")
+    qconv1x1.launches += 1
+    return out
+
+
+qconv1x1.launches = 0
+
+
+def qconv_kxk(xq, wq, scale, bias, *, k, stride=1, pad=None, act="silu", inv_out_scale=None,
+              out_dtype=torch.float32):
+    """k x k int8 conv (any stride and zero padding, groups 1) with the
+    fused epilogue, as an implicit GEMM.
+
+    xq (N, Cin, H, W) int8 channels_last; wq (Cout, Kpad) int8 packed by
+    ``pack_weight``; scale, bias (Cout,) float32; ``pad`` defaults to k//2.
+    Returns (N, Cout, Ho, Wo) channels_last, int8 or ``out_dtype``.  CUDA
+    tensors launch the kernel; CPU tensors take ``qconv_kxk_reference``."""
+    pad = k // 2 if pad is None else pad
+    out_t = _check(xq, wq, scale, bias, k, act, inv_out_scale, out_dtype, "qconv_kxk")
+    if stride < 1 or pad < 0:
+        raise ValueError(f"qconv_kxk: stride must be >= 1 and pad >= 0, got {stride}, {pad}")
+    if xq.device.type == "cpu":
+        return qconv_kxk_reference(xq, wq, scale, bias, k=k, stride=stride, pad=pad, act=act,
+                                   inv_out_scale=inv_out_scale, out_dtype=out_dtype)
+    _launch_setup(xq, wq, scale, bias, "qconv_kxk")
+    n, c, h, w = xq.shape
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    cout = wq.shape[0]
+    out = torch.empty((n, cout, ho, wo), dtype=out_t, device=xq.device,
+                      memory_format=torch.channels_last)
+    lib = _build.library()
+    with torch.cuda.device(xq.device):
+        rc = lib.yt_qconv_kxk(
+            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, k, stride, pad,
+            ho, wo, ACTS[act], _OUT_KINDS[out_t], _build.stream_of(xq),
+        )
+    _build.check(rc, "qconv_kxk")
+    qconv_kxk.launches += 1
+    return out
+
+
+qconv_kxk.launches = 0
+
+
+def qconv(xq, wq, scale, bias, *, k, stride=1, pad=None, groups=1, act="silu",
+          inv_out_scale=None, out_dtype=torch.float32):
+    """The int8 conv of a quantized Conv: 1x1 stride-1 unpadded convs go to
+    ``qconv1x1``, every other shape to ``qconv_kxk``.  Grouped convs raise."""
+    if groups != 1:
+        raise ValueError(f"qconv supports groups=1 only, got groups={groups}")
+    pad = k // 2 if pad is None else pad
+    kw = dict(act=act, inv_out_scale=inv_out_scale, out_dtype=out_dtype)
+    if k == 1 and stride == 1 and pad == 0 and xq.shape[1] % 4 == 0:
+        return qconv1x1(xq, wq, scale, bias, **kw)
+    return qconv_kxk(xq, wq, scale, bias, k=k, stride=stride, pad=pad, **kw)
