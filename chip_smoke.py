@@ -7,16 +7,22 @@ Phases, each fatal on failure:
   1. device: needs CUDA; prints the card's name and power limit; TF32 off;
   2. build: compiles the CUDA kernels from yolort_tpu_torch/csrc/ (one
      nvcc per source, in parallel);
-  3. kernels: nms_mask, bisect_count and row_fetch against their plain
+  3. kernels: nms_mask, bisect_count, row_fetch, fused_cells_stage1,
+     lookup_fetch, select_extract and compact_place against their plain
      PyTorch versions on the card, at the main path's shapes, batch 8;
-     results must be bit-identical;
+     results must be bit-identical (NaN positions compared as NaN);
+     compact_select must equal select_topk_threshold on the same scores;
   4. slice: yolov5s at full width, seeded random weights with the head
      biases shifted to a realistic candidate load, serves uint8 frames of
      three sizes in float32 and bfloat16 under the eval (0.005 / 4096) and
-     serving (0.25 / 512) configs; every postprocess kernel must have
-     launched, every image must carry detections, and the card's
-     postprocess must agree with the CPU run of the port on the same head
-     outputs;
+     serving (0.25 / 512) configs, once per stage-2 postprocess route
+     (row_gather) of ROUTES; every kernel of a route must have launched
+     (the default route exactly fused_cells_stage1 1, nms_mask 1,
+     bisect_count 2, row_fetch 1 per batch), every image must carry
+     detections, each route's
+     detections must equal the default route's on the same head outputs,
+     and the card's postprocess must agree with the CPU run of the port on
+     every route;
   5. int8: the same yolov5s calibrated on 4 batches of 2 letterboxed 640
      frames, quantized and finalized (ops/quantization.py); qconv1x1 and
      qconv_kxk against their plain versions at every distinct conv shape of
@@ -24,10 +30,14 @@ Phases, each fatal on failure:
      float outputs bit-identical); then the int8 model serves the same
      requests in both dtypes and configs: both qconv kernels and the
      postprocess kernels must launch, every image must carry detections,
-     and the card's int8 head outputs must agree with the CPU run of the
-     port on one 480x640 frame within the bound printed there;
-  6. times: each kernel's time beside its plain version's, and images/s of
-     the float and int8 slices at batch 32.
+     one request served on each other route must launch that route's
+     kernels and equal the default route's detections, and the card's
+     int8 head outputs must agree with the CPU run of the port on one
+     480x640 frame within the bound printed there;
+  6. times: each kernel's time beside its plain version's, its bound and
+     the time of a PyTorch call that computes the same function where
+     there is one; images/s of the float and int8 slices at batch 32; the
+     postprocess's time per route at batch 32 in both configs and dtypes.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.  Imports nothing of JAX.
 """
@@ -53,8 +63,26 @@ TPU_KERNELS = {
                   "yolort_tpu/ops/pallas/lookup_kernel.py:481"),
     "qconv1x1": ("yolort_tpu_torch/csrc/qconv.cu", "yolort_tpu/ops/pallas/qconv.py:144"),
     "qconv_kxk": ("yolort_tpu_torch/csrc/qconv.cu", "yolort_tpu/ops/pallas/qconv.py:238"),
+    "fused_cells_stage1": ("yolort_tpu_torch/csrc/cells_stage1.cu",
+                           "yolort_tpu/ops/pallas/s1_kernel.py:173"),
+    "lookup_fetch": ("yolort_tpu_torch/csrc/lookup_fetch.cu",
+                     "yolort_tpu/ops/pallas/lookup_kernel.py:238"),
+    "select_extract": ("yolort_tpu_torch/csrc/select_extract.cu",
+                       "yolort_tpu/ops/pallas/lookup_kernel.py:433"),
+    "compact_place": ("yolort_tpu_torch/csrc/compact_select.cu",
+                      "yolort_tpu/ops/pallas/compact_kernel.py:171"),
 }
-POSTPROCESS_KERNELS = ("nms_mask", "bisect_count", "row_fetch")
+# stage-2 postprocess routes (row_gather), the default first, and the
+# kernels each one launches
+ROUTES = ("pallas_bisect", "pallas_lookup", "pallas_full")
+ROUTE_KERNELS = {
+    route: ("fused_cells_stage1", "nms_mask", "bisect_count", fetch)
+    for route, fetch in zip(ROUTES, ("row_fetch", "lookup_fetch", "select_extract"))
+}
+DEFAULT_PER_BATCH = {"fused_cells_stage1": 1, "nms_mask": 1, "bisect_count": 2, "row_fetch": 1}
+# the bound's rates: NVIDIA's H100 SXM data sheet (dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
 
 
 def card_line() -> str:
@@ -118,6 +146,44 @@ def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
+def bound(nbytes: float, ops: float = 0.0, kind: str = "f32"):
+    """(least ms, 'bytes' | 'operations'): the larger of the bytes moved at
+    the memory rate and the operations at the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit patterns, NaN positions compared as NaN."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    iv = {4: torch.int32, 2: torch.int16}[a.element_size()]
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a.view(iv)[~nan], b.view(iv)[~nan])
+
+
+def abs_err(a, b) -> float:
+    """Largest |a - b| over the entries where the difference is a number."""
+    import torch
+
+    d = a.double() - b.double()
+    d = d[~torch.isnan(d)]
+    return float(d.abs().max()) if d.numel() else 0.0
+
+
+def distinct_rows(phys, m: int) -> int:
+    """Distinct (image, row) pairs that clamped row indices (B, k) touch."""
+    import torch
+
+    b = torch.arange(phys.shape[0], device=phys.device)[:, None]
+    return int(torch.unique(phys.long().clamp(0, m - 1) + m * b).numel())
+
+
 # --------------------------------------------------------------------------
 # phase 3 inputs
 # --------------------------------------------------------------------------
@@ -142,14 +208,18 @@ def nms_inputs(seed: int, bsz: int, k: int, device):
     return t
 
 
-def score_table(seed: int, bsz: int, m: int, device, valid_frac: float = 1.0):
-    """(B, m, 128) sigmoid-product scores; entries past valid_frac zeroed."""
+def score_table(seed: int, bsz: int, m: int, device, valid_frac: float = 1.0,
+                ties: bool = False):
+    """(B, m, 128) sigmoid-product scores; entries past valid_frac zeroed;
+    ``ties`` rounds them to 40 levels (boundary tie storms)."""
     import torch
 
     rng = np.random.default_rng(seed)
     a = rng.standard_normal((bsz, m * 128)) * 2.0 - 1.0
     c = rng.standard_normal((bsz, m * 128)) * 2.0 - 1.0
     s = (1 / (1 + np.exp(-a))) * (1 / (1 + np.exp(-c)))
+    if ties:
+        s = np.round(s * 40) / 40
     s[:, int(m * 128 * valid_frac):] = 0.0
     return torch.from_numpy(s.astype(np.float32).reshape(bsz, m, 128)).to(device)
 
@@ -216,6 +286,7 @@ def phase_kernels(device, card: str) -> dict:
     """Each kernel against its plain version, bit for bit, and timed."""
     import torch
 
+    from yolort_tpu_torch.ops.boxes import box_iou_matrix
     from yolort_tpu_torch.ops.cuda import (
         bisect_count, bisect_count_reference, nms_mask, nms_mask_reference,
         row_fetch, row_fetch_reference,
@@ -250,7 +321,18 @@ def phase_kernels(device, card: str) -> dict:
         pdev = device_profile(lambda: nms_mask_reference(t["offset"], t["valid"], 0.45, 256, 300))[0]
         print(f"[times] nms_mask B={B} K={k}: kernel {ms:.4f} ms (device {fmt_ms(dev)}), "
               f"plain {pms:.4f} ms (device {fmt_ms(pdev)}) | {card}")
-    res["nms_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, at=f"B={B}, K=4096, stop_after=300")
+    # bound: boxes and valid read, keep written; 12 f32 operations per IoU
+    # pair (i, j > i) over the rows up to each image's 300th keep, the rows
+    # the greedy scan needs
+    rows = [int(torch.nonzero(r >= 300)[0]) + 1 if (r >= 300).any() else k for r in rank]
+    pairs = sum(r * (k - 1) - r * (r - 1) // 2 for r in rows)
+    bms, bby = bound(B * k * (16 + 1 + 1), 12.0 * pairs)
+    partial = median_ms(lambda: box_iou_matrix(t["offset"], t["offset"]))
+    res["nms_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev,
+                           bound_ms=bms, bound_by=bby, library_ms=None, library_call=None,
+                           nearest_partial="ops.boxes.box_iou_matrix (the IoU matrix alone; "
+                                           "torchvision.ops.nms is outside core PyTorch)",
+                           nearest_partial_ms=partial, at=f"B={B}, K=4096, stop_after=300")
 
     # --- bisect_count ----------------------------------------------------
     cases = [
@@ -277,7 +359,17 @@ def phase_kernels(device, card: str) -> dict:
             pdev = device_profile(lambda: bisect_count_reference(tab, k, thr_bits))[0]
             print(f"[times] bisect_count B={B} {tuple(tab.shape[1:])} k={k}: kernel {ms:.4f} ms "
                   f"(device {fmt_ms(dev)}), plain {pms:.4f} ms (device {fmt_ms(pdev)}) | {card}")
-    res["bisect_count"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, at=f"B={B}, (2565,128), k=4096")
+            if name == "eval":
+                m = tab.shape[1]
+                bms, bby = bound(B * m * 128 * 4 + B * 4 + 2 * B * m * 4)
+                flat = tab.reshape(B, -1)
+                partial = median_ms(lambda: torch.topk(flat, k, dim=1))
+                res["bisect_count"] = dict(
+                    ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, bound_ms=bms,
+                    bound_by=bby, library_ms=None, library_call=None,
+                    nearest_partial="torch.topk (the k largest values, no tier counts)",
+                    nearest_partial_ms=partial, at=f"B={B}, (2565,128), k=4096")
+    res["bisect_count"]["max_abs_err"] = err
 
     # --- row_fetch -------------------------------------------------------
     rng = np.random.default_rng(6)
@@ -302,7 +394,179 @@ def phase_kernels(device, card: str) -> dict:
             pdev = device_profile(lambda: row_fetch_reference(tab, idx))[0]
             print(f"[times] row_fetch B={B} ({m},{w}) f32 k={k}: kernel {ms:.4f} ms "
                   f"(device {fmt_ms(dev)}), plain {pms:.4f} ms (device {fmt_ms(pdev)}) | {card}")
-    res["row_fetch"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, at=f"B={B}, (2565,128) f32, k=4096")
+            if m == 2565:
+                gidx = idx.long().clamp(0, m - 1)[..., None].expand(-1, -1, w)
+                lib = median_ms(lambda: torch.gather(tab, 1, gidx))
+                bms, bby = bound(B * k * 4 + distinct_rows(idx, m) * w * 4 + B * k * w * 4)
+                res["row_fetch"] = dict(
+                    ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, bound_ms=bms,
+                    bound_by=bby, library_ms=lib, library_call="torch.gather (clamped indices)",
+                    at=f"B={B}, (2565,128) f32, k=4096")
+    res["row_fetch"]["max_abs_err"] = err
+    return res
+
+
+def logit_levels(seed: int, bsz: int, device, dtype, special: bool = False):
+    """Head logits of the three yolov5s levels @640, (B, H, W, 255) NHWC;
+    ``special`` puts NaN, +-inf and logits below -1e4 in the last level."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    levels = [rng.standard_normal((bsz, h, w, 255), dtype=np.float32) * 3.0
+              for h, w in ((80, 80), (40, 40), (20, 20))]
+    if special:
+        x = levels[2]
+        x[0, 0, 0, 4] = np.nan       # obj of anchor 0
+        x[0, 0, 1, 90] = np.nan      # a class of anchor 1
+        x[1, 2, 3, 4], x[1, 2, 3, 5] = np.inf, -np.inf
+        x[1, 5, 5, 5:85] = -np.inf   # every class of anchor 0
+        x[0, 1, 1, 174] = -3e4       # obj of anchor 2
+        x[0, 1, 1, 90:170] = -2e4    # every class of anchor 1
+    return [torch.from_numpy(x).to(device=device, dtype=dtype) for x in levels]
+
+
+def phase_postprocess_kernels(device, card: str) -> dict:
+    """fused_cells_stage1, lookup_fetch, select_extract and compact_place
+    against their plain versions, bit for bit, then timed beside their
+    bounds and the nearest PyTorch calls."""
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import (
+        bisect_count, compact_place, compact_place_reference, fused_cells_stage1,
+        fused_cells_stage1_reference, lookup_fetch, lookup_fetch_reference, select_extract,
+        select_extract_reference,
+    )
+    from yolort_tpu_torch.ops.select import compact_select, select_topk_threshold
+
+    res = {}
+    # --- fused_cells_stage1 ----------------------------------------------
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for special in (True, False):  # time on the plain logits, left last
+            levels = logit_levels(30 + special, B, device, dtype, special)
+            got = fused_cells_stage1(levels, 3, 85)
+            ref = fused_cells_stage1_reference(levels, 3, 85)
+            torch.cuda.synchronize()
+            for a, b, what in zip(got, ref, ("cells", "obj_max", "cls_max")):
+                if not same_bits(a, b):
+                    raise AssertionError(f"fused_cells_stage1 {dtype} special={special}: {what} differs")
+                err = max(err, abs_err(a, b))
+            iv = torch.int32 if dtype == torch.float32 else torch.int16
+            nan_bits = all(torch.equal(a.view(iv), b.view(iv)) for a, b in zip(got, ref))
+            print(f"[kernels] fused_cells_stage1 {dtype} B={B} 80x80+40x40+20x20 C=255"
+                  f"{' with NaN/inf/below-floor logits' if special else ''}: equal "
+                  f"(NaN bits too: {nan_bits}), NaNs in maxima "
+                  f"{int(torch.isnan(got[1]).sum() + torch.isnan(got[2]).sum())}", flush=True)
+        run = lambda lv=levels: fused_cells_stage1(lv, 3, 85)  # noqa: E731
+        plain = lambda lv=levels: fused_cells_stage1_reference(lv, 3, 85)  # noqa: E731
+        flat = [lv.reshape(B, -1, 255) for lv in levels]
+        ms, pms = median_ms(run), median_ms(plain)
+        dev, pdev = device_profile(run)[0], device_profile(plain)[0]
+        partial = median_ms(lambda: torch.cat(flat, dim=1))
+        n_cells = sum(lv.shape[1] * lv.shape[2] for lv in levels)
+        esize = levels[0].element_size()
+        bms, bby = bound(2 * B * n_cells * 255 * esize + 2 * B * n_cells * 3 * esize)
+        print(f"[times] fused_cells_stage1 B={B} {dtype}: kernel {ms:.4f} ms (device {fmt_ms(dev)}), "
+              f"plain {pms:.4f} ms (device {fmt_ms(pdev)}), torch.cat alone {partial:.4f} ms, "
+              f"bound {bms:.4f} ms ({bby}) | {card}", flush=True)
+        if dtype == torch.float32:
+            res["fused_cells_stage1"] = dict(
+                ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, bound_ms=bms, bound_by=bby,
+                library_ms=None, library_call=None,
+                nearest_partial="torch.cat of the levels (no maxima)", nearest_partial_ms=partial,
+                at=f"B={B}, 80x80+40x40+20x20, C=255, float32")
+    res["fused_cells_stage1"]["max_abs_err"] = err
+
+    # --- lookup_fetch, select_extract, compact_place ------------------------
+    cases = []
+    for m, k, thr in ((325, 512, 0.25), (2565, 4096, 0.005)):
+        cases += [
+            ("random", score_table(40 + m, B, m, device), m, k, thr),
+            ("ties", score_table(41 + m, B, m, device, ties=True), m, k, thr),
+            ("fewer-than-k", score_table(42 + m, B, m, device, valid_frac=0.002), m, k, thr),
+            ("none-valid", score_table(43 + m, B, m, device) * (thr * 0.99), m, k, thr),
+        ]
+    errs = dict(lookup_fetch=0.0, select_extract=0.0, compact_place=0.0)
+    rng = np.random.default_rng(44)
+    for name, tab, m, k, thr in cases:
+        tab = tab.contiguous()
+        thr_bits = int(np.float32(thr).view(np.int32))
+        t, cg, ce = bisect_count(tab, k, thr_bits)
+        cnt = torch.cat([cg, ce], 1).contiguous()
+        off = (cnt.cumsum(1, dtype=torch.int32) - cnt).contiguous()
+        total = (off[:, -1] + cnt[:, -1]).tolist()
+        got = lookup_fetch(tab, off, k)
+        ref = lookup_fetch_reference(tab, off, k)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            if not same_bits(a, b):
+                raise AssertionError(f"lookup_fetch {name} ({m},128) k={k}: differs from the plain version")
+            errs["lookup_fetch"] = max(errs["lookup_fetch"], abs_err(a, b))
+        _, phys, p, is_eq = ref
+        miss = (torch.from_numpy(rng.integers(-2, m + 2, (B, k)).astype(np.int32)).to(device),
+                torch.from_numpy(rng.integers(-2, 130, (B, k)).astype(np.int32)).to(device),
+                torch.from_numpy(rng.integers(0, 2, (B, k)).astype(bool)).to(device))
+        for ph, pp, eq in ((phys, p, is_eq), miss):
+            got = select_extract(tab, ph, pp, eq, t, thr_bits)
+            ref = select_extract_reference(tab, ph, pp, eq, t, thr_bits)
+            torch.cuda.synchronize()
+            for a, b in zip(got, ref):
+                if not same_bits(a, b):
+                    raise AssertionError(f"select_extract {name} ({m},128) k={k}: differs from the plain version")
+                errs["select_extract"] = max(errs["select_extract"], abs_err(a, b))
+        got = compact_place(tab, cnt, off, t, thr_bits, k)
+        ref = compact_place_reference(tab, cnt, off, t, thr_bits, k)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            if not same_bits(a, b):
+                raise AssertionError(f"compact_place {name} ({m},128) k={k}: differs from the plain version")
+            errs["compact_place"] = max(errs["compact_place"], abs_err(a, b))
+        flat = tab.reshape(B, -1)
+        cs, st = compact_select(flat, k, thr), select_topk_threshold(flat, k, thr)
+        if not (same_bits(cs[0], st[0]) and torch.equal(cs[1], st[1])):
+            raise AssertionError(f"compact_select {name} ({m},128) k={k}: differs from select_topk_threshold")
+        print(f"[kernels] lookup_fetch, select_extract, compact_place {name} B={B} ({m},128) k={k}: "
+              f"equal; compact_select == select_topk_threshold; selected/img {total[:3]}...", flush=True)
+
+        if name != "random":
+            continue
+        t1 = t[:, None, None] + 1
+        mask = tab.view(torch.int32) >= t1
+        gidx = phys.long()[..., None].expand(-1, -1, 128)
+        s_iota = torch.arange(k, dtype=torch.int32, device=device).expand(B, k).contiguous()
+        # compact_place reads only the chunks that hold a placed entry
+        busy = int(((cnt > 0) & (off < k)).view(B, 2, m).any(1).sum())
+        runs = {
+            "lookup_fetch": (lambda: lookup_fetch(tab, off, k),
+                             lambda: lookup_fetch_reference(tab, off, k),
+                             "torch.searchsorted (the lookup alone, no row fetch)",
+                             lambda: torch.searchsorted(off, s_iota, right=True),
+                             B * 2 * m * 4 + distinct_rows(phys, m) * 512 + B * k * (512 + 9)),
+            "select_extract": (lambda: select_extract(tab, phys, p, is_eq, t, thr_bits),
+                               lambda: select_extract_reference(tab, phys, p, is_eq, t, thr_bits),
+                               "torch.gather of the rows (the fetch alone, no extraction)",
+                               lambda: torch.gather(tab, 1, gidx),
+                               distinct_rows(phys, m) * 512 + B * k * 9 + B * 4 + B * k * 8),
+            "compact_place": (lambda: compact_place(tab, cnt, off, t, thr_bits, k),
+                              lambda: compact_place_reference(tab, cnt, off, t, thr_bits, k),
+                              "torch.nonzero of the gt-tier mask (compaction alone, no values)",
+                              lambda: torch.nonzero(mask),
+                              busy * 512 + B * 2 * m * 8 + B * 4 + B * k * 8),
+        }
+        for kname, (run, plain, pname, pcall, nbytes) in runs.items():
+            ms, pms = median_ms(run), median_ms(plain, 5)
+            dev, pdev = device_profile(run)[0], device_profile(plain)[0]
+            partial = median_ms(pcall)
+            bms, bby = bound(nbytes)
+            print(f"[times] {kname} B={B} ({m},128) k={k}: kernel {ms:.4f} ms (device {fmt_ms(dev)}), "
+                  f"plain {pms:.4f} ms (device {fmt_ms(pdev)}), nearest partial {pname} "
+                  f"{partial:.4f} ms, bound {bms:.4f} ms ({bby}) | {card}", flush=True)
+            if m == 2565:
+                res[kname] = dict(ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, bound_ms=bms,
+                                  bound_by=bby, library_ms=None, library_call=None, nearest_partial=pname,
+                                  nearest_partial_ms=partial, at=f"B={B}, ({m},128), k={k}, random table")
+    for kname, e in errs.items():
+        res[kname]["max_abs_err"] = e
     return res
 
 
@@ -392,6 +656,19 @@ def pair_detections(a, b, label: str) -> int:
     return unpaired
 
 
+def check_served(res, label: str) -> list:
+    """Every image carries finite, well-formed detections; returns counts."""
+    dets = [d for req in res for d in req]
+    for d in dets:
+        if not len(d["boxes"]):
+            raise AssertionError(f"{label}: an image has no detections")
+        if not (np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all()):
+            raise AssertionError(f"{label}: non-finite detections")
+        if d["boxes"].shape[1] != 4 or not (d["labels"] >= 0).all() or not (d["labels"] < 80).all():
+            raise AssertionError(f"{label}: malformed detections")
+    return [len(d["boxes"]) for d in dets]
+
+
 def phase_slice(device, card: str) -> dict:
     import torch
 
@@ -411,32 +688,49 @@ def phase_slice(device, card: str) -> dict:
 
     runs = [(dt, name, cfg) for dt in (torch.float32, torch.bfloat16)
             for name, cfg in (("eval", EVAL), ("serving", SERVING))]
-    reset_launch_counts()
-    outs = {}
-    for dt, name, cfg in runs:
-        m = models[dt]
-        m.model.score_thresh, m.model.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
-        outs[(dt, name)] = [m(req) for req in requests]
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in KERNELS}
-    print(f"[slice] float path launches: {launches}", flush=True)
-    for kname in POSTPROCESS_KERNELS:
-        if launches[kname] <= 0:
-            raise AssertionError(f"kernel {kname} was not launched on the float path")
-    for (dt, name), res in outs.items():
-        dets = [d for req in res for d in req]
-        counts = [len(d["boxes"]) for d in dets]
-        for d in dets:
-            if not len(d["boxes"]):
-                raise AssertionError(f"{dt} {name}: an image has no detections")
-            if not (np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all()):
-                raise AssertionError(f"{dt} {name}: non-finite detections")
-            if d["boxes"].shape[1] != 4 or not (d["labels"] >= 0).all() or not (d["labels"] < 80).all():
-                raise AssertionError(f"{dt} {name}: malformed detections")
-        print(f"[slice] {str(dt):>14} {name:>7}: detections/img {counts}", flush=True)
+    batches = len(runs) * len(requests)
+    launches, outs = {}, {}
+    for route in ROUTES:
+        for m in models.values():
+            m.model.row_gather = route
+        reset_launch_counts()
+        for dt, name, cfg in runs:
+            m = models[dt]
+            m.model.score_thresh, m.model.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+            outs[(route, dt, name)] = [m(req) for req in requests]
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        launches[route] = counts
+        print(f"[slice] route {route}: float path launches over {batches} batches "
+              f"{counts}", flush=True)
+        for kname, n in counts.items():
+            if kname in ROUTE_KERNELS[route] and n <= 0:
+                raise AssertionError(f"kernel {kname} was not launched on route {route}")
+            if kname not in ROUTE_KERNELS[route] and n:
+                raise AssertionError(f"kernel {kname} launched on route {route}, which "
+                                     f"does not run it")
+        if route == ROUTES[0]:
+            want = {kname: DEFAULT_PER_BATCH.get(kname, 0) * batches for kname in counts}
+            if counts != want:
+                raise AssertionError(f"default route launches {counts}, want {want}")
+    for m in models.values():
+        m.model.row_gather = ROUTES[0]
+    for (route, dt, name), res in outs.items():
+        counts = check_served(res, f"{route} {dt} {name}")
+        if route == ROUTES[0]:
+            print(f"[slice] {str(dt):>14} {name:>7}: detections/img {counts}", flush=True)
+            continue
+        base = outs[(ROUTES[0], dt, name)]
+        for req, req0 in zip(res, base):
+            for d, d0 in zip(req, req0):
+                if not all(np.array_equal(d[key], d0[key]) for key in ("boxes", "scores", "labels")):
+                    raise AssertionError(f"{route} {dt} {name}: served detections differ "
+                                         f"from the default route's")
+    print(f"[slice] every route served the default route's detections exactly", flush=True)
 
-    # the card's postprocess against the CPU run of the port, same head outputs
-    total_unpaired = 0
+    # on the same head outputs: each route's Detections equal the default
+    # route's on the card, and the card agrees with the CPU run of the port
+    total_unpaired = {route: 0 for route in ROUTES}
     for dt in (torch.float32, torch.bfloat16):
         yolo = models[dt].model
         for name, cfg in (("eval", EVAL), ("serving", SERVING)):
@@ -446,13 +740,30 @@ def phase_slice(device, card: str) -> dict:
                 plan = make_plan([tuple(x.shape[1:3])])[0]
                 with torch.inference_mode():
                     heads = yolo.head_outputs(letterbox_batch(x.to(dt) / 255.0, plan))
-                    det_gpu = yolo.postprocess(heads)
-                    det_cpu = yolo.postprocess([h.cpu() for h in heads])
-                label = f"{dt} {name} {tuple(x.shape[1:3])}"
-                un = pair_detections(det_gpu, det_cpu, label)
-                total_unpaired += un
-                print(f"[slice] card vs CPU {label}: counts equal, {un} unpaired", flush=True)
-    return dict(launches=launches, unpaired=total_unpaired, models=models, requests=requests)
+                heads_cpu = [h.cpu() for h in heads]
+                base = None
+                for route in ROUTES:
+                    yolo.row_gather = route
+                    with torch.inference_mode():
+                        det_gpu = yolo.postprocess(heads)
+                        det_cpu = yolo.postprocess(heads_cpu)
+                    label = f"{route} {dt} {name} {tuple(x.shape[1:3])}"
+                    if base is None:
+                        base = det_gpu
+                    elif not all(torch.equal(a, b) for a, b in zip(det_gpu, base)):
+                        raise AssertionError(f"{label}: Detections differ from the default route's")
+                    un = pair_detections(det_gpu, det_cpu, label)
+                    total_unpaired[route] += un
+                    print(f"[slice] card vs CPU {label}: counts equal, {un} unpaired"
+                          f"{'' if route == ROUTES[0] else '; equal to the default route'}", flush=True)
+                yolo.row_gather = ROUTES[0]
+    print(f"[slice] unpaired card vs CPU by route: "
+          f"{ {r: n for r, n in total_unpaired.items()} }", flush=True)
+    totals = {kname: sum(launches[r][kname] for r in ROUTES) for kname in launches[ROUTES[0]]}
+    per_batch = {r: {k: n / batches for k, n in launches[r].items() if n}
+                 for r in ROUTES}
+    return dict(launches=totals, per_batch=per_batch, unpaired=total_unpaired, models=models,
+                requests=requests)
 
 
 def build_int8(device, requests, batch):
@@ -519,7 +830,13 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
     for h in hooks:
         h.remove()
 
-    res = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, shapes=0) for n in ("qconv1x1", "qconv_kxk")}
+    res = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, shapes=0, bound_ms=0.0, bytes_ms=0.0,
+                   ops_ms=0.0) for n in ("qconv1x1", "qconv_kxk")}
+    res["qconv1x1"].update(library_ms=0.0, library_call="torch._int_mm (the int8 product alone, no "
+                           "epilogue; Cout 255 padded to 256 for its multiple-of-8 rule)")
+    res["qconv_kxk"].update(library_ms=None, library_call=None,
+                            nearest_partial="none timed: core PyTorch has no int8 CUDA conv "
+                                            "(torch._int_mm on an im2col matrix is the nearest)")
     calls = {n: [] for n in res}
     for (k, s, pad, cin, cout, h, w, act, float_out), (mod, xin) in sorted(seen.items()):
         xq, scale, bias, os, ft = mod.qconv_operands(xin)
@@ -546,11 +863,32 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
                                      f"the plain version (max abs err {err})")
             ms = median_ms(run, 10, 3)
             pms = median_ms(plain, 2, 3)
+            if name == "qconv1x1" and res["qconv1x1"]["library_ms"] is not None:
+                # the product alone: (B*H*W, Cin) x (Cin, Cout), Cout padded to 8s
+                a = xq.permute(0, 2, 3, 1).reshape(-1, cin)
+                npad = -(-cout // 8) * 8
+                bmat = torch.zeros(cin, npad, dtype=torch.int8, device=device)
+                bmat[:, :cout] = mod.wq[:, :cin].t()
+                try:  # the yardstick only: a refusal leaves library_ms None
+                    lib = median_ms(lambda a=a, bmat=bmat: torch._int_mm(a, bmat), 10, 3)
+                except RuntimeError as e:
+                    print(f"[times] torch._int_mm refused {tuple(a.shape)} x {tuple(bmat.shape)}: {e}")
+                    res["qconv1x1"]["library_ms"] = lib = None
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["plain_ms"] += pms
         r["shapes"] += 1
+        # bound: activations, packed weights, scale and bias read once, the
+        # output written once; 2*K multiply-adds per output at the int8 rate
+        nbytes = xq.numel() + mod.wq.numel() + 8 * cout + got.numel() * got.element_size()
+        ops = 2.0 * got.numel() * k * k * cin
+        bms, _ = bound(nbytes, ops, "int8")
+        r["bound_ms"] += bms
+        r["bytes_ms"] += bound(nbytes)[0]
+        r["ops_ms"] += ops / PEAK_OPS_PER_S["int8"] * 1e3
+        if name == "qconv1x1" and r["library_ms"] is not None:
+            r["library_ms"] += lib
         calls[name].append((run, plain))
         out = "float" if float_out else "int8"
         print(f"[kernels] {name} B={B} {k}x{k}/s{s} {cin}->{cout} @{h}x{w} {act} -> {out}: "
@@ -562,9 +900,11 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
             r["device_ms"] = device_profile(lambda c=calls[name]: [run() for run, _ in c], iters=3)[0]
             r["plain_device_ms"] = device_profile(lambda c=calls[name]: [p() for _, p in c], iters=1)[0]
         r["at"] = f"B={B} @640, sum over the {r['shapes']} distinct shapes of the int8 network"
+        r["bound_by"] = "operations" if r.pop("ops_ms") > r.pop("bytes_ms") else "bytes"
         print(f"[times] {name} B={B}, all {r['shapes']} shapes: kernel {r['ms']:.4f} ms (device "
               f"{fmt_ms(r['device_ms'])}), plain {r['plain_ms']:.4f} ms (device "
-              f"{fmt_ms(r['plain_device_ms'])}) | {card}", flush=True)
+              f"{fmt_ms(r['plain_device_ms'])}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"library {fmt_ms(r['library_ms'])} | {card}", flush=True)
     return res
 
 
@@ -589,9 +929,12 @@ def phase_int8_slice(qmodel, requests, device, card: str) -> dict:
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in KERNELS}
     print(f"[int8] int8 path launches: {launches}", flush=True)
+    on_path = ROUTE_KERNELS[ROUTES[0]] + ("qconv1x1", "qconv_kxk")
     for kname, n in launches.items():
-        if n <= 0:
+        if kname in on_path and n <= 0:
             raise AssertionError(f"kernel {kname} was not launched on the int8 path")
+        if kname not in on_path and n:
+            raise AssertionError(f"kernel {kname} launched on the int8 path, which does not run it")
     for (dt, name), res in outs.items():
         dets = [d for req in res for d in req]
         for d in dets:
@@ -603,6 +946,28 @@ def phase_int8_slice(qmodel, requests, device, card: str) -> dict:
                 raise AssertionError(f"int8 {dt} {name}: malformed detections")
         print(f"[int8] {str(dt):>14} {name:>7}: detections/img {[len(d['boxes']) for d in dets]}",
               flush=True)
+
+    # one request (4x480x640), serving config, on each other route: its
+    # kernels launch on the int8 head outputs and it serves the default
+    # route's detections
+    qmodel.score_thresh, qmodel.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+    for route in ROUTES[1:]:
+        qmodel.row_gather = route
+        reset_launch_counts()
+        for dt, m in models.items():
+            for d, d0 in zip(m(requests[1]), outs[(dt, "serving")][1]):
+                if not all(np.array_equal(d[key], d0[key]) for key in ("boxes", "scores", "labels")):
+                    raise AssertionError(f"int8 {route} {dt} serving: detections differ from the "
+                                         f"default route's")
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        want = ROUTE_KERNELS[route] + ("qconv1x1", "qconv_kxk")
+        for kname, n in counts.items():
+            if (kname in want) != (n > 0):
+                raise AssertionError(f"int8 route {route}: kernel {kname} launched {n} times")
+        print(f"[int8] route {route}, serving, 4x480x640 in both dtypes: launches {counts}; "
+              f"detections equal to the default route's", flush=True)
+    qmodel.row_gather = ROUTES[0]
 
     # the card's int8 network against the CPU run of the port (plain
     # versions) on one 480x640 frame, same float32 canvas
@@ -688,17 +1053,49 @@ def phase_throughput(models, card: str, label: str) -> None:
               f"{post_ms:.2f} ms (CUDA events); whole call device-busy {fmt_ms(busy)} of "
               f"{sec * 1e3:.2f} ms wall | {card}", flush=True)
         print(f"[breakdown] {label} {dt} heaviest kernels (ms per call): {top}", flush=True)
-        ours = {n: ms for n, ms in rows if any(k in n for k in ("iou_mask", "greedy_walk", "bisect_count",
-                                                                "row_fetch", "qconv_kernel"))}
+        names = ("iou_mask", "greedy_walk", "bisect_count", "row_fetch", "qconv_kernel",
+                 "cells_stage1", "lookup_fetch", "select_extract", "compact_place")
+        ours = {n: ms for n, ms in rows if any(k in n for k in names)}
         qms = sum(ms for n, ms in ours.items() if "qconv_kernel" in n)
         share = f"{100 * qms / busy:.1f}%" if busy else "not measured"
         by_kernel = {}
         for n, ms in ours.items():
-            short = next(k for k in ("iou_mask", "greedy_walk", "bisect_count", "row_fetch",
-                                     "qconv_kernel") if k in n)
+            short = next(k for k in names if k in n)
             by_kernel[short] = round(by_kernel.get(short, 0.0) + ms, 4)
         print(f"[breakdown] {label} {dt} hand-written kernels (ms per call): {by_kernel}; "
               f"qconv kernels {qms:.3f} ms, {share} of device-busy", flush=True)
+
+
+def phase_route_times(models, card: str) -> dict:
+    """The postprocess's time per route at batch 32 @640 on the same head
+    outputs, both configs, both dtypes: CUDA events around back-to-back
+    calls (host gaps included) and the profiler's device time."""
+    import torch
+
+    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
+
+    batch = frames(20, 32, 640, 640)
+    out = {}
+    for dt, m in models.items():
+        yolo = m.model
+        x = torch.from_numpy(np.stack(batch)).to(m.device)
+        plan = make_plan([tuple(x.shape[1:3])])[0]
+        with torch.inference_mode():
+            heads = yolo.head_outputs(letterbox_batch(x.to(dt) * (1.0 / 255.0), plan))
+            for name, cfg in (("eval", EVAL), ("serving", SERVING)):
+                yolo.score_thresh, yolo.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+                line = []
+                for route in ROUTES:
+                    yolo.row_gather = route
+                    ev = median_ms(lambda: yolo.postprocess(heads), 5, 3)
+                    dev = device_profile(lambda: yolo.postprocess(heads), iters=3)[0]
+                    out[(str(dt), name, route)] = (ev, dev)
+                    line.append(f"{route} {ev:.3f} ms (device {fmt_ms(dev)})")
+                yolo.row_gather = ROUTES[0]
+                print(f"[times] postprocess {dt} {name} batch 32 @640 by route: {'; '.join(line)} "
+                      f"| {card}", flush=True)
+        yolo.score_thresh, yolo.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+    return out
 
 
 def main() -> int:
@@ -710,6 +1107,7 @@ def main() -> int:
     device = torch.device("cuda", 0)
     phase_build()
     res = phase_kernels(device, card)
+    res.update(phase_postprocess_kernels(device, card))
     sl = phase_slice(device, card)
     batch = frames(20, 32, 640, 640)
     qmodel = build_int8(device, sl["requests"], batch)
@@ -717,12 +1115,15 @@ def main() -> int:
     q8 = phase_int8_slice(qmodel, sl["requests"], device, card)
     phase_throughput(sl["models"], card, "float")
     phase_throughput(q8["models"], card, "int8")
+    phase_route_times(sl["models"], card)
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         by_path = {"float": sl["launches"][name], "int8": q8["launches"][name]}
+        per_batch = {route: n[name] for route, n in sl["per_batch"].items() if name in n}
         r = {k: v for k, v in res[name].items() if k != "shapes"}
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            launches=sum(by_path.values()), launches_by_path=by_path, **r))
+                            launches=sum(by_path.values()), launches_by_path=by_path,
+                            launches_per_batch_by_route=per_batch, **r))
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

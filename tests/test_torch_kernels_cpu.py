@@ -17,11 +17,14 @@ import torch
 
 import yolort_tpu_torch
 from yolort_tpu_torch.ops.cuda import (
-    KERNELS, _build, bisect_count, bisect_count_reference, nms_mask, nms_mask_reference,
-    qconv, qconv1x1, qconv1x1_reference, qconv_kxk, qconv_kxk_reference, reset_launch_counts,
-    row_fetch, row_fetch_reference,
+    KERNELS, _build, bisect_count, bisect_count_reference, compact_place, compact_place_reference,
+    fused_cells_stage1, fused_cells_stage1_reference, lookup_fetch, lookup_fetch_reference,
+    nms_mask, nms_mask_reference, qconv, qconv1x1, qconv1x1_reference, qconv_kxk,
+    qconv_kxk_reference, reset_launch_counts, row_fetch, row_fetch_reference, select_extract,
+    select_extract_reference,
 )
 from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, padded_depth
+from yolort_tpu_torch.ops.nms import NMSConfig, batched_postprocess_from_heads
 
 PKG = Path(yolort_tpu_torch.__file__).parent
 
@@ -227,3 +230,161 @@ def test_qconv_kernels_match_plain(cuda_device, k, s, pad, n, h, w, c, co):
             wantf = qconv_kxk_reference(*args, out_dtype=dt, **kw)
             gotf = qconv(*args, out_dtype=dt, **kw)
             assert gotf.dtype == dt and torch.equal(gotf, wantf)
+
+
+def _postprocess_inputs(device="cpu", dtype=torch.float32):
+    """Head levels (NHWC, C = 255, one NaN / inf / sub-floor logit), and a
+    stage-2 chunk table with its k-th value, tier counts and offsets."""
+    rng = np.random.default_rng(3)
+    heads = [torch.from_numpy((rng.standard_normal((2, h, w, 255)) * 3).astype(np.float32))
+             for h, w in ((8, 10), (4, 5), (2, 3))]
+    heads[0][0, 1, 2, 4] = float("nan")
+    heads[0][1, 0, 0, 90] = float("inf")
+    heads[1][0, 0, 1, 5:85] = -2e4
+    heads = [h.to(device, dtype) for h in heads]
+    _, _, table, _ = _inputs(device)
+    thr = int(np.float32(0.25).view(np.int32))
+    t, cg, ce = bisect_count_reference(table, 700, thr)
+    cnt = torch.cat([cg, ce], 1)
+    off = (cnt.cumsum(1, dtype=torch.int32) - cnt).contiguous()
+    return heads, table, thr, t, cnt, off
+
+
+def _same_bits(a, b):
+    """Equal bit patterns, NaN positions compared as NaN (the card's amax
+    need not keep a NaN's payload)."""
+    if a.dtype.is_floating_point:
+        iv = torch.int32 if a.element_size() == 4 else torch.int16
+        nan = torch.isnan(a)
+        return (a.shape == b.shape and torch.equal(nan, torch.isnan(b))
+                and torch.equal(a.view(iv)[~nan], b.view(iv)[~nan]))
+    return torch.equal(a, b)
+
+
+def _postprocess_calls(device="cpu"):
+    """(wrapper call, plain call) for each postprocess kernel."""
+    heads, table, thr, t, cnt, off = _postprocess_inputs(device)
+    rows, phys, p, is_eq = lookup_fetch_reference(table, off, 700)
+    return [
+        (lambda: fused_cells_stage1(heads, 3, 85), lambda: fused_cells_stage1_reference(heads, 3, 85)),
+        (lambda: lookup_fetch(table, off, 700), lambda: lookup_fetch_reference(table, off, 700)),
+        (lambda: select_extract(table, phys, p, is_eq, t, thr),
+         lambda: select_extract_reference(table, phys, p, is_eq, t, thr)),
+        (lambda: compact_place(table, cnt, off, t, thr, 700),
+         lambda: compact_place_reference(table, cnt, off, t, thr, 700)),
+    ]
+
+
+def test_postprocess_kernels_take_the_plain_versions_on_cpu():
+    reset_launch_counts()
+    for run, plain in _postprocess_calls():
+        for a, b in zip(run(), plain()):
+            assert _same_bits(a, b)
+    assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
+    assert not _build._loaded
+
+
+def test_postprocess_kernels_raise_on_other_devices():
+    heads, table, thr, t, cnt, off = (x if isinstance(x, int) else
+                                      ([h.to("meta") for h in x] if isinstance(x, list) else x.to("meta"))
+                                      for x in _postprocess_inputs())
+    idx = torch.zeros(2, 5, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_cells_stage1(heads, 3, 85)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        lookup_fetch(table, off, 5)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        select_extract(table, idx, idx, idx.bool(), t, thr)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        compact_place(table, cnt, off, t, thr, 5)
+
+
+def test_postprocess_kernels_check_their_inputs():
+    heads, table, thr, t, cnt, off = _postprocess_inputs()
+    idx = torch.zeros(2, 5, dtype=torch.int32)
+    with pytest.raises(ValueError, match="levels"):
+        fused_cells_stage1(heads * 2, 3, 85)  # five levels
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_cells_stage1([h.double() for h in heads], 3, 85)
+    with pytest.raises(ValueError, match="one dtype"):
+        fused_cells_stage1([heads[0], heads[1].bfloat16()], 3, 85)
+    with pytest.raises(ValueError, match=r"\(B, \.\.\., 255\)"):
+        fused_cells_stage1([heads[0][..., :200]], 3, 85)
+    with pytest.raises(ValueError, match="kw"):
+        fused_cells_stage1([heads[0][..., :15]], 3, 5)
+    with pytest.raises(ValueError, match="off"):
+        lookup_fetch(table, off.long(), 5)
+    with pytest.raises(ValueError, match="off"):
+        lookup_fetch(table, off[:, :-1], 5)
+    with pytest.raises(ValueError, match="k must be"):
+        lookup_fetch(table, off, 0)
+    with pytest.raises(ValueError, match="table"):
+        lookup_fetch(table[..., :64], off, 5)
+    with pytest.raises(ValueError, match=r"must be \(B, k\)"):
+        select_extract(table, idx, idx[:, :3], idx.bool(), t, thr)
+    with pytest.raises(ValueError, match="t must be"):
+        select_extract(table, idx, idx, idx.bool(), t[:1], thr)
+    with pytest.raises(ValueError, match="thr_bits"):
+        select_extract(table, idx, idx, idx.bool(), t, -1)
+    with pytest.raises(ValueError, match="cnt"):
+        compact_place(table, cnt.long(), off, t, thr, 5)
+    with pytest.raises(ValueError, match="t must be"):
+        compact_place(table, cnt, off, t.long(), thr, 5)
+    with pytest.raises(ValueError, match="k must be"):
+        compact_place(table, cnt, off, t, thr, 0)
+
+
+@pytest.mark.parametrize("field,value", [("s1_impl", "auto"), ("s1_impl", "sortidx"),
+                                         ("row_gather", "xla"), ("row_gather", "auto")])
+def test_unknown_postprocess_routes_raise(field, value):
+    # the port has one stage 1 (the fused kernel), so an s1_impl of the JAX
+    # package is refused as an unknown argument, never ignored
+    error = TypeError if field == "s1_impl" else ValueError
+    with pytest.raises(error, match=field):
+        NMSConfig(num_classes=80, **{field: value})
+    heads, *_ = _postprocess_inputs()
+    with pytest.raises(error, match=field):
+        batched_postprocess_from_heads(heads, (8, 16, 32), ((10, 13, 16, 30, 33, 23),) * 3,
+                                       num_classes=80, **{field: value})
+
+
+@pytest.mark.cuda
+def test_postprocess_kernels_match_plain(cuda_device):
+    for run, plain in _postprocess_calls(cuda_device):
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_cells_stage1_kernel_bf16_and_strided_levels(cuda_device):
+    heads, *_ = _postprocess_inputs(cuda_device, torch.bfloat16)
+    for a, b in zip(fused_cells_stage1(heads, 3, 85), fused_cells_stage1_reference(heads, 3, 85)):
+        assert a.dtype == torch.bfloat16 and _same_bits(a, b)
+    strided = heads[0].permute(0, 2, 1, 3)  # (B, W, H, C): not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_cells_stage1([strided], 3, 85)
+
+
+@pytest.mark.cuda
+def test_every_kernel_counts_its_launches(cuda_device):
+    """Each wrapper adds one to its count per launch and nothing else does."""
+    boxes, valid, table, idx = _inputs(cuda_device)
+    xq, wq, scale, bias = _qconv_operands(3, 1, 8, 10, 16, 32, seed=1, device=cuda_device)
+    calls = {
+        nms_mask: lambda: nms_mask(boxes, valid, 0.5),
+        bisect_count: lambda: bisect_count(table, 300, 0x3E800000),
+        row_fetch: lambda: row_fetch(table, idx),
+        qconv1x1: lambda: qconv1x1(xq, wq[:, :16].contiguous(), scale, bias, inv_out_scale=4.0),
+        qconv_kxk: lambda: qconv_kxk(xq, wq, scale, bias, k=3, inv_out_scale=4.0),
+    }
+    for fn, (run, _) in zip((fused_cells_stage1, lookup_fetch, select_extract, compact_place),
+                            _postprocess_calls(cuda_device)):
+        calls[fn] = run
+    assert set(calls) == set(KERNELS)
+    reset_launch_counts()
+    for i, fn in enumerate(KERNELS):
+        calls[fn]()
+        torch.cuda.synchronize()
+        assert [g.launches for g in KERNELS] == [1] * (i + 1) + [0] * (len(KERNELS) - i - 1)

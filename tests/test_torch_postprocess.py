@@ -17,6 +17,7 @@ from torch_parity import random_heads
 from yolort_tpu.models.head import DEFAULT_ANCHOR_GRIDS, DEFAULT_STRIDES
 from yolort_tpu.ops import nms as JN
 from yolort_tpu_torch.ops import nms as TN
+from yolort_tpu_torch.ops.cuda import fused_cells_stage1
 
 GRIDS = [(16, 20), (8, 10), (4, 5)]
 CONFIGS = {"serving": dict(score_thresh=0.25, pre_nms_topk=512),
@@ -66,5 +67,7 @@ def test_stage1_per_anchor_matches_jax():
     rows = np.random.default_rng(5).standard_normal((2, 30, 255)).astype(np.float32) * 4
     rows[0, 0, 4] = -2e4  # below the JAX reductions' -1e4 floor
     want = np.asarray(JN._stage1_per_anchor(jnp.asarray(rows), 3, 85))
-    got = TN._stage1_per_anchor(torch.from_numpy(rows), 3, 85)
+    # the port's stage 1: the maxima of fused_cells_stage1, then their scores
+    _, obj, cls = fused_cells_stage1([torch.from_numpy(rows)], 3, 85)
+    got = TN._stage1_scores(obj, cls)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)

@@ -21,7 +21,8 @@ from yolort_tpu_torch.ops.nms import Detections, batched_postprocess_from_heads
 class YOLO(nn.Module):
     """YOLOv5 r6.0.  ``depth_multiple``/``width_multiple`` select the size;
     the postprocess thresholds are plain attributes (the defaults are the
-    eval config).  Weights are drawn from ``torch.Generator(seed)`` on the
+    eval config), and so is its stage-2 route ``row_gather``
+    (``ops.nms.NMSConfig``; any route gives the same detections).  Weights are drawn from ``torch.Generator(seed)`` on the
     CPU, then the module moves to ``device`` and ``dtype``."""
 
     def __init__(
@@ -40,6 +41,7 @@ class YOLO(nn.Module):
         pre_nms_topk: int = 4096,
         pre_nms_anchors: Optional[int] = None,
         nms_tile_size: int = 256,
+        row_gather: str = "pallas_bisect",
         seed: int = 0,
     ):
         super().__init__()
@@ -52,6 +54,7 @@ class YOLO(nn.Module):
         self.pre_nms_topk = pre_nms_topk
         self.pre_nms_anchors = pre_nms_anchors
         self.nms_tile_size = nms_tile_size
+        self.row_gather = row_gather
 
         gen = torch.Generator().manual_seed(seed)
         in_channels = tuple(make_divisible(c * width_multiple, 8) for c in (256, 512, 1024))
@@ -81,7 +84,7 @@ class YOLO(nn.Module):
             num_classes=self.num_classes, score_thresh=self.score_thresh,
             nms_thresh=self.nms_thresh, detections_per_img=self.detections_per_img,
             pre_nms_topk=self.pre_nms_topk, pre_nms_anchors=self.pre_nms_anchors,
-            nms_tile_size=self.nms_tile_size,
+            nms_tile_size=self.nms_tile_size, row_gather=self.row_gather,
         )
 
     def forward(self, images: torch.Tensor) -> Detections:

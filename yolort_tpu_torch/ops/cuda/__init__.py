@@ -2,11 +2,19 @@
 version.  A wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it takes the plain version.  Nothing is built at import."""
 
+from yolort_tpu_torch.ops.cuda.compact_kernel import (  # noqa: F401
+    compact_place,
+    compact_place_reference,
+)
 from yolort_tpu_torch.ops.cuda.lookup_kernel import (  # noqa: F401
     bisect_count,
     bisect_count_reference,
+    lookup_fetch,
+    lookup_fetch_reference,
     row_fetch,
     row_fetch_reference,
+    select_extract,
+    select_extract_reference,
 )
 from yolort_tpu_torch.ops.cuda.nms_kernel import nms_mask, nms_mask_reference  # noqa: F401
 from yolort_tpu_torch.ops.cuda.qconv_kernel import (  # noqa: F401
@@ -16,8 +24,13 @@ from yolort_tpu_torch.ops.cuda.qconv_kernel import (  # noqa: F401
     qconv_kxk,
     qconv_kxk_reference,
 )
+from yolort_tpu_torch.ops.cuda.stage1_kernel import (  # noqa: F401
+    fused_cells_stage1,
+    fused_cells_stage1_reference,
+)
 
-KERNELS = (nms_mask, bisect_count, row_fetch, qconv1x1, qconv_kxk)
+KERNELS = (nms_mask, bisect_count, row_fetch, qconv1x1, qconv_kxk, fused_cells_stage1,
+           lookup_fetch, select_extract, compact_place)
 
 
 def reset_launch_counts() -> None:

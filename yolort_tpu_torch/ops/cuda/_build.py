@@ -21,7 +21,10 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "yolort_tpu_torch"
-SOURCES = ("nms_mask.cu", "bisect_count.cu", "row_fetch.cu", "qconv.cu")
+SOURCES = (
+    "nms_mask.cu", "bisect_count.cu", "row_fetch.cu", "qconv.cu", "cells_stage1.cu",
+    "lookup_fetch.cu", "select_extract.cu", "compact_select.cu",
+)
 # -fmad=false: no contraction of a*b+c, so the NMS IoU and the qconv
 # epilogue round per operation exactly as the plain versions do (the
 # sources also use the _rn intrinsics); -Xptxas -v writes registers/spills
@@ -40,6 +43,10 @@ _SIGNATURES = {
     "yt_row_fetch": (_P, _P, _P, _I, _I, _I, _I, _P),
     "yt_qconv1x1": (_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "yt_qconv_kxk": (_P, _P, _P, _P, _F, _P, *(_I,) * 12, _P),
+    "yt_cells_stage1": (_P, _P, _P, _P, *(_I,) * 9, _F, _I, _P, _P, _P, _P),
+    "yt_lookup_fetch": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "yt_select_extract": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "yt_compact_place": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()

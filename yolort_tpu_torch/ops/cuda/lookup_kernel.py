@@ -1,13 +1,17 @@
-"""Stage-2 selection kernels: ``bisect_count`` (``csrc/bisect_count.cu``) and
-``row_fetch`` (``csrc/row_fetch.cu``), each with its plain PyTorch version.
+"""Stage-2 selection kernels, each with its plain PyTorch version:
+``bisect_count`` (``csrc/bisect_count.cu``), ``row_fetch``
+(``csrc/row_fetch.cu``), ``lookup_fetch`` (``csrc/lookup_fetch.cu``) and
+``select_extract`` (``csrc/select_extract.cu``).
 
 Replace ``yolort_tpu/ops/pallas/lookup_kernel.py``: ``_bisect_count_kernel``
-/ ``pallas_bisect_count`` and ``_fetch_kernel`` + ``_fetch_block_bits`` /
-``pallas_row_fetch``.  The TPU kernels keep the chunk table in VMEM and
-fetch rows with byte-plane one-hot matmuls to dodge the TPU's slow
-gathers; on the H100 the first is a radix select over the bit patterns and
-the second a plain warp-per-row gather (the source notes say what bounds
-each).  Both are batched over a leading image dimension.
+/ ``pallas_bisect_count``, ``_fetch_kernel`` + ``_fetch_block_bits`` /
+``pallas_row_fetch``, ``_lookup_fetch_kernel`` / ``pallas_lookup_fetch``
+and ``_select_kernel`` / ``pallas_select_extract``.  The TPU kernels keep
+the chunk table in VMEM and fetch rows with byte-plane one-hot matmuls to
+dodge the TPU's slow gathers; on the H100 the first is a radix select over
+the bit patterns and the others read rows directly, a warp per row (the
+source notes say what bounds each).  All are batched over a leading image
+dimension.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from __future__ import annotations
 import torch
 
 from yolort_tpu_torch.ops.cuda import _build
+
+CHUNK = 128  # chunk-table row width
 
 # bits of 2.0f: the k-th value when no entry is valid (and the bisection's
 # upper bound; valid scores sit below it)
@@ -124,3 +130,134 @@ def row_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 row_fetch.launches = 0
+
+
+def _check_table(table: torch.Tensor, name: str) -> None:
+    if table.dim() != 3 or table.shape[-1] != CHUNK or table.dtype != torch.float32:
+        raise ValueError(f"{name}: table must be (B, m, 128) float32, got {tuple(table.shape)} {table.dtype}")
+    if table.shape[1] < 1:
+        raise ValueError(f"{name}: the table needs at least one row")
+
+
+def _check_cuda(name: str, table: torch.Tensor, *others: torch.Tensor) -> None:
+    if table.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {table.device}")
+    if not (table.is_contiguous() and all(x.is_contiguous() for x in others)):
+        raise ValueError(f"{name} needs contiguous inputs")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name} needs a 16-byte aligned table (the kernel loads int4)")
+
+
+def extract_hits(rows: torch.Tensor, p: torch.Tensor, is_eq: torch.Tensor, t: torch.Tensor,
+                 thr_bits: int):
+    """Each slot's p-th lane, in lane order, of its fetched chunk row's tier
+    mask (valid bits > thr_bits; gt tier bits >= t+1, eq tier bits == t):
+    rows (B, k, 128) f32 -> (vals (B, k) f32, lane (B, k) i32), (0.0, 0)
+    where the slot has no such lane.  Plain PyTorch."""
+    rows_b = rows.view(torch.int32)
+    tb = t[:, None, None]
+    rows_m = (rows_b > thr_bits) & torch.where(is_eq[..., None], rows_b == tb, rows_b >= tb + 1)
+    rank = rows_m.to(torch.int32).cumsum(-1) - 1  # exact in-lane rank
+    hit = rows_m & (rank == p[..., None])
+    vals = torch.where(hit, rows, 0.0).sum(-1)  # one term per slot: exact
+    lane = torch.where(hit, torch.arange(CHUNK, device=rows.device), 0).sum(-1)
+    return vals, lane.to(torch.int32)
+
+
+def lookup_fetch_reference(table: torch.Tensor, off: torch.Tensor, k: int):
+    """Plain version: ``searchsorted`` over the offsets, then
+    ``row_fetch_reference``.  See ``lookup_fetch``."""
+    bsz, m, _ = table.shape
+    s = torch.arange(k, dtype=off.dtype, device=off.device).expand(bsz, k).contiguous()
+    c = (torch.searchsorted(off.contiguous(), s, right=True) - 1).clamp(0, 2 * m - 1)
+    is_eq = c >= m
+    phys = (c - m * is_eq.long()).to(torch.int32)
+    p = (s - torch.gather(off, 1, c)).to(torch.int32)
+    return row_fetch_reference(table, phys), phys, p, is_eq
+
+
+def lookup_fetch(table: torch.Tensor, off: torch.Tensor, k: int):
+    """Slot -> chunk lookup plus the chunk-row fetch.
+
+    table (B, m, 128) f32; off (B, 2m) i32, the exclusive offsets of the
+    gt-tier chunks then the eq-tier chunks (nondecreasing); k >= 1.  For
+    slot s: c = (number of offsets <= s) - 1 clipped to [0, 2m-1],
+    is_eq = c >= m, phys = c - m*is_eq, p = s - off[c].  Returns (rows
+    (B, k, 128) f32 with the bits of table[b, phys], phys (B, k) i32,
+    p (B, k) i32, is_eq (B, k) bool).  CUDA tensors launch the kernel on
+    the current stream; CPU tensors take ``lookup_fetch_reference``."""
+    _check_table(table, "lookup_fetch")
+    bsz, m, _ = table.shape
+    if off.shape != (bsz, 2 * m) or off.dtype != torch.int32:
+        raise ValueError(f"lookup_fetch: off must be ({bsz}, {2 * m}) int32, got {tuple(off.shape)} {off.dtype}")
+    if off.device != table.device:
+        raise ValueError("lookup_fetch: table and off must be on one device")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if table.device.type == "cpu":
+        return lookup_fetch_reference(table, off, k)
+    _check_cuda("lookup_fetch", table, off)
+    rows = torch.empty(bsz, k, CHUNK, dtype=torch.float32, device=table.device)
+    phys = torch.empty(bsz, k, dtype=torch.int32, device=table.device)
+    p = torch.empty_like(phys)
+    is_eq = torch.empty(bsz, k, dtype=torch.bool, device=table.device)
+    lib = _build.library()
+    with torch.cuda.device(table.device):
+        rc = lib.yt_lookup_fetch(
+            table.data_ptr(), off.data_ptr(), bsz, m, int(k), rows.data_ptr(), phys.data_ptr(),
+            p.data_ptr(), is_eq.data_ptr(), _build.stream_of(table),
+        )
+    _build.check(rc, "lookup_fetch")
+    lookup_fetch.launches += 1
+    return rows, phys, p, is_eq
+
+
+lookup_fetch.launches = 0
+
+
+def select_extract_reference(table, phys, p, is_eq, t, thr_bits: int):
+    """Plain version: ``row_fetch_reference`` then ``extract_hits``."""
+    return extract_hits(row_fetch_reference(table, phys), p, is_eq, t, thr_bits)
+
+
+def select_extract(table: torch.Tensor, phys: torch.Tensor, p: torch.Tensor,
+                   is_eq: torch.Tensor, t: torch.Tensor, thr_bits: int):
+    """In-kernel extraction: per slot, the chunk row table[b, clamp(phys)],
+    its tier mask against t (``extract_hits``), and the p-th set lane.
+
+    table (B, m, 128) f32; phys, p (B, k) i32; is_eq (B, k) bool; t (B,)
+    i32 k-th value bits; thr_bits the f32 bits of a threshold >= 0.
+    Returns (vals (B, k) f32, lane (B, k) i32), (0.0, 0) for a slot with
+    no hit.  CUDA tensors launch the kernel on the current stream; CPU
+    tensors take ``select_extract_reference``."""
+    _check_table(table, "select_extract")
+    bsz, m, _ = table.shape
+    if not (phys.dim() == 2 and phys.shape[0] == bsz and p.shape == is_eq.shape == phys.shape):
+        raise ValueError(f"select_extract: phys, p and is_eq must be (B, k) for table {tuple(table.shape)}, "
+                         f"got {tuple(phys.shape)}, {tuple(p.shape)}, {tuple(is_eq.shape)}")
+    if any(x.device != table.device for x in (phys, p, is_eq)):
+        raise ValueError("select_extract: every input must be on the table's device")
+    if t.shape != (bsz,) or t.device != table.device:
+        raise ValueError(f"select_extract: t must be ({bsz},) on the table's device, got {tuple(t.shape)}")
+    if not 0 <= thr_bits < NO_VALID_BITS:
+        raise ValueError(f"thr_bits must be the bits of a threshold in [0, 2), got {thr_bits:#x}")
+    if table.device.type == "cpu":
+        return select_extract_reference(table, phys, p, is_eq, t, thr_bits)
+    if (phys.dtype, p.dtype, is_eq.dtype, t.dtype) != (torch.int32, torch.int32, torch.bool, torch.int32):
+        raise ValueError("select_extract: phys, p and t must be int32 and is_eq bool on cuda")
+    _check_cuda("select_extract", table, phys, p, is_eq, t)
+    k = phys.shape[1]
+    vals = torch.empty(bsz, k, dtype=torch.float32, device=table.device)
+    lane = torch.empty(bsz, k, dtype=torch.int32, device=table.device)
+    lib = _build.library()
+    with torch.cuda.device(table.device):
+        rc = lib.yt_select_extract(
+            table.data_ptr(), phys.data_ptr(), p.data_ptr(), is_eq.data_ptr(), t.data_ptr(),
+            int(thr_bits), bsz, m, k, vals.data_ptr(), lane.data_ptr(), _build.stream_of(table),
+        )
+    _build.check(rc, "select_extract")
+    select_extract.launches += 1
+    return vals, lane
+
+
+select_extract.launches = 0

@@ -1,0 +1,88 @@
+"""Stage-1 screen kernel: ``fused_cells_stage1`` (``csrc/cells_stage1.cu``)
+with its plain PyTorch version.
+
+Replaces ``yolort_tpu/ops/pallas/s1_kernel.py`` (``_kernel`` /
+``fused_cells_stage1``): one pass that writes the head levels into the
+concatenated cells table and takes each anchor's max obj logit and max
+class logit on the way.  The sigmoid product stays with the caller
+(``ops.nms._stage1_scores``), as it does in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+
+from yolort_tpu_torch.ops.cuda import _build
+
+NEG_LOGIT = -1.0e4  # floor of the masked maxima, as the JAX reductions fill
+MAX_LEVELS = 4
+
+
+def _rows(level: torch.Tensor) -> int:
+    return math.prod(level.shape[1:-1])
+
+
+def fused_cells_stage1_reference(levels: Sequence[torch.Tensor], num_anchors: int, kw: int):
+    """Plain version: ``torch.cat`` of the levels as (B, R_l, C), then each
+    anchor's obj logit and largest class logit, floored at -1e4 in the
+    levels' dtype.  NaN propagates (torch.maximum / amax)."""
+    bsz = levels[0].shape[0]
+    cells = torch.cat([lv.reshape(bsz, _rows(lv), lv.shape[-1]) for lv in levels], dim=1)
+    x = cells.unflatten(-1, (num_anchors, kw))
+    neg = torch.tensor(NEG_LOGIT, dtype=cells.dtype, device=cells.device)
+    return cells, torch.maximum(x[..., 4], neg), torch.maximum(x[..., 5:].amax(-1), neg)
+
+
+def fused_cells_stage1(levels: Sequence[torch.Tensor], num_anchors: int, kw: int):
+    """Cells table and stage-1 maxima in one pass.
+
+    levels: 1-4 head outputs (B, H, W, C) or (B, R, C), C = A*kw, one dtype
+    (float32 or bfloat16).  Returns (cells (B, sum R_l, C), obj (B, sum R_l,
+    A), cls (B, sum R_l, A)) in that dtype, equal to
+    ``fused_cells_stage1_reference``.  CUDA tensors launch the kernel on
+    the current stream and must be contiguous (a strided level raises
+    rather than being copied); CPU tensors take the plain version."""
+    levels = list(levels)
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"fused_cells_stage1 takes 1-{MAX_LEVELS} levels, got {len(levels)}")
+    first = levels[0]
+    C = num_anchors * kw
+    if num_anchors < 1 or kw < 6:
+        raise ValueError(f"need num_anchors >= 1 and kw >= 6 (one class at least), got {num_anchors}, {kw}")
+    if first.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"levels must be float32 or bfloat16, got {first.dtype}")
+    for lv in levels:
+        if lv.dim() < 3 or lv.shape[0] != first.shape[0] or lv.shape[-1] != C:
+            raise ValueError(f"levels must be (B, ..., {C}) with one batch size, got {tuple(lv.shape)}")
+        if lv.dtype != first.dtype or lv.device != first.device:
+            raise ValueError("levels must share one dtype and one device")
+    if first.device.type == "cpu":
+        return fused_cells_stage1_reference(levels, num_anchors, kw)
+    if first.device.type != "cuda":
+        raise ValueError(f"fused_cells_stage1 runs on cuda or cpu tensors, not {first.device}")
+    if not all(lv.is_contiguous() for lv in levels):
+        raise ValueError("fused_cells_stage1 needs contiguous levels (NHWC head outputs as views)")
+    bsz = first.shape[0]
+    rows = [_rows(lv) for lv in levels]
+    n_cells = sum(rows)
+    cells = torch.empty(bsz, n_cells, C, dtype=first.dtype, device=first.device)
+    obj = torch.empty(bsz, n_cells, num_anchors, dtype=first.dtype, device=first.device)
+    cls = torch.empty_like(obj)
+    pad = MAX_LEVELS - len(levels)
+    neg = float(torch.tensor(NEG_LOGIT, dtype=first.dtype))  # -9984.0 in bfloat16
+    lib = _build.library()
+    with torch.cuda.device(first.device):
+        rc = lib.yt_cells_stage1(
+            *[lv.data_ptr() for lv in levels], *[None] * pad, *rows, *[0] * pad, len(levels),
+            bsz, C, num_anchors, kw, neg, first.element_size(), cells.data_ptr(),
+            obj.data_ptr(), cls.data_ptr(), _build.stream_of(first),
+        )
+    _build.check(rc, "fused_cells_stage1")
+    fused_cells_stage1.launches += 1
+    return cells, obj, cls
+
+
+fused_cells_stage1.launches = 0

@@ -3,13 +3,17 @@ greedy NMS, compaction to padded ``Detections``.
 
 Port of the cell-major path of ``yolort_tpu/ops/nms.py``, the one the JAX
 package resolves to on an accelerator (``flatten_pad='cell'``,
-``topk_impl='bisect'``, ``row_gather='pallas_bisect'``, Pallas NMS):
+``topk_impl='bisect'``, Pallas NMS), with the JAX package's stage-2 axis
+``row_gather`` (``'pallas_bisect'``, the default, ``'pallas_lookup'`` or
+``'pallas_full'``).  Every route gives the same ``Detections``.
 
-  1. stage 1: each anchor's best-class score from the conv-layout head rows,
-     then the top k1 anchors (``select_topk_indices``);
+  1. stage 1: the ``fused_cells_stage1`` kernel concatenates the head levels
+     into the cells table and takes each anchor's max obj and max class
+     logit in one pass; their sigmoid product scores the anchors, then the
+     top k1 anchors (``select_topk_indices``);
   2. lazy decode of the k1 anchors, then the top k (anchor, class) pairs
      above the score threshold (``select_topk_threshold``, which runs the
-     ``bisect_count`` and ``row_fetch`` kernels);
+     ``bisect_count`` kernel and the ``row_gather`` route's kernels);
   3. the class-offset trick and greedy NMS (the ``nms_mask`` kernel);
   4. compaction of the kept candidates into ``detections_per_img`` slots.
 
@@ -28,7 +32,8 @@ import torch
 from yolort_tpu_torch.models.head import anchor_props_from_index
 from yolort_tpu_torch.ops.boxes import cxcywh_to_xyxy
 from yolort_tpu_torch.ops.cuda.nms_kernel import nms_mask
-from yolort_tpu_torch.ops.select import select_topk_indices, select_topk_threshold
+from yolort_tpu_torch.ops.cuda.stage1_kernel import fused_cells_stage1
+from yolort_tpu_torch.ops.select import ROW_GATHERS, select_topk_indices, select_topk_threshold
 
 
 def _f32(x: float) -> float:
@@ -58,12 +63,16 @@ class Detections(NamedTuple):
 
 @dataclass(frozen=True)
 class NMSConfig:
-    """The postprocess configuration: the semantics axes plus the NMS tile.
+    """The postprocess configuration: the semantics axes, the NMS tile and
+    the stage-2 implementation axis.
 
     score_thresh / nms_thresh / detections_per_img: the thresholds;
     pre_nms_topk: the fixed-shape candidate cap k; pre_nms_anchors: the
     stage-1 screen size k1 (None = k + 8, which makes the two-stage
     selection exact); nms_tile_size: the granularity of the NMS early exit.
+    row_gather: the stage-2 route of ``select_topk_threshold``; the default
+    is the route the JAX package resolves to on the TPU; an unknown value
+    raises.
     """
 
     num_classes: int
@@ -77,6 +86,11 @@ class NMSConfig:
     pre_nms_topk: int = 4096
     pre_nms_anchors: Optional[int] = None
     nms_tile_size: int = 256
+    row_gather: str = "pallas_bisect"
+
+    def __post_init__(self):
+        if self.row_gather not in ROW_GATHERS:
+            raise ValueError(f"row_gather must be one of {ROW_GATHERS}, got {self.row_gather!r}")
 
 
 def _compact_detections(keep, cand_boxes, top_scores, labels, d: int):
@@ -104,14 +118,11 @@ def _nms_and_compact(cand_boxes, top_scores, labels, valid, *, nms_thresh, detec
     return _compact_detections(keep, cand_boxes, top_scores, labels, detections_per_img)
 
 
-def _stage1_per_anchor(rows: torch.Tensor, A: int, kw: int) -> torch.Tensor:
-    """Per-anchor best-class score of (..., A*kw) conv-layout rows:
-    sigmoid(max class logit) * sigmoid(obj logit), in the rows' dtype.
-    Logits are floored at -1e4 as the JAX masked reductions floor them."""
-    x = rows.unflatten(-1, (A, kw))
-    neg = torch.tensor(-1.0e4, dtype=rows.dtype, device=rows.device)
-    obj = torch.maximum(x[..., 4], neg)
-    cls = torch.maximum(x[..., 5:].amax(-1), neg)
+def _stage1_scores(obj: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+    """Per-anchor best-class score of the stage-1 maxima (the obj logit and
+    the largest class logit, floored at -1e4 as the JAX masked reductions
+    floor them): sigmoid(max class logit) * sigmoid(obj logit), in their
+    dtype."""
     return torch.sigmoid(cls) * torch.sigmoid(obj)
 
 
@@ -130,7 +141,8 @@ def _decode_stage2_nms(sel_sig, anchor_sel, s1_ok, cfg: NMSConfig, k: int, k1: i
     sel_scores = torch.where(s1_ok[..., None], sel_scores, 0.0)
     score_thresh = _f32(cfg.score_thresh)
     top_scores, top_idx = select_topk_threshold(
-        sel_scores.reshape(sel_scores.shape[0], -1), min(k, k1 * nc), score_thresh
+        sel_scores.reshape(sel_scores.shape[0], -1), min(k, k1 * nc), score_thresh,
+        row_gather=cfg.row_gather,
     )
     labels = (top_idx % nc).to(torch.int32)
     cand_boxes = torch.gather(sel_boxes, 1, (top_idx // nc)[..., None].expand(-1, -1, 4))
@@ -141,9 +153,10 @@ def _decode_stage2_nms(sel_sig, anchor_sel, s1_ok, cfg: NMSConfig, k: int, k1: i
     )
 
 
-def _nms_cells(cells: torch.Tensor, cfg: NMSConfig) -> Detections:
+def _nms_cells(cells: torch.Tensor, per_anchor: torch.Tensor, cfg: NMSConfig) -> Detections:
     """Cell-major lazy-decode postprocess.  cells: (B, n_cells, A*(5+nc))
-    raw logits in conv channel layout, levels concatenated."""
+    raw logits in conv channel layout, levels concatenated; per_anchor
+    (B, n_cells*A), the stage-1 scores."""
     A, nc = cfg.num_anchors, cfg.num_classes
     kw = 5 + nc
     bsz, n_cells, _ = cells.shape
@@ -151,7 +164,6 @@ def _nms_cells(cells: torch.Tensor, cfg: NMSConfig) -> Detections:
     k = min(cfg.pre_nms_topk, na * nc)
     k1 = min(cfg.pre_nms_anchors if cfg.pre_nms_anchors is not None else k + 8, na)
 
-    per_anchor = _stage1_per_anchor(cells, A, kw).reshape(bsz, na)
     s1_ok, anchor_sel = select_topk_indices(per_anchor.float(), k1)
     # anchor index = cell * A + a, so the (B, na, kw) view holds each
     # anchor's segment as one row
@@ -172,9 +184,12 @@ def batched_postprocess_from_heads(
     pre_nms_topk: int = 4096,
     pre_nms_anchors: Optional[int] = None,
     nms_tile_size: int = 256,
+    row_gather: str = "pallas_bisect",
 ) -> Detections:
     """Batched postprocess from raw per-level head logits (B, H, W, A*(5+nc)),
-    NHWC, in the model dtype."""
+    NHWC, in the model dtype (contiguous on the card).  ``row_gather``
+    picks the stage-2 route (``NMSConfig``); the result does not depend on
+    it."""
     cfg = NMSConfig(
         num_classes=num_classes,
         num_anchors=len(anchor_grids[0]) // 2,
@@ -184,7 +199,8 @@ def batched_postprocess_from_heads(
         score_thresh=score_thresh, nms_thresh=nms_thresh,
         detections_per_img=detections_per_img, pre_nms_topk=pre_nms_topk,
         pre_nms_anchors=pre_nms_anchors, nms_tile_size=nms_tile_size,
+        row_gather=row_gather,
     )
     bsz = head_outputs[0].shape[0]
-    cells = torch.cat([o.reshape(bsz, -1, o.shape[3]) for o in head_outputs], dim=1)
-    return _nms_cells(cells, cfg)
+    cells, obj, cls = fused_cells_stage1(head_outputs, cfg.num_anchors, 5 + num_classes)
+    return _nms_cells(cells, _stage1_scores(obj, cls).reshape(bsz, -1), cfg)

@@ -6,10 +6,16 @@ Port of ``yolort_tpu/ops/select.py`` for the paths the main program runs:
   * ``select_topk_indices`` — the stage-1 anchor screen: the k-th value,
     then one int32 selection over ``tier << B | index`` keys;
   * ``select_topk_threshold`` — the stage-2 pair select, the f32 ``w=128``
-    path the JAX package resolves to ``row_gather='pallas_bisect'``: the
-    k-th value and per-chunk tier counts from ``bisect_count``, exclusive
-    offsets, a slot->chunk lookup, chunk rows from ``row_fetch`` and the
-    in-lane extraction tail.
+    path: the k-th value and per-chunk tier counts from ``bisect_count``,
+    exclusive offsets, then one of three ``row_gather`` routes (the JAX
+    package's names): ``'pallas_bisect'`` (the default) a slot->chunk
+    lookup, chunk rows from ``row_fetch`` and the in-lane extraction tail;
+    ``'pallas_lookup'`` the lookup and the fetch in ``lookup_fetch``, then
+    the tail; ``'pallas_full'`` the lookup, then fetch and extraction in
+    ``select_extract``.  All three return the same values and indices;
+  * ``compact_select`` — the same exact top-k by stream compaction
+    (``compact_place``), the counterpart of
+    ``yolort_tpu/ops/pallas/compact_kernel.py:compact_select``.
 
 Every function takes a leading batch dimension.  Inputs are scores in
 [0, 1] and thresholds >= 0: the domain the kernels' contract covers.
@@ -22,9 +28,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from yolort_tpu_torch.ops.cuda.lookup_kernel import NO_VALID_BITS, bisect_count, row_fetch
+from yolort_tpu_torch.ops.cuda.compact_kernel import compact_place
+from yolort_tpu_torch.ops.cuda.lookup_kernel import (
+    CHUNK, NO_VALID_BITS, bisect_count, extract_hits, lookup_fetch, row_fetch, select_extract,
+)
 
-CHUNK = 128  # stream-compaction chunk width (the JAX w=128 path)
+ROW_GATHERS = ("pallas_bisect", "pallas_lookup", "pallas_full")
 
 
 def f32_bits(x: float) -> int:
@@ -98,12 +107,16 @@ def select_topk_indices(
 
 
 def select_topk_threshold(
-    flat: torch.Tensor, k: int, score_thresh: float
+    flat: torch.Tensor, k: int, score_thresh: float, row_gather: str = "pallas_bisect"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of (B, n) f32 scores > score_thresh, without a sort of
     the domain.  Returns (values (B, k) f32, indices (B, k) int64); empty
     slots hold -1.0 and index 0.  The slots are in descending value order,
-    ties in index order (the JAX stable sort of ``sort=True``)."""
+    ties in index order (the JAX stable sort of ``sort=True``).
+    ``row_gather`` picks the route (module docstring); every route gives
+    the same result."""
+    if row_gather not in ROW_GATHERS:
+        raise ValueError(f"row_gather must be one of {ROW_GATHERS}, got {row_gather!r}")
     bsz, n = flat.shape
     k = min(k, n)
     table = _chunk_table(flat.float())
@@ -114,29 +127,59 @@ def select_topk_threshold(
     cnt = torch.cat([cnt_gt, cnt_eq], dim=1).long()
     off = cnt.cumsum(1) - cnt
     total = off[:, -1] + cnt[:, -1]
+    if row_gather == "pallas_lookup":
+        rows, phys, p, is_eq = lookup_fetch(table, off.to(torch.int32), k)
+        return _extract_tail(rows, phys, p, is_eq, t, thr_bits, total, k)
     s = torch.arange(k, device=flat.device).expand(bsz, k).contiguous()
     # chunk holding output slot s: the last chunk whose offset <= s
     c_of_s = (torch.searchsorted(off, s, right=True) - 1).clamp(0, 2 * m - 1)
     p = s - torch.gather(off, 1, c_of_s)
     phys = c_of_s % m
     is_eq = c_of_s >= m
+    if row_gather == "pallas_full":
+        vals, lane = select_extract(table, phys.to(torch.int32), p.to(torch.int32), is_eq, t,
+                                    thr_bits)
+        return _mask_and_sort(vals, phys * CHUNK + lane, total, k)
     rows = row_fetch(table, phys.to(torch.int32))
-    return _extract_tail(rows, phys, p, is_eq, t, thr_bits, s, total, k)
+    return _extract_tail(rows, phys, p, is_eq, t, thr_bits, total, k)
 
 
-def _extract_tail(rows, phys, p, is_eq, t, thr_bits, s, total, k):
+def _extract_tail(rows, phys, p, is_eq, t, thr_bits, total, k):
     """Recompute the slot's tier on its fetched chunk row, take the p-th
     set lane, mask empty slots, and sort descending."""
-    rows_b = rows.view(torch.int32)
-    tb = t[:, None, None]
-    rows_m = (rows_b > thr_bits) & torch.where(is_eq[..., None], rows_b == tb, rows_b >= tb + 1)
-    rank = rows_m.to(torch.int32).cumsum(-1) - 1  # exact in-lane rank
-    hit = rows_m & (rank == p[..., None])
-    vals = torch.where(hit, rows, 0.0).sum(-1)  # one term per slot: exact
-    lane = torch.where(hit, torch.arange(CHUNK, device=rows.device), 0).sum(-1)
-    idx = phys * CHUNK + lane
-    ok = s < total.clamp(max=k)[:, None]
+    vals, lane = extract_hits(rows, p, is_eq, t, thr_bits)
+    return _mask_and_sort(vals, phys.long() * CHUNK + lane, total, k)
+
+
+def _mask_and_sort(vals, idx, total, k, sort: bool = True):
+    """Slots at or past min(total, k) become (-1.0, 0); then, if ``sort``,
+    the stable descending sort of the values (ties keep slot order)."""
+    ok = torch.arange(k, device=vals.device)[None, :] < total.clamp(max=k)[:, None]
     vals = torch.where(ok, vals, -1.0)
-    idx = torch.where(ok, idx, 0)
+    idx = torch.where(ok, idx.long(), 0)
+    if not sort:
+        return vals, idx
     order = torch.sort(-vals, dim=1, stable=True).indices
     return torch.gather(vals, 1, order), torch.gather(idx, 1, order)
+
+
+def compact_select(
+    flat: torch.Tensor, k: int, score_thresh: float, sort: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of (B, n) f32 scores > score_thresh by stream
+    compaction: t and the per-chunk tier counts from ``bisect_count`` (the
+    fixed point the JAX bisection reaches), their exclusive offsets over
+    [gt chunks..., eq chunks...], then ``compact_place``.  Returns (values
+    (B, k) f32, indices (B, k) int64), empty slots -1.0 and index 0; with
+    ``sort`` in descending value order, ties in index order (the result of
+    ``select_topk_threshold``), else strictly-above entries then ties, each
+    in index order."""
+    k = min(k, flat.shape[1])
+    table = _chunk_table(flat.float())
+    thr_bits = f32_bits(score_thresh)
+    t, cnt_gt, cnt_eq = bisect_count(table, k, thr_bits)
+    cnt = torch.cat([cnt_gt, cnt_eq], dim=1)
+    off = cnt.cumsum(1, dtype=torch.int32) - cnt
+    total = off[:, -1] + cnt[:, -1]
+    vals, idx = compact_place(table, cnt, off, t, thr_bits, k)
+    return _mask_and_sort(vals, idx, total, k, sort)
