@@ -8,10 +8,14 @@ Phases, each fatal on failure:
   2. build: compiles the CUDA kernels from yolort_tpu_torch/csrc/ (one
      nvcc per source, in parallel);
   3. kernels: nms_mask, bisect_count, row_fetch, fused_cells_stage1,
-     lookup_fetch, select_extract and compact_place against their plain
-     PyTorch versions on the card, at the main path's shapes, batch 8;
-     results must be bit-identical (NaN positions compared as NaN);
-     compact_select must equal select_topk_threshold on the same scores;
+     lookup_fetch, select_extract, compact_place and the five variants of
+     lookup_fetch_variant against their plain PyTorch versions on the
+     card, at the main path's shapes, batch 8 (the variant 'full' also
+     against lookup_fetch); row_fetch_p at every swept geometry against
+     its plain version at both sweep shapes (experiments/
+     fetch_block_sweep.py), batch 8; results must be bit-identical (NaN
+     positions compared as NaN); compact_select must equal
+     select_topk_threshold on the same scores;
   4. slice: yolov5s at full width, seeded random weights with the head
      biases shifted to a realistic candidate load, serves uint8 frames of
      three sizes in float32 and bfloat16 under the eval (0.005 / 4096) and
@@ -19,10 +23,9 @@ Phases, each fatal on failure:
      (row_gather) of ROUTES; every kernel of a route must have launched
      (the default route exactly fused_cells_stage1 1, nms_mask 1,
      bisect_count 2, row_fetch 1 per batch), every image must carry
-     detections, each route's
-     detections must equal the default route's on the same head outputs,
-     and the card's postprocess must agree with the CPU run of the port on
-     every route;
+     detections, each route's detections must equal the default route's
+     on the same head outputs, and the card's postprocess must agree with
+     the CPU run of the port on every route;
   5. int8: the same yolov5s calibrated on 4 batches of 2 letterboxed 640
      frames, quantized and finalized (ops/quantization.py); qconv1x1 and
      qconv_kxk against their plain versions at every distinct conv shape of
@@ -37,7 +40,11 @@ Phases, each fatal on failure:
   6. times: each kernel's time beside its plain version's, its bound and
      the time of a PyTorch call that computes the same function where
      there is one; images/s of the float and int8 slices at batch 32; the
-     postprocess's time per route at batch 32 in both configs and dtypes.
+     postprocess's time per route at batch 32 in both configs and dtypes;
+     then the two timing entry points at batch 128 (python -m
+     yolort_tpu_torch.experiments.lookup_kernel_variants and
+     .fetch_block_sweep: each checks its kernel against the plain version
+     and prints its times), each with the launch counts read around it.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON.  Imports nothing of JAX.
 """
@@ -45,11 +52,15 @@ the kernels as JSON.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
+
+from yolort_tpu_torch.experiments.timing import (
+    PEAK_OPS_PER_S, abs_err, bound, card_line, device_profile, distinct_rows, fmt_ms, median_ms,
+    same_bits,
+)
 
 B = 8  # images per kernel check
 EVAL = dict(score_thresh=0.005, pre_nms_topk=4096)
@@ -71,117 +82,22 @@ TPU_KERNELS = {
                        "yolort_tpu/ops/pallas/lookup_kernel.py:433"),
     "compact_place": ("yolort_tpu_torch/csrc/compact_select.cu",
                       "yolort_tpu/ops/pallas/compact_kernel.py:171"),
+    "lookup_fetch_variant": ("yolort_tpu_torch/csrc/lookup_fetch.cu",
+                             "tools/experiments/lookup_kernel_variants.py:109"),
+    "row_fetch_p": ("yolort_tpu_torch/csrc/row_fetch.cu",
+                    "tools/experiments/fetch_block_sweep.py:89"),
 }
 # stage-2 postprocess routes (row_gather), the default first, and the
 # kernels each one launches
 ROUTES = ("pallas_bisect", "pallas_lookup", "pallas_full")
+DEFAULT_ROUTE = ROUTES[0]
 ROUTE_KERNELS = {
     route: ("fused_cells_stage1", "nms_mask", "bisect_count", fetch)
     for route, fetch in zip(ROUTES, ("row_fetch", "lookup_fetch", "select_extract"))
 }
 DEFAULT_PER_BATCH = {"fused_cells_stage1": 1, "nms_mask": 1, "bisect_count": 2, "row_fetch": 1}
-# the bound's rates: NVIDIA's H100 SXM data sheet (dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def median_ms(fn, launches: int = 20, repeats: int = 5) -> float:
-    """Time of one call on the card: CUDA events around ``launches``
-    back-to-back calls, divided by the count; the median of ``repeats``
-    such runs, after a warm-up.  Includes any host gaps between launches."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(launches):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / launches)
-    return float(np.median(times))
-
-
-def device_profile(fn, iters: int = 5):
-    """Device time per call from torch.profiler: (total ms, [(kernel name,
-    ms), ...] by time), over the device-side events only (kernels, copies,
-    memsets; the host-side aten ops that launched them are not summed
-    again).  Total is None when the profiler saw no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if "CUDA" not in str(e.device_type):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((e.key, us / iters / 1e3))
-    rows.sort(key=lambda r: -r[1])
-    total = sum(ms for _, ms in rows)
-    return (total if total > 0 else None), rows
-
-
-def fmt_ms(x) -> str:
-    return "not measured" if x is None else f"{x:.4f} ms"
-
-
-def bound(nbytes: float, ops: float = 0.0, kind: str = "f32"):
-    """(least ms, 'bytes' | 'operations'): the larger of the bytes moved at
-    the memory rate and the operations at the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
-
-
-def same_bits(a, b) -> bool:
-    """Equal bit patterns, NaN positions compared as NaN."""
-    import torch
-
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    if not a.dtype.is_floating_point:
-        return torch.equal(a, b)
-    iv = {4: torch.int32, 2: torch.int16}[a.element_size()]
-    nan = torch.isnan(a)
-    return torch.equal(nan, torch.isnan(b)) and torch.equal(a.view(iv)[~nan], b.view(iv)[~nan])
-
-
-def abs_err(a, b) -> float:
-    """Largest |a - b| over the entries where the difference is a number."""
-    import torch
-
-    d = a.double() - b.double()
-    d = d[~torch.isnan(d)]
-    return float(d.abs().max()) if d.numel() else 0.0
-
-
-def distinct_rows(phys, m: int) -> int:
-    """Distinct (image, row) pairs that clamped row indices (B, k) touch."""
-    import torch
-
-    b = torch.arange(phys.shape[0], device=phys.device)[:, None]
-    return int(torch.unique(phys.long().clamp(0, m - 1) + m * b).numel())
+# the timing entry points, each with the kernel it runs
+ENTRY_POINTS = {"lookup_kernel_variants": "lookup_fetch_variant", "fetch_block_sweep": "row_fetch_p"}
 
 
 # --------------------------------------------------------------------------
@@ -406,6 +322,31 @@ def phase_kernels(device, card: str) -> dict:
     return res
 
 
+def phase_sweep_kernels(device, card: str) -> dict:
+    """row_fetch_p at every swept geometry against its plain version at
+    both sweep shapes, batch 8, bit for bit; then row_fetch's geometry
+    (8, 1) timed at each beside the plain version, torch.gather and the
+    bound."""
+    from yolort_tpu_torch.experiments import fetch_block_sweep as sweep
+
+    err, out = 0.0, {}
+    for name, (tab, idx) in sweep.make_inputs(B, device, seed=50).items():
+        label = sweep.LABELS[name]
+        err = max(err, sweep.check(tab, idx, label=f"B={B} {label}"))
+        print(f"[kernels] row_fetch_p B={B} {label}: all {len(sweep.GEOMETRIES)} geometries "
+              f"bit-identical", flush=True)
+        r = sweep.measure(tab, idx, card, geometries=((8, 1),), label=label, tag="[times] row_fetch_p")
+        bms, bby = r["bound"]
+        out[name] = dict(ms=r[(8, 1)]["ms"], device_ms=r[(8, 1)]["device_ms"],
+                         cold_ms=r[(8, 1)]["cold_ms"], plain_ms=r["plain"]["ms"],
+                         plain_device_ms=r["plain"]["device_ms"], bound_ms=bms, bound_by=bby,
+                         library_ms=r["library"]["ms"], library_device_ms=r["library"]["device_ms"])
+    return {"row_fetch_p": dict(
+        **out["cells"], library_call="torch.gather (clamped indices)", max_abs_err=err,
+        stage2=out["stage2"], at=f"B={B}, {sweep.LABELS['cells']}, geometry (8, 1); stage2: "
+                                f"{sweep.LABELS['stage2']}")}
+
+
 def logit_levels(seed: int, bsz: int, device, dtype, special: bool = False):
     """Head logits of the three yolov5s levels @640, (B, H, W, 255) NHWC;
     ``special`` puts NaN, +-inf and logits below -1e4 in the last level."""
@@ -436,6 +377,8 @@ def phase_postprocess_kernels(device, card: str) -> dict:
         fused_cells_stage1_reference, lookup_fetch, lookup_fetch_reference, select_extract,
         select_extract_reference,
     )
+    from yolort_tpu_torch.experiments import lookup_kernel_variants
+    from yolort_tpu_torch.ops.cuda.lookup_kernel import VARIANTS
     from yolort_tpu_torch.ops.select import compact_select, select_topk_threshold
 
     res = {}
@@ -486,7 +429,7 @@ def phase_postprocess_kernels(device, card: str) -> dict:
             ("fewer-than-k", score_table(42 + m, B, m, device, valid_frac=0.002), m, k, thr),
             ("none-valid", score_table(43 + m, B, m, device) * (thr * 0.99), m, k, thr),
         ]
-    errs = dict(lookup_fetch=0.0, select_extract=0.0, compact_place=0.0)
+    errs = dict(lookup_fetch=0.0, select_extract=0.0, compact_place=0.0, lookup_fetch_variant=0.0)
     rng = np.random.default_rng(44)
     for name, tab, m, k, thr in cases:
         tab = tab.contiguous()
@@ -525,11 +468,22 @@ def phase_postprocess_kernels(device, card: str) -> dict:
         cs, st = compact_select(flat, k, thr), select_topk_threshold(flat, k, thr)
         if not (same_bits(cs[0], st[0]) and torch.equal(cs[1], st[1])):
             raise AssertionError(f"compact_select {name} ({m},128) k={k}: differs from select_topk_threshold")
-        print(f"[kernels] lookup_fetch, select_extract, compact_place {name} B={B} ({m},128) k={k}: "
-              f"equal; compact_select == select_topk_threshold; selected/img {total[:3]}...", flush=True)
+        errs["lookup_fetch_variant"] = max(errs["lookup_fetch_variant"], lookup_kernel_variants.check(
+            tab, off, k, f"{name} B={B} ({m},128) k={k}"))
+        print(f"[kernels] lookup_fetch, select_extract, compact_place, lookup_fetch_variant x{len(VARIANTS)} "
+              f"{name} B={B} ({m},128) k={k}: equal (variant full == lookup_fetch); compact_select == "
+              f"select_topk_threshold; selected/img {total[:3]}...", flush=True)
 
         if name != "random":
             continue
+        if m == 2565:
+            var = lookup_kernel_variants.measure(tab, off, k, card, tag="[times] lookup_fetch_variant")
+            lib = var["library torch.searchsorted (the lookup alone)"]
+            res["lookup_fetch_variant"] = dict(
+                **var["full"], library_ms=None, library_call=None,
+                nearest_partial="torch.searchsorted (the lookup alone, no row fetch)",
+                nearest_partial_ms=lib["ms"], variants={v: var[v] for v in VARIANTS},
+                at=f"B={B}, ({m},128), k={k}, random table; ms etc. of the variant 'full'")
         t1 = t[:, None, None] + 1
         mask = tab.view(torch.int32) >= t1
         gidx = phys.long()[..., None].expand(-1, -1, 128)
@@ -709,18 +663,18 @@ def phase_slice(device, card: str) -> dict:
             if kname not in ROUTE_KERNELS[route] and n:
                 raise AssertionError(f"kernel {kname} launched on route {route}, which "
                                      f"does not run it")
-        if route == ROUTES[0]:
+        if route == DEFAULT_ROUTE:
             want = {kname: DEFAULT_PER_BATCH.get(kname, 0) * batches for kname in counts}
             if counts != want:
                 raise AssertionError(f"default route launches {counts}, want {want}")
     for m in models.values():
-        m.model.row_gather = ROUTES[0]
+        m.model.row_gather = DEFAULT_ROUTE
     for (route, dt, name), res in outs.items():
         counts = check_served(res, f"{route} {dt} {name}")
-        if route == ROUTES[0]:
+        if route == DEFAULT_ROUTE:
             print(f"[slice] {str(dt):>14} {name:>7}: detections/img {counts}", flush=True)
             continue
-        base = outs[(ROUTES[0], dt, name)]
+        base = outs[(DEFAULT_ROUTE, dt, name)]
         for req, req0 in zip(res, base):
             for d, d0 in zip(req, req0):
                 if not all(np.array_equal(d[key], d0[key]) for key in ("boxes", "scores", "labels")):
@@ -755,11 +709,11 @@ def phase_slice(device, card: str) -> dict:
                     un = pair_detections(det_gpu, det_cpu, label)
                     total_unpaired[route] += un
                     print(f"[slice] card vs CPU {label}: counts equal, {un} unpaired"
-                          f"{'' if route == ROUTES[0] else '; equal to the default route'}", flush=True)
-                yolo.row_gather = ROUTES[0]
+                          f"{'' if route == DEFAULT_ROUTE else '; equal to the default route'}", flush=True)
+                yolo.row_gather = DEFAULT_ROUTE
     print(f"[slice] unpaired card vs CPU by route: "
           f"{ {r: n for r, n in total_unpaired.items()} }", flush=True)
-    totals = {kname: sum(launches[r][kname] for r in ROUTES) for kname in launches[ROUTES[0]]}
+    totals = {kname: sum(launches[r][kname] for r in ROUTES) for kname in launches[DEFAULT_ROUTE]}
     per_batch = {r: {k: n / batches for k, n in launches[r].items() if n}
                  for r in ROUTES}
     return dict(launches=totals, per_batch=per_batch, unpaired=total_unpaired, models=models,
@@ -898,7 +852,7 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
             raise AssertionError(f"{name}: no conv of the int8 network runs on it")
         with torch.inference_mode():
             r["device_ms"] = device_profile(lambda c=calls[name]: [run() for run, _ in c], iters=3)[0]
-            r["plain_device_ms"] = device_profile(lambda c=calls[name]: [p() for _, p in c], iters=1)[0]
+            r["plain_device_ms"] = device_profile(lambda c=calls[name]: [p() for _, p in c], iters=2)[0]
         r["at"] = f"B={B} @640, sum over the {r['shapes']} distinct shapes of the int8 network"
         r["bound_by"] = "operations" if r.pop("ops_ms") > r.pop("bytes_ms") else "bytes"
         print(f"[times] {name} B={B}, all {r['shapes']} shapes: kernel {r['ms']:.4f} ms (device "
@@ -929,7 +883,7 @@ def phase_int8_slice(qmodel, requests, device, card: str) -> dict:
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in KERNELS}
     print(f"[int8] int8 path launches: {launches}", flush=True)
-    on_path = ROUTE_KERNELS[ROUTES[0]] + ("qconv1x1", "qconv_kxk")
+    on_path = ROUTE_KERNELS[DEFAULT_ROUTE] + ("qconv1x1", "qconv_kxk")
     for kname, n in launches.items():
         if kname in on_path and n <= 0:
             raise AssertionError(f"kernel {kname} was not launched on the int8 path")
@@ -967,7 +921,7 @@ def phase_int8_slice(qmodel, requests, device, card: str) -> dict:
                 raise AssertionError(f"int8 route {route}: kernel {kname} launched {n} times")
         print(f"[int8] route {route}, serving, 4x480x640 in both dtypes: launches {counts}; "
               f"detections equal to the default route's", flush=True)
-    qmodel.row_gather = ROUTES[0]
+    qmodel.row_gather = DEFAULT_ROUTE
 
     # the card's int8 network against the CPU run of the port (plain
     # versions) on one 480x640 frame, same float32 canvas
@@ -1091,11 +1045,41 @@ def phase_route_times(models, card: str) -> dict:
                     dev = device_profile(lambda: yolo.postprocess(heads), iters=3)[0]
                     out[(str(dt), name, route)] = (ev, dev)
                     line.append(f"{route} {ev:.3f} ms (device {fmt_ms(dev)})")
-                yolo.row_gather = ROUTES[0]
+                yolo.row_gather = DEFAULT_ROUTE
                 print(f"[times] postprocess {dt} {name} batch 32 @640 by route: {'; '.join(line)} "
                       f"| {card}", flush=True)
         yolo.score_thresh, yolo.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
     return out
+
+
+def phase_entry_points() -> dict:
+    """Both timing entry points' main at batch 128, each with the launch
+    counts set to 0 just before it and read just after; the kernel each
+    runs must have launched."""
+    import importlib
+
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    launches = {}
+    for name in ENTRY_POINTS:
+        module = importlib.import_module(f"yolort_tpu_torch.experiments.{name}")
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = module.main(["--batch", "128"])
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        if rc != 0 or counts[ENTRY_POINTS[name]] <= 0:
+            raise AssertionError(f"{name}: rc {rc}, {ENTRY_POINTS[name]} launched "
+                                 f"{counts[ENTRY_POINTS[name]]} times")
+        print(f"[entry] python -m yolort_tpu_torch.experiments.{name} --batch 128: rc {rc} in "
+              f"{time.perf_counter() - t0:.1f} s, launches { {k: n for k, n in counts.items() if n} }",
+              flush=True)
+        launches[name] = counts
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1108,6 +1092,7 @@ def main() -> int:
     phase_build()
     res = phase_kernels(device, card)
     res.update(phase_postprocess_kernels(device, card))
+    res.update(phase_sweep_kernels(device, card))
     sl = phase_slice(device, card)
     batch = frames(20, 32, 640, 640)
     qmodel = build_int8(device, sl["requests"], batch)
@@ -1116,9 +1101,10 @@ def main() -> int:
     phase_throughput(sl["models"], card, "float")
     phase_throughput(q8["models"], card, "int8")
     phase_route_times(sl["models"], card)
+    paths = {"float": sl["launches"], "int8": q8["launches"], **phase_entry_points()}
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
-        by_path = {"float": sl["launches"][name], "int8": q8["launches"][name]}
+        by_path = {path: counts[name] for path, counts in paths.items()}
         per_batch = {route: n[name] for route, n in sl["per_batch"].items() if name in n}
         r = {k: v for k, v in res[name].items() if k != "shapes"}
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -19,10 +19,12 @@ import yolort_tpu_torch
 from yolort_tpu_torch.ops.cuda import (
     KERNELS, _build, bisect_count, bisect_count_reference, compact_place, compact_place_reference,
     fused_cells_stage1, fused_cells_stage1_reference, lookup_fetch, lookup_fetch_reference,
-    nms_mask, nms_mask_reference, qconv, qconv1x1, qconv1x1_reference, qconv_kxk,
-    qconv_kxk_reference, reset_launch_counts, row_fetch, row_fetch_reference, select_extract,
-    select_extract_reference,
+    lookup_fetch_variant, lookup_fetch_variant_reference, nms_mask, nms_mask_reference, qconv,
+    qconv1x1, qconv1x1_reference, qconv_kxk, qconv_kxk_reference, reset_launch_counts, row_fetch,
+    row_fetch_p, row_fetch_reference, select_extract, select_extract_reference,
 )
+from yolort_tpu_torch.experiments.fetch_block_sweep import GEOMETRIES
+from yolort_tpu_torch.ops.cuda.lookup_kernel import VARIANTS
 from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, padded_depth
 from yolort_tpu_torch.ops.nms import NMSConfig, batched_postprocess_from_heads
 
@@ -66,6 +68,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     for a, b in zip(bisect_count(table, 300, 0x3E800000), bisect_count_reference(table, 300, 0x3E800000)):
         assert torch.equal(a, b)
     assert torch.equal(row_fetch(table, idx), row_fetch_reference(table, idx))
+    assert torch.equal(row_fetch_p(table, idx, 4, 2), row_fetch_reference(table, idx))
     assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
     assert not _build._loaded  # nothing was built or loaded
 
@@ -78,6 +81,8 @@ def test_other_devices_raise():
         bisect_count(table, 10, 0)
     with pytest.raises(ValueError, match="cuda or cpu"):
         row_fetch(table, idx)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        row_fetch_p(table, idx, 8, 1)
 
 
 def test_wrappers_check_their_inputs():
@@ -155,6 +160,17 @@ def test_row_fetch_kernel_matches_plain(cuda_device):
     for tab in (table, table.to(torch.bfloat16), table[..., :85].contiguous().to(torch.bfloat16)):
         iv = torch.int32 if tab.dtype == torch.float32 else torch.int16
         assert torch.equal(row_fetch(tab, idx).view(iv), row_fetch_reference(tab, idx).view(iv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+def test_row_fetch_p_kernel_matches_plain(cuda_device, geometry):
+    _, _, table, idx = _inputs(cuda_device)
+    for tab in (table, table[..., :4].contiguous(), table[..., :85].contiguous().to(torch.bfloat16),
+                torch.cat([table, table[..., :127]], -1).to(torch.bfloat16)):
+        iv = torch.int32 if tab.dtype == torch.float32 else torch.int16
+        want = row_fetch_reference(tab, idx).view(iv)
+        assert torch.equal(row_fetch_p(tab, idx, *geometry).view(iv), want)
 
 
 def _qconv_operands(k, n, h, w, c, co, seed, device="cpu"):
@@ -275,6 +291,20 @@ def _postprocess_calls(device="cpu"):
     ]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_lookup_fetch_variant_kernel_matches_plain(cuda_device, variant):
+    _, table, _, _, _, off = _postprocess_inputs(cuda_device)
+    for k in (700, 5):
+        got = lookup_fetch_variant(table, off, k, variant)
+        want = lookup_fetch_variant_reference(table, off, k, variant)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or _same_bits(a, b)
+        if variant == "full":
+            assert all(_same_bits(a, b) for a, b in zip(got, lookup_fetch(table, off, k)))
+
+
 def test_postprocess_kernels_take_the_plain_versions_on_cpu():
     reset_launch_counts()
     for run, plain in _postprocess_calls():
@@ -335,11 +365,14 @@ def test_postprocess_kernels_check_their_inputs():
 
 
 @pytest.mark.parametrize("field,value", [("s1_impl", "auto"), ("s1_impl", "sortidx"),
-                                         ("row_gather", "xla"), ("row_gather", "auto")])
+                                         ("row_gather", "xla"), ("row_gather", "auto"),
+                                         ("cell_gather", "auto"), ("cell_gather", "mxu"),
+                                         ("box_gather", "auto"), ("box_gather", "mxu")])
 def test_unknown_postprocess_routes_raise(field, value):
-    # the port has one stage 1 (the fused kernel), so an s1_impl of the JAX
-    # package is refused as an unknown argument, never ignored
-    error = TypeError if field == "s1_impl" else ValueError
+    # the port has one stage 1 (the fused kernel) and plain gathers for the
+    # cell rows and boxes, so the JAX package's s1_impl, cell_gather and
+    # box_gather are refused as unknown arguments, never ignored
+    error = ValueError if field == "row_gather" else TypeError
     with pytest.raises(error, match=field):
         NMSConfig(num_classes=80, **{field: value})
     heads, *_ = _postprocess_inputs()
@@ -382,6 +415,9 @@ def test_every_kernel_counts_its_launches(cuda_device):
     for fn, (run, _) in zip((fused_cells_stage1, lookup_fetch, select_extract, compact_place),
                             _postprocess_calls(cuda_device)):
         calls[fn] = run
+    _, ptable, _, _, _, off = _postprocess_inputs(cuda_device)
+    calls[lookup_fetch_variant] = lambda: lookup_fetch_variant(ptable, off, 700, "no_boundary")
+    calls[row_fetch_p] = lambda: row_fetch_p(table, idx, 4, 2)
     assert set(calls) == set(KERNELS)
     reset_launch_counts()
     for i, fn in enumerate(KERNELS):

@@ -110,3 +110,29 @@ def test_factories_and_registry():
         build_yolo("yolov5_darknet_pan_s_r31", device="cpu")
     with pytest.raises(ValueError):
         yolort_tpu_torch.yolov5n(device="cpu", dtype=torch.float16)
+
+
+def test_models_default_to_the_card_and_never_fall_back():
+    """Without ``device`` a model is built on the card; where torch sees no
+    CUDA device that raises, and nothing runs on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device would build")
+    from yolort_tpu_torch.models.yolo import build_yolo
+
+    for build in (yolort_tpu_torch.yolov5n, lambda: build_yolo("yolov5_darknet_pan_n_r60"),
+                  lambda: yolort_tpu_torch.YOLO(DEPTH, WIDTH)):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            build()
+
+
+def test_a_model_passed_in_is_served_where_it_lies():
+    model = yolort_tpu_torch.YOLO(DEPTH, WIDTH, device="cpu")
+    assert yolort_tpu_torch.YOLOv5(model=model).device == torch.device("cpu")
+    assert yolort_tpu_torch.YOLOv5(model=model, device="cpu").device == torch.device("cpu")
+    with pytest.raises(ValueError, match="differs from the model"):
+        yolort_tpu_torch.YOLOv5(model=model, device="meta")
+    # a model that keeps its tensors as buffers only, as a quantized one does
+    frozen = torch.nn.Module()
+    frozen.register_buffer("w", torch.zeros(1))
+    frozen.num_classes = 80
+    assert yolort_tpu_torch.YOLOv5(model=frozen).device == torch.device("cpu")

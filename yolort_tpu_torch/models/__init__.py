@@ -1,4 +1,5 @@
-"""Model zoo factories for the r6.0 sizes n/s/m/l/x."""
+"""Model zoo factories for the r6.0 sizes n/s/m/l/x.  Each builds on the
+card unless the caller passes ``device="cpu"``."""
 
 from typing import Any
 
@@ -7,7 +8,7 @@ from yolort_tpu_torch.models.yolov5 import YOLOv5  # noqa: F401
 
 
 def _factory(arch: str):
-    def fn(*, device, num_classes: int = 80, **kwargs: Any) -> YOLOv5:
+    def fn(*, device="cuda", num_classes: int = 80, **kwargs: Any) -> YOLOv5:
         return YOLOv5(arch=arch, device=device, num_classes=num_classes, **kwargs)
 
     fn.__name__ = arch

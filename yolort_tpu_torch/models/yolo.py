@@ -18,19 +18,32 @@ from yolort_tpu_torch.models.pan import PathAggregationNetwork
 from yolort_tpu_torch.ops.nms import Detections, batched_postprocess_from_heads
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  A CUDA device where torch sees none
+    raises: the port runs on the card unless the caller asks for the CPU,
+    and never falls back to it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} needs a CUDA device and torch sees none; "
+                           f"pass device='cpu' to run on the CPU")
+    return dev
+
+
 class YOLO(nn.Module):
     """YOLOv5 r6.0.  ``depth_multiple``/``width_multiple`` select the size;
     the postprocess thresholds are plain attributes (the defaults are the
     eval config), and so is its stage-2 route ``row_gather``
-    (``ops.nms.NMSConfig``; any route gives the same detections).  Weights are drawn from ``torch.Generator(seed)`` on the
-    CPU, then the module moves to ``device`` and ``dtype``."""
+    (``ops.nms.NMSConfig``; any route gives the same detections).  Weights
+    are drawn from ``torch.Generator(seed)`` on the CPU, then the module
+    moves to ``device`` (the card unless the caller passes ``"cpu"``) and
+    ``dtype``."""
 
     def __init__(
         self,
         depth_multiple: float,
         width_multiple: float,
         *,
-        device,
+        device="cuda",
         dtype: torch.dtype = torch.float32,
         num_classes: int = 80,
         strides: Optional[Sequence[int]] = None,
@@ -45,6 +58,7 @@ class YOLO(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
+        device = resolve_device(device)
         self.num_classes = num_classes
         self.strides = tuple(strides or DEFAULT_STRIDES)
         self.anchor_grids = tuple(tuple(a) for a in (anchor_grids or DEFAULT_ANCHOR_GRIDS))
@@ -97,7 +111,7 @@ _SIZES = {"n": (0.33, 0.25), "s": (0.33, 0.5), "m": (0.67, 0.75), "l": (1.0, 1.0
 ARCHS = {f"yolov5_darknet_pan_{s}_r60": s for s in _SIZES}
 
 
-def build_yolo(arch: str, *, device, num_classes: int = 80, **kwargs) -> YOLO:
+def build_yolo(arch: str, *, device="cuda", num_classes: int = 80, **kwargs) -> YOLO:
     if arch not in ARCHS:
         raise ValueError(f"Unknown arch '{arch}'. Available: {sorted(ARCHS)}")
     dm, wm = _SIZES[ARCHS[arch]]

@@ -8,13 +8,14 @@ as [0, 1].
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from yolort_tpu_torch.models.transform import letterbox_batch, make_plan, scale_coords_back
-from yolort_tpu_torch.models.yolo import YOLO, build_yolo
+from yolort_tpu_torch.models.yolo import YOLO, build_yolo, resolve_device
 from yolort_tpu_torch.ops.nms import Detections
 
 
@@ -31,15 +32,18 @@ def read_image(path: str) -> np.ndarray:
 class YOLOv5:
     """User-facing end-to-end model.  ``size`` is the (min_size, max_size)
     letterbox target, ``size_divisible`` the canvas rounding,
-    ``fill_color`` the pad value; ``device`` and ``dtype`` (float32 or
-    bfloat16) place the model."""
+    ``fill_color`` the pad value; ``device`` (the card unless the caller
+    passes ``"cpu"``; a CUDA device where there is none raises) and
+    ``dtype`` (float32 or bfloat16) place the model.  A ``model`` passed in
+    is served where its parameters lie; a ``device`` given beside it must
+    be that one."""
 
     def __init__(
         self,
         arch: Optional[str] = None,
         model: Optional[YOLO] = None,
         *,
-        device,
+        device=None,
         num_classes: int = 80,
         size: Tuple[int, int] = (640, 640),
         size_divisible: int = 32,
@@ -51,11 +55,19 @@ class YOLOv5:
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
         if model is None:
+            device = resolve_device("cuda" if device is None else device)
             model = build_yolo(arch, device=device, num_classes=num_classes, dtype=dtype,
                                seed=seed, **kwargs)
+        else:
+            # a quantized model keeps its weights as buffers, not parameters
+            first = next(itertools.chain(model.parameters(), model.buffers()))
+            where = first.device
+            device = where if device is None else resolve_device(device)
+            if device.type != where.type or device.index not in (None, where.index):
+                raise ValueError(f"device {str(device)!r} differs from the model's {str(where)!r}")
         self.arch = arch
         self.model = model
-        self.device = torch.device(device)
+        self.device = device
         self.num_classes = model.num_classes
         self.size = size
         self.size_divisible = size_divisible

@@ -11,7 +11,10 @@ from yolort_tpu_torch.ops.cuda.lookup_kernel import (  # noqa: F401
     bisect_count_reference,
     lookup_fetch,
     lookup_fetch_reference,
+    lookup_fetch_variant,
+    lookup_fetch_variant_reference,
     row_fetch,
+    row_fetch_p,
     row_fetch_reference,
     select_extract,
     select_extract_reference,
@@ -30,7 +33,7 @@ from yolort_tpu_torch.ops.cuda.stage1_kernel import (  # noqa: F401
 )
 
 KERNELS = (nms_mask, bisect_count, row_fetch, qconv1x1, qconv_kxk, fused_cells_stage1,
-           lookup_fetch, select_extract, compact_place)
+           lookup_fetch, select_extract, compact_place, lookup_fetch_variant, row_fetch_p)
 
 
 def reset_launch_counts() -> None:

@@ -1,12 +1,16 @@
 """Stage-2 selection kernels, each with its plain PyTorch version:
-``bisect_count`` (``csrc/bisect_count.cu``), ``row_fetch``
-(``csrc/row_fetch.cu``), ``lookup_fetch`` (``csrc/lookup_fetch.cu``) and
-``select_extract`` (``csrc/select_extract.cu``).
+``bisect_count`` (``csrc/bisect_count.cu``), ``row_fetch`` and
+``row_fetch_p`` (``csrc/row_fetch.cu``), ``lookup_fetch`` and
+``lookup_fetch_variant`` (``csrc/lookup_fetch.cu``) and ``select_extract``
+(``csrc/select_extract.cu``).
 
 Replace ``yolort_tpu/ops/pallas/lookup_kernel.py``: ``_bisect_count_kernel``
 / ``pallas_bisect_count``, ``_fetch_kernel`` + ``_fetch_block_bits`` /
 ``pallas_row_fetch``, ``_lookup_fetch_kernel`` / ``pallas_lookup_fetch``
-and ``_select_kernel`` / ``pallas_select_extract``.  The TPU kernels keep
+and ``_select_kernel`` / ``pallas_select_extract``; and the timing kernels
+of ``tools/experiments``: ``fetch_block_sweep.py`` (``row_fetch_p``, the
+row fetch at a swept geometry) and ``lookup_kernel_variants.py``
+(``run_variant``, stripped variants of the lookup-fetch).  The TPU kernels keep
 the chunk table in VMEM and fetch rows with byte-plane one-hot matmuls to
 dodge the TPU's slow gathers; on the H100 the first is a radix select over
 the bit patterns and the others read rows directly, a warp per row (the
@@ -83,6 +87,7 @@ def bisect_count(table: torch.Tensor, k: int, thr_bits: int):
 bisect_count.launches = 0
 
 _INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+ROW_FETCH_GEOMETRY = (8, 1)  # row_fetch's (warps per block, rows per warp)
 
 
 def row_fetch_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -95,10 +100,8 @@ def row_fetch_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.view(table.dtype)
 
 
-def row_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Bit-exact row gather, (B, m, w) f32|bf16 + (B, k) int32 -> (B, k, w),
-    indices clamped to [0, m-1].  CUDA tensors launch the kernel on the
-    current stream; CPU tensors take ``row_fetch_reference``."""
+def _check_rows(name: str, table: torch.Tensor, idx: torch.Tensor) -> bool:
+    """Check a row fetch's inputs; True when they lie on the CPU."""
     if table.dim() != 3 or table.dtype not in _INT_VIEW:
         raise ValueError(f"table must be (B, m, w) float32 or bfloat16, got {tuple(table.shape)} {table.dtype}")
     if idx.dim() != 2 or idx.shape[0] != table.shape[0]:
@@ -106,30 +109,67 @@ def row_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.device != table.device:
         raise ValueError("table and idx must be on one device")
     if table.shape[1] < 1:
-        raise ValueError("row_fetch needs a table with at least one row")
+        raise ValueError(f"{name} needs a table with at least one row")
     if table.device.type == "cpu":
-        return row_fetch_reference(table, idx)
+        return True
     if table.device.type != "cuda":
-        raise ValueError(f"row_fetch runs on cuda or cpu tensors, not {table.device}")
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {table.device}")
     if idx.dtype != torch.int32:
         raise ValueError(f"idx must be int32 on cuda, got {idx.dtype}")
     if not (table.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("row_fetch needs contiguous table and idx")
+        raise ValueError(f"{name} needs contiguous table and idx")
+    return False
+
+
+def _launch_rows(table: torch.Tensor, idx: torch.Tensor, warps_per_block: int,
+                 rows_per_warp: int) -> torch.Tensor:
+    """Launch the row-fetch kernel on checked CUDA inputs."""
     bsz, m, w = table.shape
     k = idx.shape[1]
     out = torch.empty(bsz, k, w, dtype=table.dtype, device=table.device)
     lib = _build.library()
     with torch.cuda.device(table.device):
-        rc = lib.yt_row_fetch(
+        rc = lib.yt_row_fetch_p(
             table.data_ptr(), idx.data_ptr(), out.data_ptr(), bsz, m, k,
-            w * table.element_size(), _build.stream_of(table),
+            w * table.element_size(), warps_per_block, rows_per_warp, _build.stream_of(table),
         )
     _build.check(rc, "row_fetch")
+    return out
+
+
+def row_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Bit-exact row gather, (B, m, w) f32|bf16 + (B, k) int32 -> (B, k, w),
+    indices clamped to [0, m-1].  CUDA tensors launch the kernel on the
+    current stream (8 warps a block, one row a warp); CPU tensors take
+    ``row_fetch_reference``."""
+    if _check_rows("row_fetch", table, idx):
+        return row_fetch_reference(table, idx)
+    out = _launch_rows(table, idx, *ROW_FETCH_GEOMETRY)
     row_fetch.launches += 1
     return out
 
 
 row_fetch.launches = 0
+
+
+def row_fetch_p(table: torch.Tensor, idx: torch.Tensor, warps_per_block: int,
+                rows_per_warp: int) -> torch.Tensor:
+    """``row_fetch`` at a chosen launch geometry: ``warps_per_block`` warps
+    (1-32) in a block, each copying ``rows_per_warp`` (>= 1) consecutive
+    output rows.  The result does not depend on the geometry: CPU tensors
+    take ``row_fetch_reference``; CUDA tensors launch the kernel on the
+    current stream.  A bad geometry raises."""
+    if not (1 <= warps_per_block <= 32 and rows_per_warp >= 1):
+        raise ValueError(f"row_fetch_p: warps_per_block must be in [1, 32] and rows_per_warp >= 1, "
+                         f"got ({warps_per_block}, {rows_per_warp})")
+    if _check_rows("row_fetch_p", table, idx):
+        return row_fetch_reference(table, idx)
+    out = _launch_rows(table, idx, int(warps_per_block), int(rows_per_warp))
+    row_fetch_p.launches += 1
+    return out
+
+
+row_fetch_p.launches = 0
 
 
 def _check_table(table: torch.Tensor, name: str) -> None:
@@ -164,6 +204,42 @@ def extract_hits(rows: torch.Tensor, p: torch.Tensor, is_eq: torch.Tensor, t: to
     return vals, lane.to(torch.int32)
 
 
+def _check_lookup(name: str, table: torch.Tensor, off: torch.Tensor, k: int) -> bool:
+    """Check a lookup-fetch's inputs; True when they lie on the CPU."""
+    _check_table(table, name)
+    bsz, m, _ = table.shape
+    if off.shape != (bsz, 2 * m) or off.dtype != torch.int32:
+        raise ValueError(f"{name}: off must be ({bsz}, {2 * m}) int32, got {tuple(off.shape)} {off.dtype}")
+    if off.device != table.device:
+        raise ValueError(f"{name}: table and off must be on one device")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if table.device.type == "cpu":
+        return True
+    _check_cuda(name, table, off)
+    return False
+
+
+def _launch_lookup(table: torch.Tensor, off: torch.Tensor, k: int, variant: str):
+    """Launch the lookup-fetch kernel's ``variant`` on checked CUDA inputs;
+    p and is_eq are allocated (else None) for the variants that write them."""
+    meta = variant not in ("fetch_only", "lookup_only")
+    bsz, m, _ = table.shape
+    rows = torch.empty(bsz, k, CHUNK, dtype=torch.float32, device=table.device)
+    phys = torch.empty(bsz, k, dtype=torch.int32, device=table.device)
+    p = torch.empty_like(phys) if meta else None
+    is_eq = torch.empty(bsz, k, dtype=torch.bool, device=table.device) if meta else None
+    lib = _build.library()
+    with torch.cuda.device(table.device):
+        rc = lib.yt_lookup_fetch_variant(
+            table.data_ptr(), off.data_ptr(), bsz, m, int(k), rows.data_ptr(), phys.data_ptr(),
+            p.data_ptr() if meta else None, is_eq.data_ptr() if meta else None,
+            VARIANTS.index(variant), _build.stream_of(table),
+        )
+    _build.check(rc, "lookup_fetch")
+    return rows, phys, p, is_eq
+
+
 def lookup_fetch_reference(table: torch.Tensor, off: torch.Tensor, k: int):
     """Plain version: ``searchsorted`` over the offsets, then
     ``row_fetch_reference``.  See ``lookup_fetch``."""
@@ -186,33 +262,76 @@ def lookup_fetch(table: torch.Tensor, off: torch.Tensor, k: int):
     (B, k, 128) f32 with the bits of table[b, phys], phys (B, k) i32,
     p (B, k) i32, is_eq (B, k) bool).  CUDA tensors launch the kernel on
     the current stream; CPU tensors take ``lookup_fetch_reference``."""
-    _check_table(table, "lookup_fetch")
-    bsz, m, _ = table.shape
-    if off.shape != (bsz, 2 * m) or off.dtype != torch.int32:
-        raise ValueError(f"lookup_fetch: off must be ({bsz}, {2 * m}) int32, got {tuple(off.shape)} {off.dtype}")
-    if off.device != table.device:
-        raise ValueError("lookup_fetch: table and off must be on one device")
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    if table.device.type == "cpu":
+    if _check_lookup("lookup_fetch", table, off, k):
         return lookup_fetch_reference(table, off, k)
-    _check_cuda("lookup_fetch", table, off)
-    rows = torch.empty(bsz, k, CHUNK, dtype=torch.float32, device=table.device)
-    phys = torch.empty(bsz, k, dtype=torch.int32, device=table.device)
-    p = torch.empty_like(phys)
-    is_eq = torch.empty(bsz, k, dtype=torch.bool, device=table.device)
-    lib = _build.library()
-    with torch.cuda.device(table.device):
-        rc = lib.yt_lookup_fetch(
-            table.data_ptr(), off.data_ptr(), bsz, m, int(k), rows.data_ptr(), phys.data_ptr(),
-            p.data_ptr(), is_eq.data_ptr(), _build.stream_of(table),
-        )
-    _build.check(rc, "lookup_fetch")
+    out = _launch_lookup(table, off, k, "full")
     lookup_fetch.launches += 1
-    return rows, phys, p, is_eq
+    return out
 
 
 lookup_fetch.launches = 0
+
+# the stripped variants of the lookup-fetch, in the C entry point's order
+VARIANTS = ("full", "no_boundary", "no_fetch", "fetch_only", "lookup_only")
+_PAD_OFFSET = 2**30  # pads the offsets to whole 128-offset rows; above every slot
+
+
+def lookup_fetch_variant_reference(table: torch.Tensor, off: torch.Tensor, k: int, variant: str):
+    """Plain version of ``lookup_fetch_variant``."""
+    bsz, m, _ = table.shape
+    if variant == "fetch_only":
+        s = torch.arange(k, device=off.device)
+        phys = (s // 2).clamp(max=m - 1).to(torch.int32).expand(bsz, k).contiguous()
+        return row_fetch_reference(table, phys), phys, None, None
+    if variant == "no_boundary":
+        s = torch.arange(k, dtype=torch.int64, device=off.device)
+        pad = off.new_full((bsz, (-2 * m) % CHUNK), _PAD_OFFSET)
+        rowmax = torch.cat([off, pad], 1).view(bsz, -1, CHUNK).amax(-1).long()  # (B, rows)
+        full = rowmax[:, None, :] <= s[None, :, None]  # (B, k, rows)
+        c = (CHUNK * full.sum(-1) - 1).clamp(0, 2 * m - 1)
+        is_eq = c >= m
+        phys = (c - m * is_eq.long()).to(torch.int32)
+        p = (s - torch.where(full, rowmax[:, None, :], 0).amax(-1)).to(torch.int32)
+        rows = row_fetch_reference(table, phys)
+    else:
+        rows, phys, p, is_eq = lookup_fetch_reference(table, off, k)
+    if variant in ("no_fetch", "lookup_only"):
+        rows = phys[..., None].expand(-1, -1, CHUNK).contiguous().view(torch.float32)
+    if variant == "lookup_only":
+        p = is_eq = None
+    return rows, phys, p, is_eq
+
+
+def lookup_fetch_variant(table: torch.Tensor, off: torch.Tensor, k: int, variant: str):
+    """A stripped variant of ``lookup_fetch``, for timing where its time
+    goes (one of ``VARIANTS``):
+
+      * ``'full'``: ``lookup_fetch`` itself;
+      * ``'no_boundary'``: the coarse search alone: c = clip(128 R - 1, 0,
+        2m - 1), R the number of whole 128-offset rows (the offsets padded
+        with 2^30 to a multiple of 128) whose largest offset is <= s;
+        p = s - (the largest offset in those rows, 0 if none); is_eq and
+        phys from c as in ``lookup_fetch``; rows fetched;
+      * ``'no_fetch'``: as ``'full'``, but every lane of a slot's row holds
+        phys (int32 bits) in place of the table row;
+      * ``'fetch_only'``: no lookup: phys = min(s // 2, m - 1), rows
+        fetched; p and is_eq are None;
+      * ``'lookup_only'``: phys as ``'full'``, rows as ``'no_fetch'``; p and
+        is_eq are None.
+
+    Inputs as ``lookup_fetch``.  Returns (rows, phys, p, is_eq).  CUDA
+    tensors launch the kernel on the current stream; CPU tensors take
+    ``lookup_fetch_variant_reference``.  An unknown variant raises."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    if _check_lookup("lookup_fetch_variant", table, off, k):
+        return lookup_fetch_variant_reference(table, off, k, variant)
+    out = _launch_lookup(table, off, k, variant)
+    lookup_fetch_variant.launches += 1
+    return out
+
+
+lookup_fetch_variant.launches = 0
 
 
 def select_extract_reference(table, phys, p, is_eq, t, thr_bits: int):
