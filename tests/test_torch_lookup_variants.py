@@ -234,3 +234,72 @@ def test_profiler_window_completeness(counts, kernels_per_call, complete):
     from yolort_tpu_torch.experiments.timing import window_complete
 
     assert window_complete(counts, 5, kernels_per_call) is complete
+
+
+@pytest.mark.parametrize("records,kernels_per_call,usable,want_ms", [
+    ({"k": (5, 50.0)}, 1, True, {"k": 0.010}),  # complete: total / calls
+    ({"k": (4, 40.0)}, 1, True, {"k": 0.010}),  # one record lost: the mean does not read low
+    ({"k": (3, 30.0)}, None, True, {"k": 0.010}),
+    ({"a": (9, 90.0), "b": (5, 25.0)}, None, True, {"a": 0.020, "b": 0.005}),  # a twice a call
+    ({"a": (5, 50.0), "b": (5, 5.0)}, 1, False, None),  # a second kernel where one was expected
+    ({}, None, False, None),  # the profiler saw no device time
+])
+def test_profiler_lost_records_read_by_mean(records, kernels_per_call, usable, want_ms):
+    from yolort_tpu_torch.experiments.timing import per_call, window_usable
+
+    counts = {k: n for k, (n, _) in records.items()}
+    assert window_usable(counts, 5, kernels_per_call) is usable
+    if usable:
+        got = per_call(records, 5)
+        assert got.keys() == want_ms.keys()
+        assert all(abs(got[k] - want_ms[k]) < 1e-12 for k in got)
+
+
+@pytest.mark.parametrize("windows,kernels_per_call,want", [
+    ([{"k": (5, 50.0)}], 1, 0.010),
+    ([{}, {"k": (5, 50.0)}], 1, 0.010),  # an empty window is taken again
+    ([{"k": (4, 40.0)}, {"k": (3, 33.0)}, {"k": (4, 44.0)}], 1, 0.010),  # the fullest, first
+    ([{}, {}, {}], None, None),  # the profiler saw nothing: not measured
+    ([{"a": (5, 50.0), "b": (5, 5.0)}] * 3, 1, RuntimeError),
+])
+def test_device_profile_windows(monkeypatch, windows, kernels_per_call, want):
+    # torch.profiler replaced by one that yields the given windows' device
+    # records {name: (count, total us)} over 5 calls, one window a profile
+    from yolort_tpu_torch.experiments import timing
+
+    class Event:
+        device_type = "DeviceType.CUDA"
+
+        def __init__(self, key, count, us):
+            self.key, self.count, self.self_device_time_total = key, count, us
+
+    left = iter(windows)
+
+    class Profile:
+        def __init__(self, **_):
+            self.records = next(left)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *_):
+            return False
+
+        def step(self):
+            pass
+
+        def key_averages(self):
+            return [Event(k, n, us) for k, (n, us) in self.records.items()]
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(timing, "PROFILE_PAD_S", 0.0)
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError, match="no usable window"):
+            timing.device_profile(lambda: None, kernels_per_call=kernels_per_call)
+        return
+    total, rows = timing.device_profile(lambda: None, kernels_per_call=kernels_per_call)
+    if want is None:
+        assert total is None and rows == []
+    else:
+        assert abs(total - want) < 1e-12 and [k for k, _ in rows] == ["k"]

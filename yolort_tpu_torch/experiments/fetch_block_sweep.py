@@ -106,9 +106,11 @@ def measure(tab: torch.Tensor, idx: torch.Tensor, card: str, geometries=GEOMETRI
         print(f"{tag} B={bsz} {label} warps/block {g[0]:>2} rows/warp {g[1]}: {res[g]['ms']:.4f} ms "
               f"(device {fmt_ms(res[g]['device_ms'])}, cold {fmt_ms(res[g]['cold_ms'])}) | {card}",
               flush=True)
-    best = min(geometries, key=lambda g: res[g]["device_ms"])
-    print(f"{tag} B={bsz} {label}: fastest geometry by device time {best} "
-          f"{res[best]['device_ms']:.4f} ms (cold {res[best]['cold_ms']:.4f} ms) | {card}", flush=True)
+    # ranked by device time, or by events where the profiler measured none
+    by = "device_ms" if all(res[g]["device_ms"] is not None for g in geometries) else "ms"
+    best = min(geometries, key=lambda g: res[g][by])
+    print(f"{tag} B={bsz} {label}: fastest geometry by {'device time' if by == 'device_ms' else 'events'} "
+          f"{best} {res[best][by]:.4f} ms (cold {res[best]['cold_ms']:.4f} ms) | {card}", flush=True)
     return res
 
 

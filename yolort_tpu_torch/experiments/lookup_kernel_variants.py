@@ -110,12 +110,14 @@ def measure(tab: torch.Tensor, off: torch.Tensor, k: int, card: str, tag: str = 
         ms, dev = median_ms(call), device_profile(call)[0]
         res[f"library {name}"] = dict(ms=ms, device_ms=dev)
         print(f"{tag} {shape} library {name}: {ms:.4f} ms (device {fmt_ms(dev)}) | {card}", flush=True)
-    dv = {v: res[v]["device_ms"] for v in VARIANTS}
+    def split(a, b):
+        da, db = res[a]["device_ms"], res[b]["device_ms"]
+        return fmt_ms(None if da is None or db is None else da - db)
+
     print(f"{tag} {shape} device-time splits: boundary search (full - no_boundary) "
-          f"{dv['full'] - dv['no_boundary']:.4f} ms, row read (full - no_fetch) "
-          f"{dv['full'] - dv['no_fetch']:.4f} ms, p/is_eq writes (no_fetch - lookup_only) "
-          f"{dv['no_fetch'] - dv['lookup_only']:.4f} ms, search and p/is_eq writes (full - fetch_only) "
-          f"{dv['full'] - dv['fetch_only']:.4f} ms | {card}", flush=True)
+          f"{split('full', 'no_boundary')}, row read (full - no_fetch) {split('full', 'no_fetch')}, "
+          f"p/is_eq writes (no_fetch - lookup_only) {split('no_fetch', 'lookup_only')}, search and "
+          f"p/is_eq writes (full - fetch_only) {split('full', 'fetch_only')} | {card}", flush=True)
     return res
 
 
