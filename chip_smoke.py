@@ -30,13 +30,15 @@ Phases, each fatal on failure:
      frames, quantized and finalized (ops/quantization.py); qconv1x1 and
      qconv_kxk against their plain versions at every distinct conv shape of
      the int8 network at batch 8 @640, on its own activations (int8 and
-     float outputs bit-identical); then the int8 model serves the same
-     requests in both dtypes and configs: both qconv kernels and the
-     postprocess kernels must launch, every image must carry detections,
-     one request served on each other route must launch that route's
-     kernels and equal the default route's detections, and the card's
-     int8 head outputs must agree with the CPU run of the port on one
-     480x640 frame within the bound printed there;
+     float outputs bit-identical), each shape with its tile, its device
+     time (CUDA graph replay), bound, share of bound and TOP/s, and the
+     sums weighted by the launches of a forward; then the int8 model
+     serves the same requests in both dtypes and configs: both qconv
+     kernels and the postprocess kernels must launch, every image must
+     carry detections, one request served on each other route must launch
+     that route's kernels and equal the default route's detections, and
+     the card's int8 head outputs must agree with the CPU run of the port
+     on one 480x640 frame within the bound printed there;
   6. times: each kernel's time beside its plain version's, its bound and
      the time of a PyTorch call that computes the same function where
      there is one; images/s of the float and int8 slices at batch 32; the
@@ -58,8 +60,8 @@ import time
 import numpy as np
 
 from yolort_tpu_torch.experiments.timing import (
-    PEAK_OPS_PER_S, abs_err, bound, card_line, device_profile, distinct_rows, fmt_ms, median_ms,
-    same_bits,
+    PEAK_OPS_PER_S, abs_err, bound, card_line, device_profile, distinct_rows, fmt_ms, graph_ms,
+    median_ms, same_bits,
 )
 
 B = 8  # images per kernel check
@@ -764,8 +766,9 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
     from yolort_tpu_torch.ops.cuda import (
         qconv1x1, qconv1x1_reference, qconv_kxk, qconv_kxk_reference,
     )
+    from yolort_tpu_torch.ops.cuda.qconv_kernel import qconv_plan
 
-    seen = {}
+    seen, per_forward = {}, {}
 
     def hook(mod, inputs, output):
         x = inputs[0]
@@ -774,6 +777,7 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
         key = (mod.k, mod.s, mod.pad, shape[1], mod.wq.shape[0], shape[2], shape[3], act,
                mod.os is None)
         seen.setdefault(key, (mod, x))
+        per_forward[key] = per_forward.get(key, 0) + 1
 
     hooks = [mod.register_forward_hook(hook) for mod in qmodel.modules()
              if isinstance(mod, (Conv, Conv2dOnly))]
@@ -785,14 +789,16 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
         h.remove()
 
     res = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, shapes=0, bound_ms=0.0, bytes_ms=0.0,
-                   ops_ms=0.0) for n in ("qconv1x1", "qconv_kxk")}
+                   ops_ms=0.0, graph_ms=0.0, launches_per_forward=0, weighted_graph_ms=0.0,
+                   weighted_bound_ms=0.0) for n in ("qconv1x1", "qconv_kxk")}
     res["qconv1x1"].update(library_ms=0.0, library_call="torch._int_mm (the int8 product alone, no "
                            "epilogue; Cout 255 padded to 256 for its multiple-of-8 rule)")
     res["qconv_kxk"].update(library_ms=None, library_call=None,
                             nearest_partial="none timed: core PyTorch has no int8 CUDA conv "
                                             "(torch._int_mm on an im2col matrix is the nearest)")
     calls = {n: [] for n in res}
-    for (k, s, pad, cin, cout, h, w, act, float_out), (mod, xin) in sorted(seen.items()):
+    for key, (mod, xin) in sorted(seen.items()):
+        k, s, pad, cin, cout, h, w, act, float_out = key
         xq, scale, bias, os, ft = mod.qconv_operands(xin)
         args = (xq, mod.wq, scale, bias)
         kw = dict(inv_out_scale=None if os is None else 1.0 / os, out_dtype=ft)
@@ -816,6 +822,7 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
                 raise AssertionError(f"{name} {k}x{k}/s{s} {cin}->{cout} @{h}x{w} {act}: differs from "
                                      f"the plain version (max abs err {err})")
             ms = median_ms(run, 10, 3)
+            gms = graph_ms(run)
             pms = median_ms(plain, 2, 3)
             if name == "qconv1x1" and res["qconv1x1"]["library_ms"] is not None:
                 # the product alone: (B*H*W, Cin) x (Cin, Cout), Cout padded to 8s
@@ -831,34 +838,55 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
         r = res[name]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
+        r["graph_ms"] += gms
         r["plain_ms"] += pms
         r["shapes"] += 1
         # bound: activations, packed weights, scale and bias read once, the
         # output written once; 2*K multiply-adds per output at the int8 rate
         nbytes = xq.numel() + mod.wq.numel() + 8 * cout + got.numel() * got.element_size()
         ops = 2.0 * got.numel() * k * k * cin
-        bms, _ = bound(nbytes, ops, "int8")
+        bms, by = bound(nbytes, ops, "int8")
         r["bound_ms"] += bms
         r["bytes_ms"] += bound(nbytes)[0]
         r["ops_ms"] += ops / PEAK_OPS_PER_S["int8"] * 1e3
+        # the network launches this shape per_forward[key] times a forward
+        n_fwd = per_forward[key]
+        r["launches_per_forward"] += n_fwd
+        r["weighted_graph_ms"] += n_fwd * gms
+        r["weighted_bound_ms"] += n_fwd * bms
         if name == "qconv1x1" and r["library_ms"] is not None:
             r["library_ms"] += lib
-        calls[name].append((run, plain))
+        calls[name].append((run, plain, n_fwd))
         out = "float" if float_out else "int8"
-        print(f"[kernels] {name} B={B} {k}x{k}/s{s} {cin}->{cout} @{h}x{w} {act} -> {out}: "
-              f"bit-identical; kernel {ms:.4f} ms, plain {pms:.4f} ms (events) | {card}", flush=True)
+        plan = qconv_plan(got.shape[0] * got.shape[2] * got.shape[3], cout, k * k * cin, cin,
+                          mod.wq.shape[1])
+        print(f"[kernels] {name} B={B} {k}x{k}/s{s} {cin}->{cout} @{h}x{w} {act} -> {out} x{n_fwd} "
+              f"a forward, tile {plan.bm}x{plan.bn} {'gather' if plan.gather else 'cp.async'}: "
+              f"bit-identical; kernel device {gms:.4f} ms (graph replay), events {ms:.4f} ms, "
+              f"plain {pms:.4f} ms; bound {bms:.4f} ms ({by}), {100 * bms / gms:.1f}% of bound, "
+              f"{ops / gms / 1e9:.1f} TOP/s | {card}", flush=True)
     for name, r in res.items():
         if not r["shapes"]:
             raise AssertionError(f"{name}: no conv of the int8 network runs on it")
         with torch.inference_mode():
-            r["device_ms"] = device_profile(lambda c=calls[name]: [run() for run, _ in c], iters=3)[0]
-            r["plain_device_ms"] = device_profile(lambda c=calls[name]: [p() for _, p in c], iters=2)[0]
+            r["device_ms"] = device_profile(lambda c=calls[name]: [run() for run, _, _ in c],
+                                            iters=3)[0]
+            r["plain_device_ms"] = device_profile(lambda c=calls[name]: [p() for _, p, _ in c],
+                                                  iters=2)[0]
+            r["weighted_device_ms"] = device_profile(
+                lambda c=calls[name]: [run() for run, _, n in c for _ in range(n)], iters=3)[0]
         r["at"] = f"B={B} @640, sum over the {r['shapes']} distinct shapes of the int8 network"
         r["bound_by"] = "operations" if r.pop("ops_ms") > r.pop("bytes_ms") else "bytes"
-        print(f"[times] {name} B={B}, all {r['shapes']} shapes: kernel {r['ms']:.4f} ms (device "
-              f"{fmt_ms(r['device_ms'])}), plain {r['plain_ms']:.4f} ms (device "
+        r["lost_per_forward_ms"] = r["weighted_graph_ms"] - r["weighted_bound_ms"]
+        print(f"[times] {name} B={B}, all {r['shapes']} shapes once: kernel device "
+              f"{fmt_ms(r['device_ms'])} (graph replay {r['graph_ms']:.4f} ms, events "
+              f"{r['ms']:.4f} ms), plain {r['plain_ms']:.4f} ms (device "
               f"{fmt_ms(r['plain_device_ms'])}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"library {fmt_ms(r['library_ms'])} | {card}", flush=True)
+        print(f"[times] {name} B={B}, a forward ({r['launches_per_forward']} launches over "
+              f"{r['shapes']} shapes): kernel device {fmt_ms(r['weighted_device_ms'])} (graph "
+              f"replay {r['weighted_graph_ms']:.4f} ms), bound {r['weighted_bound_ms']:.4f} ms, "
+              f"lost {r['lost_per_forward_ms']:.4f} ms | {card}", flush=True)
     return res
 
 
@@ -1089,19 +1117,31 @@ def main() -> int:
     import yolort_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+
+    def done(phase: str) -> None:
+        print(f"[wall] {phase} done at {time.perf_counter() - t0:.1f} s", flush=True)
+
     phase_build()
+    done("build")
     res = phase_kernels(device, card)
     res.update(phase_postprocess_kernels(device, card))
     res.update(phase_sweep_kernels(device, card))
+    done("kernels")
     sl = phase_slice(device, card)
+    done("slice")
     batch = frames(20, 32, 640, 640)
     qmodel = build_int8(device, sl["requests"], batch)
     res.update(phase_qconv_kernels(qmodel, batch, device, card))
+    done("int8 build and qconv kernels")
     q8 = phase_int8_slice(qmodel, sl["requests"], device, card)
+    done("int8 slice")
     phase_throughput(sl["models"], card, "float")
     phase_throughput(q8["models"], card, "int8")
     phase_route_times(sl["models"], card)
+    done("times")
     paths = {"float": sl["launches"], "int8": q8["launches"], **phase_entry_points()}
+    done("entry points")
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

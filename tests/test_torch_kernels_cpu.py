@@ -25,7 +25,7 @@ from yolort_tpu_torch.ops.cuda import (
 )
 from yolort_tpu_torch.experiments.fetch_block_sweep import GEOMETRIES
 from yolort_tpu_torch.ops.cuda.lookup_kernel import VARIANTS
-from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, padded_depth
+from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, padded_depth, qconv_plan
 from yolort_tpu_torch.ops.nms import NMSConfig, batched_postprocess_from_heads
 
 PKG = Path(yolort_tpu_torch.__file__).parent
@@ -173,13 +173,20 @@ def test_row_fetch_p_kernel_matches_plain(cuda_device, geometry):
         assert torch.equal(row_fetch_p(tab, idx, *geometry).view(iv), want)
 
 
-def _qconv_operands(k, n, h, w, c, co, seed, device="cpu"):
+def _qconv_operands(k, n, h, w, c, co, seed, device="cpu", extreme=False):
     """Seeded int8 activations (channels_last), packed int8 weights, f32
-    scale and bias."""
+    scale and bias.  ``extreme``: activations +127 and weights +127 or -127
+    by output channel, so |acc| reaches K * 127^2 inside the image."""
     rng = np.random.default_rng(seed)
     xq = torch.from_numpy(rng.integers(-127, 128, (n, h, w, c), dtype=np.int8))
-    wq = pack_weight(rng.integers(-10, 11, (k, k, c, co), dtype=np.int8))
-    scale = torch.from_numpy(rng.uniform(1e-4, 1e-3, (co,)).astype(np.float32))
+    wq = rng.integers(-10, 11, (k, k, c, co), dtype=np.int8)
+    if extreme:
+        xq.fill_(127)
+        wq[...] = 127
+        wq[..., 1::2] = -127
+    wq = pack_weight(wq)
+    scale = torch.from_numpy(rng.uniform(1e-7, 1e-6, (co,)).astype(np.float32)
+                             if extreme else rng.uniform(1e-4, 1e-3, (co,)).astype(np.float32))
     bias = torch.from_numpy(rng.uniform(-1, 1, (co,)).astype(np.float32))
     xq = xq.permute(0, 3, 1, 2)  # NHWC bytes seen as channels_last NCHW
     return tuple(t.to(device) for t in (xq, wq, scale, bias))
@@ -228,15 +235,36 @@ def test_qconv_wrappers_check_their_inputs_and_refuse_groups():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,s,pad,n,h,w,c,co", [
-    (6, 2, 2, 2, 64, 96, 3, 32),
-    (3, 2, 1, 2, 40, 48, 32, 64),
-    (3, 1, 1, 2, 20, 24, 64, 64),
-    (1, 1, 0, 2, 20, 24, 128, 96),
-    (1, 1, 0, 1, 7, 9, 36, 255),
+@pytest.mark.parametrize("k,s,pad,n,h,w,c,co,fill", [
+    (6, 2, 2, 2, 64, 96, 3, 32, "random"),
+    (3, 2, 1, 2, 40, 48, 32, 64, "random"),
+    (3, 1, 1, 2, 20, 24, 64, 64, "random"),
+    (1, 1, 0, 2, 20, 24, 128, 96, "random"),
+    (1, 1, 0, 1, 7, 9, 36, 255, "random"),
+    # the regimes of the tensor-core kernel: M not a multiple of the tile
+    (3, 1, 1, 1, 7, 9, 32, 64, "random"),
+    (1, 1, 0, 3, 13, 11, 64, 128, "random"),
+    # Cout 255 (element stores) and a Cout that is not a multiple of 8
+    (1, 1, 0, 2, 10, 12, 64, 255, "random"),
+    (3, 1, 1, 1, 9, 11, 32, 37, "random"),
+    # K tails through the gather loader: the stem's C = 3, k = 6 (K = 108),
+    # and C = 36
+    (6, 2, 2, 1, 30, 34, 3, 32, "random"),
+    (3, 1, 1, 2, 12, 10, 36, 64, "random"),
+    # the extreme accumulator, +-127 at K = 2304
+    (3, 1, 1, 2, 8, 8, 256, 64, "extreme"),
+    (1, 1, 0, 2, 8, 8, 2304, 64, "extreme"),
+    # stride-2 halos at a 1x1 and a 2x3 image
+    (3, 2, 1, 1, 1, 1, 32, 32, "random"),
+    (3, 2, 1, 2, 2, 3, 64, 64, "random"),
+    # a 20x20 batch-8 layer, which takes a 64-row tile
+    (3, 1, 1, 8, 20, 20, 256, 256, "random"),
 ])
-def test_qconv_kernels_match_plain(cuda_device, k, s, pad, n, h, w, c, co):
-    args = _qconv_operands(k, n, h, w, c, co, seed=k + c, device=cuda_device)
+def test_qconv_kernels_match_plain(cuda_device, k, s, pad, n, h, w, c, co, fill):
+    args = _qconv_operands(k, n, h, w, c, co, seed=k + c, device=cuda_device,
+                           extreme=fill == "extreme")
+    if (n, h, w) == (8, 20, 20):
+        assert qconv_plan(8 * 20 * 20, co, k * k * c, c, padded_depth(k, c)).bm == 64
     for act in ("silu", "none"):
         kw = dict(k=k, stride=s, pad=pad, act=act)
         want = qconv_kxk_reference(*args, inv_out_scale=6.0, **kw)
@@ -246,6 +274,19 @@ def test_qconv_kernels_match_plain(cuda_device, k, s, pad, n, h, w, c, co):
             wantf = qconv_kxk_reference(*args, out_dtype=dt, **kw)
             gotf = qconv(*args, out_dtype=dt, **kw)
             assert gotf.dtype == dt and torch.equal(gotf, wantf)
+
+
+def test_qconv_split_variants_apply_to_the_kernel_source():
+    """Each variant of experiments/qconv_split.py takes its part out of
+    csrc/qconv.cu by edits that still match the source exactly once."""
+    from yolort_tpu_torch.experiments.qconv_split import VARIANTS, variant_sources
+
+    source = (PKG / "csrc" / "qconv.cu").read_text()
+    sources = variant_sources(source)
+    assert list(sources) == list(VARIANTS) and sources["full"] == source
+    assert len(set(sources.values())) == len(VARIANTS)
+    with pytest.raises(ValueError, match="once"):
+        variant_sources(source.replace("mma_s8(acc[mi][ni]", "mma_s8(acc [mi][ni]"))
 
 
 def _postprocess_inputs(device="cpu", dtype=torch.float32):

@@ -23,7 +23,7 @@ import torch
 
 import yolort_tpu_torch
 from yolort_tpu.ops.pallas.lookup_kernel import pallas_lookup_fetch
-from yolort_tpu_torch.experiments import fetch_block_sweep, lookup_kernel_variants
+from yolort_tpu_torch.experiments import fetch_block_sweep, lookup_kernel_variants, qconv_split
 from yolort_tpu_torch.ops.cuda import (
     KERNELS, _build, bisect_count_reference, lookup_fetch_variant, lookup_fetch_variant_reference,
     reset_launch_counts, row_fetch_p, row_fetch_reference,
@@ -177,6 +177,7 @@ def test_importing_the_entry_points_runs_nothing():
     code = ("import torch\n"
             "import yolort_tpu_torch.experiments.fetch_block_sweep\n"
             "import yolort_tpu_torch.experiments.lookup_kernel_variants\n"
+            "import yolort_tpu_torch.experiments.qconv_split\n"
             "import yolort_tpu_torch.experiments.timing\n"
             "from yolort_tpu_torch.ops.cuda import KERNELS, _build\n"
             "assert not _build._loaded and not any(fn.launches for fn in KERNELS)\n"
@@ -187,7 +188,7 @@ def test_importing_the_entry_points_runs_nothing():
     assert out.stdout == "" and out.stderr == ""
 
 
-@pytest.mark.parametrize("module", [lookup_kernel_variants, fetch_block_sweep])
+@pytest.mark.parametrize("module", [lookup_kernel_variants, fetch_block_sweep, qconv_split])
 def test_entry_points_raise_without_a_gpu(module, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point would run")

@@ -28,8 +28,10 @@ from yolort_tpu.ops import blocks as JB
 from yolort_tpu.ops.pallas import qconv as JQ
 from yolort_tpu_torch.models._bridge import params_from_jax
 from yolort_tpu_torch.ops import blocks as TB
-from yolort_tpu_torch.ops.cuda import qconv1x1_reference, qconv_kxk_reference
-from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight
+from yolort_tpu_torch.ops.cuda import qconv, qconv1x1_reference, qconv_kxk_reference
+from yolort_tpu_torch.ops.cuda.qconv_kernel import (
+    BK, MAX_DEPTH, MAX_SMEM, TILES, pack_weight, padded_depth, qconv_plan, tile_smem,
+)
 
 # the shapes of tests/test_qconv.py: (k, n, h, w, c, cout)
 CASES = [
@@ -140,3 +142,90 @@ def test_int8_conv2d_only_writes_float_logits():
                         torch.float32))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(port_to_nhwc(got), np.asarray(want), rtol=1e-6, atol=0)
+
+
+# the 29 distinct int8 conv shapes of yolov5s r6.0 at 640, as (k, stride,
+# pad, cin, cout, input side): 11 kxk (the stem, 6 downsamples, 4 bottleneck
+# 3x3s) and 18 1x1 (C3 cv1/cv2/cv3 and bottleneck cv1, SPPF, the PAN
+# laterals, the three head convs with Cout 255)
+YOLOV5S_CONVS = [
+    (6, 2, 2, 3, 32, 640), (3, 2, 1, 32, 64, 320), (3, 1, 1, 32, 32, 160),
+    (3, 2, 1, 64, 128, 160), (3, 1, 1, 64, 64, 80), (3, 2, 1, 128, 256, 80),
+    (3, 1, 1, 128, 128, 40), (3, 2, 1, 256, 512, 40), (3, 1, 1, 256, 256, 20),
+    (3, 2, 1, 128, 128, 80), (3, 2, 1, 256, 256, 40),
+    (1, 1, 0, 64, 32, 160), (1, 1, 0, 32, 32, 160), (1, 1, 0, 64, 64, 160),
+    (1, 1, 0, 128, 64, 80), (1, 1, 0, 64, 64, 80), (1, 1, 0, 128, 128, 80),
+    (1, 1, 0, 256, 64, 80), (1, 1, 0, 128, 255, 80),
+    (1, 1, 0, 256, 128, 40), (1, 1, 0, 128, 128, 40), (1, 1, 0, 256, 256, 40),
+    (1, 1, 0, 512, 128, 40), (1, 1, 0, 256, 255, 40),
+    (1, 1, 0, 512, 256, 20), (1, 1, 0, 256, 256, 20), (1, 1, 0, 512, 512, 20),
+    (1, 1, 0, 1024, 512, 20), (1, 1, 0, 512, 255, 20),
+]
+
+
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_tile_plan_covers_every_yolov5s_conv(batch):
+    assert len(set(YOLOV5S_CONVS)) == 29
+    small_tile = 0
+    for k, s, p, cin, cout, side in YOLOV5S_CONVS:
+        out_side = (side + 2 * p - k) // s + 1
+        m, kpad = batch * out_side ** 2, padded_depth(k, cin)
+        plan = qconv_plan(m, cout, k * k * cin, cin, kpad)
+        bm, bn = TILES[plan.tile]
+        assert (plan.bm, plan.bn) == (bm, bn) and plan.smem == tile_smem(bm, bn) <= MAX_SMEM
+        # the K slabs tile Kpad with the tail (zero-filled by the loader)
+        # shorter than a slab, and the tiles cover every output
+        assert plan.slabs * BK >= kpad > (plan.slabs - 1) * BK
+        assert plan.tiles[0] * bm >= m > (plan.tiles[0] - 1) * bm
+        assert plan.tiles[1] * bn >= cout > (plan.tiles[1] - 1) * bn
+        assert plan.gather == (cin % 16 != 0 or kpad % 16 != 0)
+        assert plan.gather == (k == 6)  # the stem only, on its 128 x 32 tile
+        if plan.gather:
+            assert (bm, bn) == (128, 32)
+            continue
+        # 64-row tiles exactly where 128-row tiles would be fewer than the
+        # 132 SMs
+        assert (bm == 64) == (-(-m // 128) * -(-cout // bn) < 132 or bn < min(128, max(32, cout)))
+        small_tile += bm == 64 and out_side == 20
+    if batch == 8:  # every 20x20 layer (M = 3200) takes a 64-row tile
+        assert small_tile == sum(1 for c in YOLOV5S_CONVS
+                                 if (c[5] + 2 * c[2] - c[0]) // c[1] + 1 == 20)
+    # a misaligned pointer takes the gather loader too
+    assert qconv_plan(3200, 256, 2304, 256, 2304, aligned=False)[:4] == (2, 128, 32, True)
+
+
+@pytest.mark.parametrize("k,c", [(1, 2304), (3, 256)])
+def test_plain_versions_match_pallas_interpret_at_the_extreme_accumulator(k, c):
+    """All activations +127 and all weights +127 or -127 at K = 2304: the
+    accumulator reaches +-K * 127^2 = +-37,161,216, which float32 holds
+    exactly, so with scale 1 and bias 0 both sides return it exactly."""
+    n, h, w, co = 1, 6, 7, 16
+    xq = np.full((n, h, w, c), 127, np.int8)
+    wq = np.full((k, k, c, co), 127, np.int8)
+    wq[..., 1::2] = -127
+    assert k * k * c == 2304
+    for scale, bias, act, ios in ((1.0, 0.0, "none", None), (2.0 ** -20, 0.25, "silu", 2.0)):
+        sc = np.full((co,), scale, np.float32)
+        bi = np.full((co,), bias, np.float32)
+        jargs = tuple(jnp.asarray(a) for a in (xq, wq, sc, bi))
+        want = np.asarray(JQ.qconv(*jargs, k=k, act=act, out_dtype=jnp.float32, interpret=True,
+                                   inv_out_scale=None if ios is None else jnp.float32(ios)))
+        got = port_to_nhwc(_plain(k, *_port(xq, wq, sc, bi), act=act, inv_out_scale=ios,
+                                  out_dtype=torch.float32))
+        np.testing.assert_array_equal(got, want)
+        if ios is None:
+            extreme = 2304 * 127 * 127
+            np.testing.assert_array_equal(got[:, 1:-1, 1:-1, 0::2], extreme)
+            np.testing.assert_array_equal(got[:, 1:-1, 1:-1, 1::2], -extreme)
+
+
+def test_wrappers_refuse_an_accumulator_that_could_reach_2_31():
+    c = MAX_DEPTH + 1  # K * 128^2 >= 2^31
+    xq = torch.zeros((1, c, 1, 1), dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+    ok = torch.zeros((1, MAX_DEPTH - MAX_DEPTH % 4), dtype=torch.int8)
+    one = torch.ones(1, dtype=torch.float32)
+    qconv(xq[:, : ok.shape[1]], ok, one, one, k=1, inv_out_scale=1.0)  # the largest K runs
+    for k, wq in ((1, torch.zeros((1, padded_depth(1, c)), dtype=torch.int8)),
+                  (3, torch.zeros((1, padded_depth(3, c)), dtype=torch.int8))):
+        with pytest.raises(ValueError, match="2\\^31"):
+            qconv(xq, wq, one, one, k=k, inv_out_scale=1.0)

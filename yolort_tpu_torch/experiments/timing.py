@@ -7,6 +7,7 @@ from __future__ import annotations
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -52,6 +53,40 @@ def median_ms(fn, launches: int = 20, repeats: int = 5) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / launches)
+    return float(np.median(times))
+
+
+def graph_ms(fn, launches: int = 20, repeats: int = 5) -> float:
+    """Device time of one call without host gaps: ``launches`` calls
+    captured in one CUDA graph, CUDA events around each replay, divided by
+    the count; the median of ``repeats`` replays, after a warm-up.  For
+    kernels shorter than their launch on the host, where ``median_ms``
+    times the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+    for w in caught:
+        if "graph is empty" in str(w.message).lower():
+            raise RuntimeError("graph_ms: the capture is empty: fn launches on another stream "
+                               "than the current one")
+        warnings.warn(w.message, w.category)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    del graph
     return float(np.median(times))
 
 

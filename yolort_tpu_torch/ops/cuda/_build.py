@@ -41,8 +41,8 @@ _SIGNATURES = {
     "yt_nms_mask": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
     "yt_bisect_count": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "yt_row_fetch_p": (_P, _P, _P, *(_I,) * 6, _P),
-    "yt_qconv1x1": (_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "yt_qconv_kxk": (_P, _P, _P, _P, _F, _P, *(_I,) * 12, _P),
+    "yt_qconv1x1": (_P, _P, _P, _P, _F, _P, *(_I,) * 10, _P),
+    "yt_qconv_kxk": (_P, _P, _P, _P, _F, _P, *(_I,) * 15, _P),
     "yt_cells_stage1": (_P, _P, _P, _P, *(_I,) * 9, _F, _I, _P, _P, _P, _P),
     "yt_lookup_fetch_variant": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P),
     "yt_select_extract": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),

@@ -10,7 +10,9 @@ strided 3x3 downsamples and the 6x6/s2/p2 stem.
 Activations are int8 NCHW in ``channels_last`` memory (NHWC bytes).
 Weights are packed once, at quantization, to (Cout, Kpad) int8 with
 K = k*k*Cin in (ky, kx, ci) order and zero-padded to a multiple of 4
-(``pack_weight``).  The epilogue, in float32, is
+(``pack_weight``).  On the card both run one implicit-GEMM kernel on the
+int8 tensor cores, fed by a ``cp.async`` ring; ``qconv_plan`` picks its
+tile and loader from the conv's shape.  The epilogue, in float32, is
 
     y = f32(acc) * scale[co] + bias[co];  y = act(y)
     out = clip(round_half_even(y * inv_out_scale), -127, 127) as int8
@@ -20,7 +22,7 @@ or ``y`` cast to ``out_dtype`` when ``inv_out_scale`` is None.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -30,6 +32,63 @@ from yolort_tpu_torch.ops.cuda import _build
 
 ACTS = {"none": 0, "silu": 1}
 _OUT_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+# the kernel's geometry (csrc/qconv.cu): K bytes per pipeline stage, ring
+# depth, and the output tiles (BM, BN) by index, as its launch switch
+# lists them
+BK = 64
+STAGES = 4
+TILES = ((128, 128), (128, 64), (128, 32), (64, 128), (64, 64))
+NUM_SMS = 132  # H100 SXM
+MAX_SMEM = 232_448  # shared memory a block can take on Hopper
+# the largest K whose s32 accumulator cannot overflow: |acc| <= K * 128^2
+MAX_DEPTH = (2**31 - 1) // (128 * 128)
+
+
+class QconvPlan(NamedTuple):
+    """How the kernel runs one conv: tile index into ``TILES``, its shape,
+    the loader (``gather`` for C % 16 != 0 or rows not 16-byte aligned,
+    else ``cp.async``), the K slabs (the last zero-filled past K), the
+    dynamic shared memory and the grid of output tiles (M tiles, Cout
+    tiles), one block each."""
+
+    tile: int
+    bm: int
+    bn: int
+    gather: bool
+    slabs: int
+    smem: int
+    tiles: tuple
+
+
+def tile_smem(bm: int, bn: int) -> int:
+    """Shared memory of a tile: the ring of A and B slabs, which then holds
+    the output tile, staged at up to 4 bytes a value with 16 bytes of row
+    padding."""
+    return max(STAGES * (bm + bn) * BK, bm * (bn * 4 + 16))
+
+
+def qconv_plan(m: int, cout: int, depth: int, cin: int, kpad: int,
+               aligned: bool = True) -> QconvPlan:
+    """The kernel's plan for an (m pixels) x (cout) conv of K = ``depth``
+    over ``cin`` channels, with weight rows of ``kpad`` bytes.
+
+    The gather loader (C % 16 != 0, rows not 16-byte aligned, or
+    ``aligned`` False: a pointer not 16-byte aligned) runs on the stem's
+    tile, 128 x 32.  Otherwise BN is the smallest of 32 / 64 / 128 covering
+    Cout (128 above), then the first of (128, BN), (64, BN), (64, BN / 2)
+    that is a tile and gives a block to every SM; where none does, the one
+    with the most blocks."""
+    gather = bool(cin % 16 or kpad % 16 or not aligned)
+    bn = 32 if cout <= 32 else 64 if cout <= 64 else 128
+    shapes = [t for t in ((128, bn), (64, bn), (64, bn // 2)) if t in TILES]
+    blocks = [-(-m // bm) * -(-cout // b) for bm, b in shapes]
+    pick = next((i for i, nb in enumerate(blocks) if nb >= NUM_SMS),
+                max(range(len(shapes)), key=blocks.__getitem__))
+    bm, bn = (128, 32) if gather else shapes[pick]
+    return QconvPlan(tile=TILES.index((bm, bn)), bm=bm, bn=bn, gather=gather,
+                     slabs=-(-depth // BK), smem=tile_smem(bm, bn),
+                     tiles=(-(-m // bm), -(-cout // bn)))
 
 
 def padded_depth(k: int, cin: int) -> int:
@@ -85,6 +144,9 @@ def _check(xq, wq, scale, bias, k, act, inv_out_scale, out_dtype, name):
         raise ValueError(f"{name}: out_dtype must be float32 or bfloat16, got {out_dtype}")
     if len({t.device for t in (xq, wq, scale, bias)}) != 1:
         raise ValueError(f"{name}: all tensors must be on one device")
+    if k * k * cin > MAX_DEPTH:
+        raise ValueError(f"{name}: K = {k * k * cin} > {MAX_DEPTH}: the s32 accumulator "
+                         f"|acc| <= K * 128^2 could reach 2^31")
     return want
 
 
@@ -124,6 +186,12 @@ def _launch_setup(xq, wq, scale, bias, name):
         raise ValueError(f"{name} needs a 4-byte aligned wq (the kernel loads int8x4 words)")
 
 
+def _plan_for(xq, wq, out, k: int) -> QconvPlan:
+    aligned = xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+    n, cout, ho, wo = out.shape
+    return qconv_plan(n * ho * wo, cout, k * k * xq.shape[1], xq.shape[1], wq.shape[1], aligned)
+
+
 def qconv1x1(xq, wq, scale, bias, *, act="silu", inv_out_scale=None, out_dtype=torch.float32):
     """1x1 stride-1 int8 conv with the fused epilogue.
 
@@ -138,17 +206,18 @@ def qconv1x1(xq, wq, scale, bias, *, act="silu", inv_out_scale=None, out_dtype=t
                                   out_dtype=out_dtype)
     _launch_setup(xq, wq, scale, bias, "qconv1x1")
     n, c, h, w = xq.shape
-    if c % 4 or xq.data_ptr() % 4:
-        raise ValueError(f"qconv1x1 needs Cin % 4 == 0 and a 4-byte aligned xq, got Cin={c}")
+    if c % 4:
+        raise ValueError(f"qconv1x1 needs Cin % 4 == 0, got Cin={c}")
     cout = wq.shape[0]
     out = torch.empty((n, cout, h, w), dtype=out_t, device=xq.device,
                       memory_format=torch.channels_last)
+    plan = _plan_for(xq, wq, out, 1)
     lib = _build.library()
     with torch.cuda.device(xq.device):
         rc = lib.yt_qconv1x1(
             xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, ACTS[act],
-            _OUT_KINDS[out_t], _build.stream_of(xq),
+            _OUT_KINDS[out_t], plan.tile, int(plan.gather), plan.smem, _build.stream_of(xq),
         )
     _build.check(rc, "qconv1x1")
     qconv1x1.launches += 1
@@ -181,12 +250,14 @@ def qconv_kxk(xq, wq, scale, bias, *, k, stride=1, pad=None, act="silu", inv_out
     cout = wq.shape[0]
     out = torch.empty((n, cout, ho, wo), dtype=out_t, device=xq.device,
                       memory_format=torch.channels_last)
+    plan = _plan_for(xq, wq, out, k)
     lib = _build.library()
     with torch.cuda.device(xq.device):
         rc = lib.yt_qconv_kxk(
             xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, k, stride, pad,
-            ho, wo, ACTS[act], _OUT_KINDS[out_t], _build.stream_of(xq),
+            ho, wo, ACTS[act], _OUT_KINDS[out_t], plan.tile, int(plan.gather), plan.smem,
+            _build.stream_of(xq),
         )
     _build.check(rc, "qconv_kxk")
     qconv_kxk.launches += 1
