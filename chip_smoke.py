@@ -10,7 +10,12 @@ Phases, each fatal on failure:
   3. kernels: nms_mask, bisect_count, row_fetch, fused_cells_stage1,
      lookup_fetch, select_extract, compact_place and the five variants of
      lookup_fetch_variant against their plain PyTorch versions on the
-     card, at the main path's shapes, batch 8 (the variant 'full' also
+     card, at the main path's shapes, batch 8: nms_mask's whole mask at
+     K = 512, 4096 and 16448 (with the tiles its walk visits),
+     bisect_count at the stage-1 (197,128) and stage-2 (325,128),
+     (2565,128) tables, a streamed (12500,128) one and the tie, few and
+     empty cases, each timed shape beside torch.topk, and at every cluster
+     size and mode on the two main-path tables (the variant 'full' also
      against lookup_fetch); row_fetch_p at every swept geometry against
      its plain version at both sweep shapes (experiments/
      fetch_block_sweep.py), batch 8; results must be bit-identical (NaN
@@ -126,6 +131,17 @@ def nms_inputs(seed: int, bsz: int, k: int, device):
     return t
 
 
+def tiles_visited(keep, tile: int, stop: int) -> list:
+    """Tiles of ``tile`` candidates the greedy walk visits in each image of
+    a plain keep mask: up to the first multiple of ``tile`` with ``stop``
+    keeps before it, else all."""
+    k = keep.shape[1]
+    n = -(-k // tile)
+    ends = [min(i * tile, k) - 1 for i in range(1, n + 1)]
+    done = keep.long().cumsum(1)[:, ends] >= stop
+    return [int(r.nonzero()[0]) + 1 if r.any() else n for r in done]
+
+
 def score_table(seed: int, bsz: int, m: int, device, valid_frac: float = 1.0,
                 ties: bool = False):
     """(B, m, 128) sigmoid-product scores; entries past valid_frac zeroed;
@@ -209,57 +225,69 @@ def phase_kernels(device, card: str) -> dict:
         bisect_count, bisect_count_reference, nms_mask, nms_mask_reference,
         row_fetch, row_fetch_reference,
     )
+    from yolort_tpu_torch.ops.cuda.lookup_kernel import (
+        BISECT_SMEM_BYTES, ROW_BYTES, BisectPlan, _launch_bisect, bisect_plan,
+    )
     from yolort_tpu_torch.ops.nms import _compact_detections
 
     res = {}
     # --- nms_mask --------------------------------------------------------
     err = 0.0
-    for seed, k in ((0, 512), (1, 4096)):
+    by_k = {}
+    for seed, k in ((0, 512), (1, 4096), (2, 16448)):
         t = nms_inputs(seed, B, k, device)
-        got = nms_mask(t["offset"], t["valid"], 0.45, tile_size=256, stop_after=300)
-        ref = nms_mask_reference(t["offset"], t["valid"], 0.45, tile_size=256, stop_after=300)
+        run = lambda t=t: nms_mask(t["offset"], t["valid"], 0.45, 256, 300)  # noqa: E731
+        plain = lambda t=t: nms_mask_reference(t["offset"], t["valid"], 0.45, 256, 300)  # noqa: E731
+        got, ref = run(), plain()
         torch.cuda.synchronize()
-        # exact through the first 300 keeps of the plain version
-        rank = ref.long().cumsum(1)
-        upto = rank <= 300
-        if not torch.equal(got & upto, ref & upto):
-            raise AssertionError(f"nms_mask K={k}: mask differs within the first 300 keeps")
+        if not torch.equal(got, ref):  # the whole mask, past the early exit too
+            raise AssertionError(f"nms_mask K={k}: the mask differs from the plain version's")
         dg = _compact_detections(got, t["boxes"], t["scores"], t["labels"], 300)
         dr = _compact_detections(ref, t["boxes"], t["scores"], t["labels"], 300)
         for a, b in zip(dg, dr):
             if not torch.equal(a, b):
                 raise AssertionError(f"nms_mask K={k}: compacted detections differ")
             err = max(err, (a.double() - b.double()).abs().max().item())
-        keeps = ref.sum(1).tolist()
-        print(f"[kernels] nms_mask K={k}: equal through 300 keeps, compacted equal, whole mask "
-              f"equal={torch.equal(got, ref)}, keeps/img={keeps}", flush=True)
-        ms = median_ms(lambda: nms_mask(t["offset"], t["valid"], 0.45, 256, 300))
-        pms = median_ms(lambda: nms_mask_reference(t["offset"], t["valid"], 0.45, 256, 300), 5)
-        dev = device_profile(lambda: nms_mask(t["offset"], t["valid"], 0.45, 256, 300))[0]
-        pdev = device_profile(lambda: nms_mask_reference(t["offset"], t["valid"], 0.45, 256, 300))[0]
+        tiles = tiles_visited(ref, 256, 300)
+        print(f"[kernels] nms_mask B={B} K={k}: whole mask equal, compacted equal, 256-candidate "
+              f"tiles visited/img {tiles}", flush=True)
+        ms, pms = median_ms(run), median_ms(plain, 5)
+        dev, pdev = device_profile(run)[0], device_profile(plain)[0]
+        # bound: boxes and valid read, keep written; 12 f32 operations per
+        # IoU pair (i, j > i) over the rows up to each image's 300th keep,
+        # the rows the greedy scan needs
+        rank = ref.long().cumsum(1)
+        rows = [int(torch.nonzero(r >= 300)[0]) + 1 if (r >= 300).any() else k for r in rank]
+        pairs = sum(r * (k - 1) - r * (r - 1) // 2 for r in rows)
+        bms, bby = bound(B * k * (16 + 1 + 1), 12.0 * pairs)
         print(f"[times] nms_mask B={B} K={k}: kernel {ms:.4f} ms (device {fmt_ms(dev)}), "
-              f"plain {pms:.4f} ms (device {fmt_ms(pdev)}) | {card}")
-    # bound: boxes and valid read, keep written; 12 f32 operations per IoU
-    # pair (i, j > i) over the rows up to each image's 300th keep, the rows
-    # the greedy scan needs
-    rows = [int(torch.nonzero(r >= 300)[0]) + 1 if (r >= 300).any() else k for r in rank]
-    pairs = sum(r * (k - 1) - r * (r - 1) // 2 for r in rows)
-    bms, bby = bound(B * k * (16 + 1 + 1), 12.0 * pairs)
-    partial = median_ms(lambda: box_iou_matrix(t["offset"], t["offset"]))
-    res["nms_mask"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev,
-                           bound_ms=bms, bound_by=bby, library_ms=None, library_call=None,
-                           nearest_partial="ops.boxes.box_iou_matrix (the IoU matrix alone; "
-                                           "torchvision.ops.nms is outside core PyTorch)",
-                           nearest_partial_ms=partial, at=f"B={B}, K=4096, stop_after=300")
+              f"plain {pms:.4f} ms (device {fmt_ms(pdev)}), bound {bms:.4f} ms ({bby}) | {card}",
+              flush=True)
+        by_k[k] = dict(ms=ms, device_ms=dev, plain_ms=pms, plain_device_ms=pdev, bound_ms=bms,
+                       bound_by=bby, tiles_visited=tiles)
+        if k == 4096:
+            partial = median_ms(lambda t=t: box_iou_matrix(t["offset"], t["offset"]))
+    res["nms_mask"] = dict(
+        max_abs_err=err, **by_k[4096], library_ms=None, library_call=None,
+        nearest_partial="ops.boxes.box_iou_matrix (the IoU matrix alone; torchvision.ops.nms is "
+                        "outside core PyTorch)",
+        nearest_partial_ms=partial, by_k={k: v for k, v in by_k.items() if k != 4096},
+        at=f"B={B}, K=4096, stop_after=300")
 
     # --- bisect_count ----------------------------------------------------
-    cases = [
+    cases = [  # (name, table, k, thr): stage 1 runs on the per-anchor scores, threshold 0
+        ("stage-1 eval", score_table(7, B, 197, device), 4104, 0.0),
+        ("stage-1 serving", score_table(8, B, 197, device), 520, 0.0),
         ("serving", score_table(2, B, 325, device), 512, 0.25),
         ("eval", score_table(3, B, 2565, device), 4096, 0.005),
+        ("pre_nms_topk=20000", score_table(9, B, 12500, device), 20000, 0.005),
+        ("eval ties", score_table(10, B, 2565, device, ties=True), 4096, 0.005),
         ("fewer-than-k", score_table(4, B, 325, device, valid_frac=0.002), 512, 0.25),
         ("none-valid", score_table(5, B, 325, device) * 0.1, 512, 0.25),
     ]
+    timed = ("stage-1 eval", "stage-1 serving", "serving", "eval", "pre_nms_topk=20000")
     err = 0.0
+    shapes = {}
     for name, tab, k, thr in cases:
         thr_bits = int(np.float32(thr).view(np.int32))
         got = bisect_count(tab, k, thr_bits)
@@ -268,26 +296,54 @@ def phase_kernels(device, card: str) -> dict:
             if not torch.equal(a, b):
                 raise AssertionError(f"bisect_count {name}: differs from the plain version")
             err = max(err, (a.double() - b.double()).abs().max().item())
-        print(f"[kernels] bisect_count {name} {tuple(tab.shape)} k={k}: equal, "
+        plan = bisect_plan(B, tab.shape[1])
+        print(f"[kernels] bisect_count {name} {tuple(tab.shape)} k={k}: equal, cluster "
+              f"{plan.cluster} {'resident' if plan.resident else 'streamed'}, "
               f"t={[hex(v) for v in got[0][:2].tolist()]}", flush=True)
-        if name in ("serving", "eval"):
-            ms = median_ms(lambda: bisect_count(tab, k, thr_bits))
-            pms = median_ms(lambda: bisect_count_reference(tab, k, thr_bits), 5)
-            dev = device_profile(lambda: bisect_count(tab, k, thr_bits))[0]
-            pdev = device_profile(lambda: bisect_count_reference(tab, k, thr_bits))[0]
-            print(f"[times] bisect_count B={B} {tuple(tab.shape[1:])} k={k}: kernel {ms:.4f} ms "
-                  f"(device {fmt_ms(dev)}), plain {pms:.4f} ms (device {fmt_ms(pdev)}) | {card}")
-            if name == "eval":
-                m = tab.shape[1]
-                bms, bby = bound(B * m * 128 * 4 + B * 4 + 2 * B * m * 4)
-                flat = tab.reshape(B, -1)
-                partial = median_ms(lambda: torch.topk(flat, k, dim=1))
-                res["bisect_count"] = dict(
-                    ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, bound_ms=bms,
-                    bound_by=bby, library_ms=None, library_call=None,
-                    nearest_partial="torch.topk (the k largest values, no tier counts)",
-                    nearest_partial_ms=partial, at=f"B={B}, (2565,128), k=4096")
-    res["bisect_count"]["max_abs_err"] = err
+        if name not in timed:
+            continue
+        run = lambda tab=tab, k=k, tb=thr_bits: bisect_count(tab, k, tb)  # noqa: E731
+        plain = lambda tab=tab, k=k, tb=thr_bits: bisect_count_reference(tab, k, tb)  # noqa: E731
+        flat = tab.reshape(B, -1)
+        topk = lambda flat=flat, k=k: torch.topk(flat, k, dim=1)  # noqa: E731
+        ms, pms, tms = median_ms(run), median_ms(plain, 5), median_ms(topk)
+        dev, pdev, tdev = device_profile(run)[0], device_profile(plain)[0], device_profile(topk)[0]
+        m = tab.shape[1]
+        bms, bby = bound(B * m * 128 * 4 + B * 4 + 2 * B * m * 4)
+        print(f"[times] bisect_count B={B} {name} ({m},128) k={k}: kernel {ms:.4f} ms (device "
+              f"{fmt_ms(dev)}), plain {pms:.4f} ms (device {fmt_ms(pdev)}), torch.topk {tms:.4f} ms "
+              f"(device {fmt_ms(tdev)}), bound {bms:.4f} ms ({bby}) | {card}", flush=True)
+        shapes[name] = dict(ms=ms, device_ms=dev, plain_ms=pms, plain_device_ms=pdev, bound_ms=bms,
+                            bound_by=bby, topk_ms=tms, topk_device_ms=tdev, cluster=plan.cluster,
+                            resident=plan.resident, at=f"({m},128) k={k}")
+    # every cluster size and mode at the two main-path tables, at batch 8
+    # and 32: what bisect_plan chooses from
+    plans = {}
+    for bsz, name, m, k, thr in ((B, "stage-1 eval", 197, 4104, 0.0), (B, "eval", 2565, 4096, 0.005),
+                                 (32, "stage-1 eval", 197, 4104, 0.0), (32, "eval", 2565, 4096, 0.005)):
+        tab = score_table(11, bsz, m, device)
+        thr_bits = int(np.float32(thr).view(np.int32))
+        line = []
+        for cluster in (4, 8, 16):
+            for resident in (True, False):
+                if resident and -(-m // cluster) * ROW_BYTES > BISECT_SMEM_BYTES:
+                    continue
+                p = BisectPlan(cluster, resident)
+                run = lambda tab=tab, k=k, tb=thr_bits, p=p: _launch_bisect(tab, k, tb, p)  # noqa: E731
+                dev = device_profile(run)[0]
+                tag = f"{cluster}{'r' if resident else 's'}"
+                plans[f"B={bsz} {name} {tag}"] = dev
+                line.append(f"{tag} {fmt_ms(dev)}")
+        print(f"[times] bisect_count B={bsz} {name} ({m},128) device ms by plan (cluster size, r "
+              f"resident, s streamed): {', '.join(line)}; bisect_plan takes "
+              f"{tuple(bisect_plan(bsz, m))} | {card}", flush=True)
+    res["bisect_count"] = dict(
+        max_abs_err=err, **{key: v for key, v in shapes["eval"].items() if key != "at"},
+        library_ms=None, library_call=None,
+        nearest_partial="torch.topk (the k largest values, no tier counts)",
+        nearest_partial_ms=shapes["eval"]["topk_ms"],
+        by_shape={n: v for n, v in shapes.items() if n != "eval"}, by_plan=plans,
+        at=f"B={B}, (2565,128), k=4096 (stage 2, eval)")
 
     # --- row_fetch -------------------------------------------------------
     rng = np.random.default_rng(6)
@@ -1035,7 +1091,7 @@ def phase_throughput(models, card: str, label: str) -> None:
               f"{post_ms:.2f} ms (CUDA events); whole call device-busy {fmt_ms(busy)} of "
               f"{sec * 1e3:.2f} ms wall | {card}", flush=True)
         print(f"[breakdown] {label} {dt} heaviest kernels (ms per call): {top}", flush=True)
-        names = ("iou_mask", "greedy_walk", "bisect_count", "row_fetch", "qconv_kernel",
+        names = ("nms_mask_kernel", "bisect_count", "row_fetch", "qconv_kernel",
                  "cells_stage1", "lookup_fetch", "select_extract", "compact_place")
         ours = {n: ms for n, ms in rows if any(k in n for k in names)}
         qms = sum(ms for n, ms in ours.items() if "qconv_kernel" in n)

@@ -24,7 +24,10 @@ from yolort_tpu_torch.ops.cuda import (
     row_fetch_p, row_fetch_reference, select_extract, select_extract_reference,
 )
 from yolort_tpu_torch.experiments.fetch_block_sweep import GEOMETRIES
-from yolort_tpu_torch.ops.cuda.lookup_kernel import VARIANTS
+from yolort_tpu_torch.ops.cuda.lookup_kernel import (
+    BISECT_SMEM_BYTES, ROW_BYTES, VARIANTS, BisectPlan, _launch_bisect, bisect_plan,
+)
+from yolort_tpu_torch.ops.cuda.nms_kernel import nms_scratch_rows
 from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, padded_depth, qconv_plan
 from yolort_tpu_torch.ops.nms import NMSConfig, batched_postprocess_from_heads
 
@@ -124,21 +127,159 @@ def test_build_without_toolkit_raises(monkeypatch, tmp_path):
         _build.build()
 
 
-@pytest.mark.cuda
-def test_nms_mask_kernel_matches_plain(cuda_device):
-    boxes, valid, _, _ = _inputs(cuda_device)
-    for stop in (0, 100):
-        got = nms_mask(boxes, valid, 0.5, 256, stop)
-        assert torch.equal(got, nms_mask_reference(boxes, valid, 0.5, 256, stop))
+def _nms_case(device, bsz, k, kind, seed=0):
+    """Score-sorted, class-offset candidates, 70% valid: 'dense' boxes
+    (5-200 px in a 640 px frame, many overlaps), 'sparse' ones (2-24 px:
+    most are kept, so the kept list outgrows shared memory), 'invalid'
+    (no valid candidate) or 'overlap' (one box repeated, all valid)."""
+    rng = np.random.default_rng(seed + k)
+    cxy = rng.uniform(0, 640, (bsz, k, 2))
+    wh = rng.uniform(2, 24, (bsz, k, 2)) if kind == "sparse" else rng.uniform(5, 200, (bsz, k, 2))
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1)
+    boxes += (rng.integers(0, 4, (bsz, k)) * 1000.0)[..., None]
+    valid = np.arange(k)[None, :].repeat(bsz, 0) < int(k * 0.7)
+    if kind == "invalid":
+        valid[:] = False
+    if kind == "overlap":
+        boxes[:] = (10.0, 10.0, 50.0, 50.0)
+        valid[:] = True
+    return (torch.from_numpy(boxes.astype(np.float32)).to(device),
+            torch.from_numpy(valid).to(device))
+
+
+NMS_CASES = [  # (bsz, k, stop_after, tile, kind)
+    *[(8, k, stop, tile, "dense") for k in (512, 4096) for stop in (0, 300) for tile in (128, 256)],
+    *[(2, 16448, stop, tile, kind) for stop in (0, 300) for tile in (128, 256)
+      for kind in ("dense", "sparse")],
+    (8, 4096, 0, 256, "sparse"),      # the kept list paged through the scratch
+    (8, 4096, 1500, 256, "sparse"),   # a stop_after past shared memory
+    (8, 4096, 300, 256, "sparse"),
+    (8, 512, 300, 256, "invalid"),
+    (8, 512, 0, 256, "overlap"),
+    (3, 300, 0, 256, "dense"),        # K below the tile and not a multiple of it
+    (3, 300, 10, 64, "dense"),
+]
 
 
 @pytest.mark.cuda
-def test_bisect_count_kernel_matches_plain(cuda_device):
-    _, _, table, _ = _inputs(cuda_device)
-    for k, thr in ((300, 0.25), (5000, 0.25), (10, 0.9999)):
-        bits = int(np.float32(thr).view(np.int32))
-        for a, b in zip(bisect_count(table, k, bits), bisect_count_reference(table, k, bits)):
+@pytest.mark.parametrize("bsz,k,stop,tile,kind", NMS_CASES)
+def test_nms_mask_kernel_matches_plain(cuda_device, bsz, k, stop, tile, kind):
+    boxes, valid = _nms_case(cuda_device, bsz, k, kind)
+    got = nms_mask(boxes, valid, 0.45, tile, stop)
+    want = nms_mask_reference(boxes, valid, 0.45, tile, stop)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)  # the whole mask, past the early exit too
+    if kind == "overlap":
+        assert int(got.sum()) == bsz
+
+
+def _score_table(device, bsz, m, kind, seed=0):
+    """(bsz, m, 128) sigmoid-product scores: 'random', 'ties' (40 levels),
+    'fewer' (0.2% of the entries nonzero) or 'none' (all below 0.025)."""
+    rng = np.random.default_rng(seed + m)
+    a, c = rng.standard_normal((2, bsz, m * 128)) * 2.0 - 1.0
+    s = (1 / (1 + np.exp(-a))) * (1 / (1 + np.exp(-c)))
+    if kind == "ties":
+        s = np.round(s * 40) / 40
+    if kind == "fewer":
+        s[:, int(m * 128 * 0.002):] = 0.0
+    if kind == "none":
+        s *= 0.025
+    return torch.from_numpy(s.astype(np.float32).reshape(bsz, m, 128)).to(device)
+
+
+BISECT_CASES = [  # (bsz, m, k, thr, kind)
+    (8, 197, 4104, 0.0, "random"),     # stage 1 at 640, eval
+    (8, 197, 520, 0.0, "random"),      # stage 1 at 640, serving
+    (1, 197, 4104, 0.0, "ties"),
+    (8, 325, 512, 0.25, "random"),     # stage 2, serving
+    (33, 325, 512, 0.25, "ties"),
+    (8, 325, 512, 0.25, "fewer"),
+    (33, 325, 512, 0.25, "none"),
+    (8, 2565, 4096, 0.005, "random"),  # stage 2, eval
+    (1, 2565, 4096, 0.005, "ties"),
+    (33, 2565, 4096, 0.005, "random"),
+    (8, 12500, 20000, 0.005, "random"),  # streamed: pre_nms_topk = 20000
+    (1, 12500, 20000, 0.005, "ties"),
+    (8, 12500, 20000, 0.25, "fewer"),
+    (2, 40, 300, 0.25, "random"),
+    (2, 40, 5000, 0.25, "random"),     # k beyond the entries
+    (2, 40, 10, 0.9999, "random"),     # none valid
+    (2, 3, 10, 0.25, "random"),        # fewer rows than a cluster's blocks
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,m,k,thr,kind", BISECT_CASES)
+def test_bisect_count_kernel_matches_plain(cuda_device, bsz, m, k, thr, kind):
+    table = _score_table(cuda_device, bsz, m, kind)
+    bits = int(np.float32(thr).view(np.int32))
+    got = bisect_count(table, k, bits)
+    want = bisect_count_reference(table, k, bits)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [2, 3, 4, 8, 16])
+@pytest.mark.parametrize("resident", [True, False])
+def test_bisect_count_kernel_matches_plain_at_every_plan(cuda_device, cluster, resident):
+    """Both modes at every cluster size give the plain version's result;
+    a slice that does not fit in shared memory is refused, not run."""
+    for m, kind in ((2565, "random"), (197, "ties")):
+        table = _score_table(cuda_device, 4, m, kind, seed=cluster)
+        want = bisect_count_reference(table, 4096, 0x3BA3D70A)
+        plan = BisectPlan(cluster, resident)
+        if resident and -(-m // cluster) * ROW_BYTES > BISECT_SMEM_BYTES:
+            with pytest.raises(RuntimeError, match="bisect_count"):
+                _launch_bisect(table, 4096, 0x3BA3D70A, plan)
+            continue
+        got = _launch_bisect(table, 4096, 0x3BA3D70A, plan)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bsz,m,cluster,resident", [
+    (8, 197, 8, True), (1, 197, 8, True), (16, 197, 8, True), (32, 197, 8, True),
+    (8, 325, 8, True), (32, 325, 8, True),
+    (1, 2565, 16, True), (8, 2565, 16, True), (9, 2565, 16, True),
+    (32, 2565, 16, True), (33, 2565, 16, True),
+    (1, 12500, 16, False), (8, 12500, 16, False), (32, 12500, 16, False),  # too large a slice
+    (1, 5000, 16, True), (32, 7000, 16, True), (32, 7200, 16, False),
+    (1, 1, 2, True), (4, 3, 3, True), (2, 40, 8, True), (65535, 197, 8, True),
+])
+def test_bisect_plan(bsz, m, cluster, resident):
+    plan = bisect_plan(bsz, m)
+    assert plan == (cluster, resident)
+    assert 2 <= plan.cluster <= 16
+    rows = -(-m // plan.cluster)
+    # a valid launch: every row has a block; a resident block's rows and the
+    # kernel's static part fit in a block's 227 KB, and all blocks at once
+    assert rows * plan.cluster >= m
+    assert plan.resident == (rows * ROW_BYTES <= BISECT_SMEM_BYTES)
+    if plan.resident:
+        assert rows * 512 + 8192 <= 232448
+
+
+def test_bisect_plan_refuses_an_empty_table_and_a_grid_past_its_limit():
+    for bsz, m in ((0, 10), (8, 0), (65536, 197)):
+        with pytest.raises(ValueError):
+            bisect_plan(bsz, m)
+
+
+@pytest.mark.parametrize("k,tile,stop,rows", [
+    (4096, 256, 301, 0),      # eval, stop_after 300: at most 556 keeps
+    (512, 256, 301, 0),
+    (4096, 256, 4097, 4096),  # stop_after 0: every candidate may be kept
+    (1024, 256, 1025, 0),     # 1024 keeps fit in shared memory
+    (16448, 256, 301, 0),
+    (16448, 128, 16449, 16448),
+    (4096, 256, 1000, 4096),  # 999 + 256 keeps
+])
+def test_nms_scratch_rows(k, tile, stop, rows):
+    assert nms_scratch_rows(k, tile, stop) == rows
 
 
 @pytest.mark.cuda

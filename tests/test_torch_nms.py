@@ -48,6 +48,19 @@ def test_nms_mask_reference_matches_jax_greedy(k, n_valid, stop_after):
         assert want.sum() < valid.sum()
 
 
+@pytest.mark.parametrize("stop_after", [300, 0])
+def test_nms_keep_mask_matches_jax_past_16384_candidates(stop_after):
+    """K = 16448, past the 16384 the card once refused and not a multiple
+    of the tile (the JAX package takes its XLA greedy_nms_mask there): the
+    port's nms_keep_mask on CPU tensors against it, the whole mask."""
+    k, n_valid = 16448, 700
+    boxes, valid = candidates(k + stop_after, 1, k, n_valid)
+    want = jax_masks(boxes, valid, 0.45, 256, stop_after)
+    got = TN.nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(valid), 0.45, 256, stop_after)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < n_valid
+
+
 def test_nms_all_invalid_and_all_overlapping():
     boxes = np.tile(np.asarray([[10, 10, 50, 50]], np.float32), (1, 256, 1))
     valid = np.ones((1, 256), bool)

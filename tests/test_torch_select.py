@@ -86,6 +86,20 @@ def test_bisect_count_reference_matches_pallas(kind, frac, k, thr):
         np.testing.assert_array_equal(ce[b].numpy(), np.asarray(jce))
 
 
+@pytest.mark.parametrize("kind,k", [("sig", 4104), ("sig", 520), ("ties", 4104)])
+def test_bisect_count_reference_matches_pallas_at_stage1_shape(kind, k):
+    """The stage-1 anchor screen's table at 640: 25,200 anchors are a
+    (197, 128) table, k1 = 4104 (eval) or 520 (serving), threshold 0."""
+    s = scores(5, (2, 197, 128), kind)
+    t, cg, ce = bisect_count_reference(torch.from_numpy(s), k, 0)
+    for b in range(s.shape[0]):
+        jt, jcg, jce = pallas_bisect_count(jnp.asarray(s[b]), k, 0, interpret=True)
+        assert int(t[b]) == int(jt)
+        np.testing.assert_array_equal(cg[b].numpy(), np.asarray(jcg))
+        np.testing.assert_array_equal(ce[b].numpy(), np.asarray(jce))
+    assert int(cg.sum() + ce.sum()) >= 2 * k  # the k-th value's tier reaches k
+
+
 def _special_table(seed, m, w):
     specials = np.asarray(
         [0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, np.float32(1e-45), np.float32(-1e-45),

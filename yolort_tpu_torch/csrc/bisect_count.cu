@@ -7,37 +7,67 @@
 // count(bits >= t) >= k > count(bits >= t + 1) over the valid entries
 // (bits > thr_bits), which is the k-th largest valid bit pattern, so any
 // exact selection gives the same t.  Here: a 4-pass 8-bit radix select on
-// the int32 patterns, one block of 1024 threads per image.
+// the int32 patterns, by a thread-block cluster of C blocks per image
+// (C = 2-16, launched with cudaLaunchKernelEx; the wrapper's bisect_plan
+// picks C and the mode from the table).
 //
-// What bounds it on the H100: memory reads (the eval table is 2565 x 128 x
-// 4 B = 1.3 MB per image, larger than a block's 227 KB of shared memory, so
-// it is re-read from L2 on each pass) and shared-memory atomics on the
-// histogram, where score distributions pile into a few bins.  The design
-// reads 16-byte vectors and aggregates each warp's equal bins with
-// __match_any_sync before one atomic per distinct bin.
+// Each block of a cluster owns a contiguous run of whole 128-entry rows.
+//   * resident mode: the block copies its rows into dynamic shared memory
+//     once (16-byte cp.async; whole rows keep the copies aligned), and
+//     every pass and the tier counts read them from there.  The eval table
+//     (2565 x 128 x 4 B = 1.3 MB an image) is read from device memory once,
+//     in slices of 82-164 KB a block.
+//   * streaming mode, for a slice larger than shared memory (a 12,500-row
+//     table at pre_nms_topk = 20000 is 6.4 MB an image): the same passes
+//     read the slice from device memory (L2) each time.
+// Each pass builds the block's 256-bin histogram in its own shared memory;
+// after cluster.sync() every block sums the C histograms through
+// distributed shared memory (cluster.map_shared_rank) and picks the digit
+// itself, so no broadcast is needed and every block reaches the same
+// prefix.  The histograms alternate between two buffers by pass, so no
+// block clears one that a peer may still read: a peer reads pass p's
+// buffer before it reaches pass p + 1's cluster.sync(), and the buffer is
+// cleared again only after that barrier.  One last cluster.sync() keeps
+// every block's shared memory alive until its peers are done reading it.
+//
+// What bounds it on the H100: device-memory bytes (the table once) and,
+// past them, the latency of four dependent passes, each with a cluster
+// barrier and a histogram exchange, and the shared-memory atomics of the
+// histograms.  Plain atomicAdd per entry measured faster on the card than
+// aggregating each warp's equal bins with __match_any_sync first (PERF.md).
 //
 // Edges, as ops/select.py:_bisect_kth_bits defines them: with fewer than k
 // valid entries t is the smallest valid pattern; with none, t is 0x40000000
 // (the bits of 2.0f).  The contract holds for valid patterns in
 // [0, 0x40000000), i.e. scores in [0, 2) and a threshold >= 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
 constexpr int kNoBin = 256;
+constexpr int kMaxCluster = 16;
+constexpr int kRowBytes = 128 * 4;
 
 __device__ __forceinline__ unsigned order_key(int v) {
   return static_cast<unsigned>(v) ^ 0x80000000u;
 }
 
 __device__ __forceinline__ void hist_add(unsigned* hist, int bin) {
-  const unsigned peers = __match_any_sync(0xffffffffu, bin);
-  if (bin != kNoBin && (threadIdx.x & 31) == __ffs(peers) - 1)
-    atomicAdd(&hist[bin], __popc(peers));
+  if (bin != kNoBin) atomicAdd(&hist[bin], 1u);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
 }
 
 // Warp 0: find the digit holding the need-th largest entry of hist.
@@ -76,23 +106,62 @@ __device__ void select_digit(const unsigned* hist, unsigned need, int* digit_out
   }
 }
 
+// What a block shows its cluster peers.
+struct Exchange {
+  unsigned hist[2][256];  // this block's histogram, double-buffered by pass
+  int min;                // this block's smallest valid pattern (pass 0)
+};
+
+// The cluster's histogram of buffer `buf` into sum (256 threads), and in
+// pass 0 the cluster's smallest valid pattern into *min_out.
+__device__ void cluster_sum(cg::cluster_group& cluster, Exchange& ex, int buf, unsigned* sum,
+                            int* min_out) {
+  const unsigned nblocks = cluster.num_blocks();
+  if (threadIdx.x < 256) {
+    unsigned s = 0;
+#pragma unroll
+    for (unsigned r = 0; r < kMaxCluster; ++r)  // unrolled: the remote reads overlap
+      if (r < nblocks) s += cluster.map_shared_rank(&ex.hist[buf][0], r)[threadIdx.x];
+    sum[threadIdx.x] = s;
+  }
+  if (min_out != nullptr && threadIdx.x == 256) {
+    int mn = INT_MAX;
+    for (unsigned r = 0; r < nblocks; ++r) mn = min(mn, *cluster.map_shared_rank(&ex.min, r));
+    *min_out = mn;
+  }
+  __syncthreads();
+}
+
+template <bool kResident>
 __global__ void __launch_bounds__(kThreads)
-    bisect_count_kernel(const int* __restrict__ bits, int m, int k, int thr,
+    bisect_count_kernel(const int* __restrict__ bits, int m, int rows_per, int k, int thr,
                         int* __restrict__ t_out, int* __restrict__ cnt_gt,
                         int* __restrict__ cnt_eq) {
-  __shared__ unsigned hist[256];
-  __shared__ int warp_min[kThreads / 32];
+  extern __shared__ int4 s_rows[];  // resident mode: this block's rows
+  __shared__ Exchange ex;
+  __shared__ unsigned s_sum[256];
+  __shared__ int warp_min[kWarps];
   __shared__ unsigned s_prefix, s_need, s_total;
-  __shared__ int s_digit, s_t, s_done;
+  __shared__ int s_digit, s_t, s_done, s_min;
 
-  const int b = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int4* x4 = reinterpret_cast<const int4*>(bits + (size_t)b * m * 128);
-  const int n4 = m * 32;
+  const int row0 = min(m, rank * rows_per);
+  const int nrows = min(m, row0 + rows_per) - row0;
+  const int n4 = nrows * 32;
+  const int4* g4 = reinterpret_cast<const int4*>(bits + ((size_t)b * m + row0) * 128);
+  const int4* x4 = kResident ? s_rows : g4;
+
+  if (kResident) {
+    for (int q = threadIdx.x; q < n4; q += kThreads) cp_async16(s_rows + q, g4 + q);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < 2 * 256; i += kThreads) ex.hist[i >> 8][i & 255] = 0;
+  __syncthreads();
 
   // pass 0: top digit histogram, smallest valid pattern
-  for (int i = threadIdx.x; i < 256; i += kThreads) hist[i] = 0;
-  __syncthreads();
   int lmin = INT_MAX;
   for (int base = 0; base < n4; base += kThreads) {
     const int q = base + threadIdx.x;
@@ -102,22 +171,27 @@ __global__ void __launch_bounds__(kThreads)
     for (int u = 0; u < 4; ++u) {
       const bool ok = e[u] > thr;
       if (ok) lmin = min(lmin, e[u]);
-      hist_add(hist, ok ? static_cast<int>(order_key(e[u]) >> 24) : kNoBin);
+      hist_add(ex.hist[0], ok ? static_cast<int>(order_key(e[u]) >> 24) : kNoBin);
     }
   }
   lmin = __reduce_min_sync(0xffffffffu, lmin);
   if (lane == 0) warp_min[warp] = lmin;
   __syncthreads();
   if (warp == 0) {
-    const int wmin = __reduce_min_sync(0xffffffffu, warp_min[lane]);
-    select_digit(hist, static_cast<unsigned>(k), &s_digit, &s_need, &s_total);
+    const int wmin = __reduce_min_sync(0xffffffffu, lane < kWarps ? warp_min[lane] : INT_MAX);
+    if (lane == 0) ex.min = wmin;
+  }
+  cluster.sync();
+  cluster_sum(cluster, ex, 0, s_sum, &s_min);
+  if (warp == 0) {
+    select_digit(s_sum, static_cast<unsigned>(k), &s_digit, &s_need, &s_total);
     __syncwarp();
     if (lane == 0) {
       if (s_total == 0) {
         s_t = 0x40000000;
         s_done = 1;
       } else if (s_total < static_cast<unsigned>(k)) {
-        s_t = wmin;
+        s_t = s_min;
         s_done = 1;
       } else {
         s_prefix = static_cast<unsigned>(s_digit);
@@ -127,10 +201,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // passes 1..3: next digit among the entries that share the prefix
+  // passes 1..3: next digit among the entries that share the prefix; every
+  // block of the cluster takes the same branch (same sums, same decisions)
   if (!s_done) {
     for (int pass = 1; pass < 4; ++pass) {
       const int shift = 24 - 8 * pass;
+      unsigned* hist = ex.hist[pass & 1];
       for (int i = threadIdx.x; i < 256; i += kThreads) hist[i] = 0;
       __syncthreads();
       const unsigned prefix = s_prefix;
@@ -145,24 +221,26 @@ __global__ void __launch_bounds__(kThreads)
           hist_add(hist, ok ? static_cast<int>((key >> shift) & 255u) : kNoBin);
         }
       }
-      __syncthreads();
+      cluster.sync();
+      cluster_sum(cluster, ex, pass & 1, s_sum, nullptr);
       if (warp == 0) {
         const unsigned need = s_need;
         __syncwarp();  // every lane has read s_need before the hit lane rewrites it
-        select_digit(hist, need, &s_digit, &s_need, &s_total);
+        select_digit(s_sum, need, &s_digit, &s_need, &s_total);
         __syncwarp();
         if (lane == 0) s_prefix = (s_prefix << 8) | static_cast<unsigned>(s_digit);
       }
       __syncthreads();
     }
     if (threadIdx.x == 0) s_t = static_cast<int>(s_prefix ^ 0x80000000u);
-    __syncthreads();
   }
+  // no peer reads this block's shared memory after this barrier
+  cluster.sync();
 
-  // per-chunk tier counts: one warp per 128-entry row
+  // the block's rows' tier counts: one warp per 128-entry row
   const int t = s_t;
   const int t1 = static_cast<int>(static_cast<unsigned>(t) + 1u);  // int32 wrap, as in JAX
-  for (int row = warp; row < m; row += kThreads / 32) {
+  for (int row = warp; row < nrows; row += kWarps) {
     const int4 v = x4[row * 32 + lane];
     const int e[4] = {v.x, v.y, v.z, v.w};
     int g = 0, q = 0;
@@ -175,21 +253,70 @@ __global__ void __launch_bounds__(kThreads)
     g = __reduce_add_sync(0xffffffffu, g);
     q = __reduce_add_sync(0xffffffffu, q);
     if (lane == 0) {
-      cnt_gt[(size_t)b * m + row] = g;
-      cnt_eq[(size_t)b * m + row] = q;
+      cnt_gt[(size_t)b * m + row0 + row] = g;
+      cnt_eq[(size_t)b * m + row0 + row] = q;
     }
   }
-  if (threadIdx.x == 0) t_out[b] = t;
+  if (rank == 0 && threadIdx.x == 0) t_out[b] = t;
+}
+
+template <bool kResident>
+int launch(const int* bits, int B, int m, int k, int thr, int* t, int* cnt_gt, int* cnt_eq,
+           int cluster, cudaStream_t stream) {
+  auto kernel = bisect_count_kernel<kResident>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const int rows_per = (m + cluster - 1) / cluster;
+  const size_t dyn = kResident ? (size_t)rows_per * kRowBytes : 0;
+  // once per device: allow the 16-block cluster and the shared memory left
+  // beside the kernel's static part
+  static int limit[64] = {};  // 1 + the dynamic shared-memory limit set, per device
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (limit[dev] == 0) {
+    int optin = 0;
+    cudaFuncAttributes fattr;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fattr, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    const int left = kResident ? optin - (int)fattr.sharedSizeBytes : 0;
+    if (err == cudaSuccess && kResident)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, left);
+    if (err != cudaSuccess) return (int)err;
+    limit[dev] = 1 + left;
+  }
+  if (dyn + 1 > (size_t)limit[dev]) return (int)cudaErrorInvalidValue;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, B, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster_dim[1];
+  cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
+  cluster_dim[0].val.clusterDim.x = cluster;
+  cluster_dim[0].val.clusterDim.y = 1;
+  cluster_dim[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster_dim;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, bits, m, rows_per, k, thr, t, cnt_gt, cnt_eq);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int yt_bisect_count(const void* bits, int B, int m, int k, int thr_bits,
-                               void* t, void* cnt_gt, void* cnt_eq, void* stream) {
+// cluster: blocks per image, 2-16; resident: 1 to hold each block's rows
+// in shared memory (it must fit), 0 to stream them from device memory.
+extern "C" int yt_bisect_count(const void* bits, int B, int m, int k, int thr_bits, void* t,
+                               void* cnt_gt, void* cnt_eq, int cluster, int resident,
+                               void* stream) {
   if (B <= 0 || m <= 0) return 0;
-  if (k < 1) return (int)cudaErrorInvalidValue;
-  bisect_count_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(bits), m, k, thr_bits, static_cast<int*>(t),
-      static_cast<int*>(cnt_gt), static_cast<int*>(cnt_eq));
-  return (int)cudaGetLastError();
+  if (k < 1 || cluster < 2 || cluster > kMaxCluster || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  auto fn = resident ? launch<true> : launch<false>;
+  return fn(static_cast<const int*>(bits), B, m, k, thr_bits, static_cast<int*>(t),
+            static_cast<int*>(cnt_gt), static_cast<int*>(cnt_eq), cluster,
+            static_cast<cudaStream_t>(stream));
 }

@@ -13,12 +13,15 @@ row fetch at a swept geometry) and ``lookup_kernel_variants.py``
 (``run_variant``, stripped variants of the lookup-fetch).  The TPU kernels keep
 the chunk table in VMEM and fetch rows with byte-plane one-hot matmuls to
 dodge the TPU's slow gathers; on the H100 the first is a radix select over
-the bit patterns and the others read rows directly, a warp per row (the
-source notes say what bounds each).  All are batched over a leading image
+the bit patterns by a thread-block cluster per image (``bisect_plan``) and
+the others read rows directly, a warp per row (the source notes say what
+bounds each).  All are batched over a leading image
 dimension.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -48,13 +51,55 @@ def bisect_count_reference(table: torch.Tensor, k: int, thr_bits: int):
     return t, gt.sum(-1, dtype=torch.int32), eq.sum(-1, dtype=torch.int32)
 
 
+# bisect_count's launch plan: a cluster of blocks per image, each block on
+# a contiguous run of whole rows, held in its shared memory when that pays
+BISECT_SMEM_BYTES = 232448 - 8192  # a block's shared memory less the kernel's static part
+ROW_BYTES = CHUNK * 4
+
+
+class BisectPlan(NamedTuple):
+    cluster: int  # blocks per image, 2-16
+    resident: bool  # each block's rows held in shared memory
+
+
+def bisect_plan(bsz: int, m: int) -> BisectPlan:
+    """The cluster size and mode of the ``bisect_count`` kernel for a
+    (bsz, m, 128) table.  8 blocks an image while that gives a block at
+    most 64 rows (m <= 512), else 16: each pass pays a cluster barrier,
+    and more blocks only pay where the rows are many; never more blocks
+    than rows, never fewer than 2.  Resident (each block's rows read from
+    device memory once, into shared memory) when a block's rows fit in
+    ``BISECT_SMEM_BYTES``, else streamed on each pass."""
+    if not 1 <= bsz <= 65535 or m < 1:
+        raise ValueError(f"bisect_plan needs 1-65535 images and a row, got ({bsz}, {m})")
+    cluster = max(2, min(8 if m <= 8 * 64 else 16, m))
+    return BisectPlan(cluster, -(-m // cluster) * ROW_BYTES <= BISECT_SMEM_BYTES)
+
+
+def _launch_bisect(table: torch.Tensor, k: int, thr_bits: int, plan: BisectPlan):
+    """Launch the kernel at ``plan`` on a checked CUDA table."""
+    bsz, m, _ = table.shape
+    t = torch.empty(bsz, dtype=torch.int32, device=table.device)
+    cnt_gt = torch.empty(bsz, m, dtype=torch.int32, device=table.device)
+    cnt_eq = torch.empty(bsz, m, dtype=torch.int32, device=table.device)
+    lib = _build.library()
+    with torch.cuda.device(table.device):
+        rc = lib.yt_bisect_count(
+            table.data_ptr(), bsz, m, int(k), int(thr_bits), t.data_ptr(), cnt_gt.data_ptr(),
+            cnt_eq.data_ptr(), plan.cluster, int(plan.resident), _build.stream_of(table),
+        )
+    _build.check(rc, "bisect_count")
+    return t, cnt_gt, cnt_eq
+
+
 def bisect_count(table: torch.Tensor, k: int, thr_bits: int):
     """Exact k-th largest valid score bits plus per-chunk tier counts.
 
     table (B, m, 128) f32 scores in [0, 2), k >= 1, thr_bits the f32 bits
     of a threshold >= 0.  Returns (t (B,) i32, cnt_gt (B, m) i32,
     cnt_eq (B, m) i32).  CUDA tensors launch the kernel on the current
-    stream; CPU tensors take ``bisect_count_reference``."""
+    stream, at ``bisect_plan``'s cluster size and mode; CPU tensors take
+    ``bisect_count_reference``."""
     if table.dim() != 3 or table.shape[-1] != 128 or table.dtype != torch.float32:
         raise ValueError(f"table must be (B, m, 128) float32, got {tuple(table.shape)} {table.dtype}")
     if k < 1:
@@ -69,19 +114,9 @@ def bisect_count(table: torch.Tensor, k: int, thr_bits: int):
         raise ValueError("bisect_count needs a contiguous table")
     if table.data_ptr() % 16:
         raise ValueError("bisect_count needs a 16-byte aligned table (the kernel loads int4)")
-    bsz, m, _ = table.shape
-    t = torch.empty(bsz, dtype=torch.int32, device=table.device)
-    cnt_gt = torch.empty(bsz, m, dtype=torch.int32, device=table.device)
-    cnt_eq = torch.empty(bsz, m, dtype=torch.int32, device=table.device)
-    lib = _build.library()
-    with torch.cuda.device(table.device):
-        rc = lib.yt_bisect_count(
-            table.data_ptr(), bsz, m, int(k), int(thr_bits),
-            t.data_ptr(), cnt_gt.data_ptr(), cnt_eq.data_ptr(), _build.stream_of(table),
-        )
-    _build.check(rc, "bisect_count")
+    out = _launch_bisect(table, k, thr_bits, bisect_plan(table.shape[0], table.shape[1]))
     bisect_count.launches += 1
-    return t, cnt_gt, cnt_eq
+    return out
 
 
 bisect_count.launches = 0

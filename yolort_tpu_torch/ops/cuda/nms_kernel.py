@@ -2,13 +2,13 @@
 PyTorch version.
 
 Replaces ``yolort_tpu/ops/pallas/nms_kernel.py`` (``_nms_kernel`` /
-``pallas_nms_mask``).  The kernel writes the upper-triangular
-``iou > thr`` relation as 64-bit words, then one warp per image walks the
-candidates in score order with the removed-set in registers; the source
-note says what bounds it on the H100.  Both versions compute what
-``yolort_tpu.ops.nms.greedy_nms_mask`` computes, for the whole mask: exact
-sequential greedy NMS through the tile at which ``stop_after`` keeps are
-final, validity passed through after it.
+``pallas_nms_mask``).  The kernel is one launch, one block per image: it
+walks the candidates a tile of 256 at a time, tests each against the boxes
+kept so far, builds the tile's own IoU relation in shared memory and walks
+it from keep to keep; the source note says what bounds it on the H100.
+Both versions compute what ``yolort_tpu.ops.nms.greedy_nms_mask`` computes,
+for the whole mask and any K: exact sequential greedy NMS through the tile
+at which ``stop_after`` keeps are final, validity passed through after it.
 """
 
 from __future__ import annotations
@@ -64,6 +64,18 @@ def nms_mask_reference(
     return alive[:, :k]
 
 
+NMS_KEPT_IN_SHARED = 1024  # kept boxes the kernel holds in shared memory (kKeptSmem)
+
+
+def nms_scratch_rows(k: int, tile: int, stop: int) -> int:
+    """Rows per image of the kernel's (B, rows, 4) f32 kept-box scratch:
+    ``k`` when an image can keep more boxes than shared memory holds, else
+    0 (no scratch).  The exit is checked at multiples of ``tile`` once
+    ``stop`` keeps are final, so an image keeps at most
+    min(k, stop - 1 + tile); ``stop`` > k never exits."""
+    return k if min(k, stop - 1 + tile) > NMS_KEPT_IN_SHARED else 0
+
+
 def nms_mask(
     boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     tile_size: int = 256, stop_after: int = 0,
@@ -90,17 +102,17 @@ def nms_mask(
     if boxes.data_ptr() % 16:
         raise ValueError("nms_mask needs 16-byte aligned boxes (the kernel loads float4)")
     bsz, k, _ = boxes.shape
-    words = -(-k // 64)
-    if words > 256:
-        raise ValueError(f"nms_mask takes K <= 16384 candidates, got {k}")
+    tile = min(tile_size, k)
+    stop = min(stop_after, k + 1) if stop_after > 0 else k + 1  # k + 1: no early exit
     keep = torch.empty_like(valid)
-    scratch = torch.empty(bsz * k * words, dtype=torch.int64, device=boxes.device)
-    stop = stop_after if stop_after > 0 else k + 1
+    rows = nms_scratch_rows(k, tile, stop)
+    scratch = torch.empty(bsz, rows, 4, dtype=torch.float32, device=boxes.device) if rows else None
     lib = _build.library()
     with torch.cuda.device(boxes.device):
         rc = lib.yt_nms_mask(
-            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), scratch.data_ptr(),
-            bsz, k, float(iou_thresh), min(tile_size, k), stop, _build.stream_of(boxes),
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), bsz, k, float(iou_thresh), tile, stop,
+            _build.stream_of(boxes),
         )
     _build.check(rc, "nms_mask")
     nms_mask.launches += 1
