@@ -13,9 +13,10 @@ Phases, each fatal on failure:
      card, at the main path's shapes, batch 8: nms_mask's whole mask at
      K = 512, 4096 and 16448 (with the tiles its walk visits),
      bisect_count at the stage-1 (197,128) and stage-2 (325,128),
-     (2565,128) tables, a streamed (12500,128) one and the tie, few and
-     empty cases, each timed shape beside torch.topk, and at every cluster
-     size and mode on the two main-path tables (the variant 'full' also
+     (2565,128) tables, streamed (5000,128) and (12500,128) ones and the
+     tie, few and empty cases, each timed shape beside torch.topk, and at
+     every cluster size and mode within bisect_plan's shared-memory budget
+     on the two main-path tables (the variant 'full' also
      against lookup_fetch); row_fetch_p at every swept geometry against
      its plain version at both sweep shapes (experiments/
      fetch_block_sweep.py), batch 8; results must be bit-identical (NaN
@@ -142,6 +143,23 @@ def tiles_visited(keep, tile: int, stop: int) -> list:
     return [int(r.nonzero()[0]) + 1 if r.any() else n for r in done]
 
 
+def nms_work(keep, valid, tile: int, stop: int):
+    """What greedy NMS with the early exit needs, read from a plain keep
+    mask (B, K) and its valid mask: (bytes, IoU pairs).  Each image reads
+    its boxes (16 B each) up to the exit, reads ``valid`` and writes
+    ``keep`` (1 B each of all K); each valid candidate before the exit is
+    tested against the boxes kept before it, and none after it.  The exit
+    is the first multiple of ``tile`` with ``stop`` keeps before it (none
+    with ``stop`` <= 0)."""
+    bsz, k = keep.shape
+    t = min(tile, k)
+    exits = ([min(n * t, k) for n in tiles_visited(keep, t, stop)] if stop > 0
+             else [k] * bsz)
+    before = keep.long().cumsum(1) - keep.long()  # boxes kept before each candidate
+    pairs = sum(int((before[b, :e] * valid[b, :e].long()).sum()) for b, e in enumerate(exits))
+    return 16 * sum(exits) + 2 * bsz * k, pairs
+
+
 def score_table(seed: int, bsz: int, m: int, device, valid_frac: float = 1.0,
                 ties: bool = False):
     """(B, m, 128) sigmoid-product scores; entries past valid_frac zeroed;
@@ -253,18 +271,16 @@ def phase_kernels(device, card: str) -> dict:
               f"tiles visited/img {tiles}", flush=True)
         ms, pms = median_ms(run), median_ms(plain, 5)
         dev, pdev = device_profile(run)[0], device_profile(plain)[0]
-        # bound: boxes and valid read, keep written; 12 f32 operations per
-        # IoU pair (i, j > i) over the rows up to each image's 300th keep,
-        # the rows the greedy scan needs
-        rank = ref.long().cumsum(1)
-        rows = [int(torch.nonzero(r >= 300)[0]) + 1 if (r >= 300).any() else k for r in rank]
-        pairs = sum(r * (k - 1) - r * (r - 1) // 2 for r in rows)
-        bms, bby = bound(B * k * (16 + 1 + 1), 12.0 * pairs)
+        # bound: what greedy NMS needs up to the early exit, 12 f32
+        # operations per (candidate, earlier kept box) IoU pair
+        nbytes, pairs = nms_work(ref, t["valid"], 256, 300)
+        bms, bby = bound(nbytes, 12.0 * pairs)
         print(f"[times] nms_mask B={B} K={k}: kernel {ms:.4f} ms (device {fmt_ms(dev)}), "
-              f"plain {pms:.4f} ms (device {fmt_ms(pdev)}), bound {bms:.4f} ms ({bby}) | {card}",
-              flush=True)
+              f"plain {pms:.4f} ms (device {fmt_ms(pdev)}), bound {bms:.6f} ms ({bby}; "
+              f"{nbytes} B, {pairs} IoU pairs) | {card}", flush=True)
         by_k[k] = dict(ms=ms, device_ms=dev, plain_ms=pms, plain_device_ms=pdev, bound_ms=bms,
-                       bound_by=bby, tiles_visited=tiles)
+                       bound_by=bby, bound_bytes=nbytes, bound_iou_pairs=pairs,
+                       tiles_visited=tiles)
         if k == 4096:
             partial = median_ms(lambda t=t: box_iou_matrix(t["offset"], t["offset"]))
     res["nms_mask"] = dict(
@@ -281,6 +297,7 @@ def phase_kernels(device, card: str) -> dict:
         ("serving", score_table(2, B, 325, device), 512, 0.25),
         ("eval", score_table(3, B, 2565, device), 4096, 0.005),
         ("pre_nms_topk=20000", score_table(9, B, 12500, device), 20000, 0.005),
+        ("pre_nms_topk=8000", score_table(12, B, 5000, device), 8000, 0.005),
         ("eval ties", score_table(10, B, 2565, device, ties=True), 4096, 0.005),
         ("fewer-than-k", score_table(4, B, 325, device, valid_frac=0.002), 512, 0.25),
         ("none-valid", score_table(5, B, 325, device) * 0.1, 512, 0.25),

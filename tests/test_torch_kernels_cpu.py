@@ -6,6 +6,7 @@ The kernel-against-plain cases carry the ``cuda`` marker and skip here;
 on a machine with the card run them with
 ``python -m pytest tests/test_torch_kernels_cpu.py -m cuda``."""
 
+import importlib.util
 import re
 import subprocess
 import sys
@@ -27,8 +28,8 @@ from yolort_tpu_torch.experiments.fetch_block_sweep import GEOMETRIES
 from yolort_tpu_torch.ops.cuda.lookup_kernel import (
     BISECT_SMEM_BYTES, ROW_BYTES, VARIANTS, BisectPlan, _launch_bisect, bisect_plan,
 )
-from yolort_tpu_torch.ops.cuda.nms_kernel import nms_scratch_rows
 from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, padded_depth, qconv_plan
+from yolort_tpu_torch.ops.boxes import box_iou_matrix
 from yolort_tpu_torch.ops.nms import NMSConfig, batched_postprocess_from_heads
 
 PKG = Path(yolort_tpu_torch.__file__).parent
@@ -130,8 +131,12 @@ def test_build_without_toolkit_raises(monkeypatch, tmp_path):
 def _nms_case(device, bsz, k, kind, seed=0):
     """Score-sorted, class-offset candidates, 70% valid: 'dense' boxes
     (5-200 px in a 640 px frame, many overlaps), 'sparse' ones (2-24 px:
-    most are kept, so the kept list outgrows shared memory), 'invalid'
-    (no valid candidate) or 'overlap' (one box repeated, all valid)."""
+    most are kept: the kept list takes many pages), 'invalid' (no valid
+    candidate), 'overlap' (one box repeated, all valid) or 'inputs' (the
+    module's ``_inputs`` boxes, 512 candidates of which 400 valid, two
+    images)."""
+    if kind == "inputs":
+        return _inputs(device)[:2]
     rng = np.random.default_rng(seed + k)
     cxy = rng.uniform(0, 640, (bsz, k, 2))
     wh = rng.uniform(2, 24, (bsz, k, 2)) if kind == "sparse" else rng.uniform(5, 200, (bsz, k, 2))
@@ -151,13 +156,15 @@ NMS_CASES = [  # (bsz, k, stop_after, tile, kind)
     *[(8, k, stop, tile, "dense") for k in (512, 4096) for stop in (0, 300) for tile in (128, 256)],
     *[(2, 16448, stop, tile, kind) for stop in (0, 300) for tile in (128, 256)
       for kind in ("dense", "sparse")],
-    (8, 4096, 0, 256, "sparse"),      # the kept list paged through the scratch
-    (8, 4096, 1500, 256, "sparse"),   # a stop_after past shared memory
+    (8, 4096, 0, 256, "sparse"),      # a kept list of many pages
+    (8, 4096, 1500, 256, "sparse"),   # a stop_after past one page
     (8, 4096, 300, 256, "sparse"),
     (8, 512, 300, 256, "invalid"),
     (8, 512, 0, 256, "overlap"),
     (3, 300, 0, 256, "dense"),        # K below the tile and not a multiple of it
     (3, 300, 10, 64, "dense"),
+    (2, 512, 0, 256, "inputs"),       # at iou_thresh 0.5
+    (2, 512, 100, 256, "inputs"),
 ]
 
 
@@ -165,8 +172,9 @@ NMS_CASES = [  # (bsz, k, stop_after, tile, kind)
 @pytest.mark.parametrize("bsz,k,stop,tile,kind", NMS_CASES)
 def test_nms_mask_kernel_matches_plain(cuda_device, bsz, k, stop, tile, kind):
     boxes, valid = _nms_case(cuda_device, bsz, k, kind)
-    got = nms_mask(boxes, valid, 0.45, tile, stop)
-    want = nms_mask_reference(boxes, valid, 0.45, tile, stop)
+    thr = 0.5 if kind == "inputs" else 0.45
+    got = nms_mask(boxes, valid, thr, tile, stop)
+    want = nms_mask_reference(boxes, valid, thr, tile, stop)
     torch.cuda.synchronize()
     assert torch.equal(got, want)  # the whole mask, past the early exit too
     if kind == "overlap":
@@ -175,7 +183,10 @@ def test_nms_mask_kernel_matches_plain(cuda_device, bsz, k, stop, tile, kind):
 
 def _score_table(device, bsz, m, kind, seed=0):
     """(bsz, m, 128) sigmoid-product scores: 'random', 'ties' (40 levels),
-    'fewer' (0.2% of the entries nonzero) or 'none' (all below 0.025)."""
+    'fewer' (0.2% of the entries nonzero) or 'none' (all below 0.025); or
+    'inputs', the module's ``_inputs`` table (one sigmoid, (2, 40, 128))."""
+    if kind == "inputs":
+        return _inputs(device)[2]
     rng = np.random.default_rng(seed + m)
     a, c = rng.standard_normal((2, bsz, m * 128)) * 2.0 - 1.0
     s = (1 / (1 + np.exp(-a))) * (1 / (1 + np.exp(-c)))
@@ -202,10 +213,15 @@ BISECT_CASES = [  # (bsz, m, k, thr, kind)
     (8, 12500, 20000, 0.005, "random"),  # streamed: pre_nms_topk = 20000
     (1, 12500, 20000, 0.005, "ties"),
     (8, 12500, 20000, 0.25, "fewer"),
+    (8, 5000, 8000, 0.005, "random"),  # streamed: past half an SM at 16 blocks
+    (32, 7000, 11000, 0.005, "random"),
     (2, 40, 300, 0.25, "random"),
     (2, 40, 5000, 0.25, "random"),     # k beyond the entries
     (2, 40, 10, 0.9999, "random"),     # none valid
     (2, 3, 10, 0.25, "random"),        # fewer rows than a cluster's blocks
+    (2, 40, 300, 0.25, "inputs"),
+    (2, 40, 5000, 0.25, "inputs"),
+    (2, 40, 10, 0.9999, "inputs"),
 ]
 
 
@@ -225,17 +241,18 @@ def test_bisect_count_kernel_matches_plain(cuda_device, bsz, m, k, thr, kind):
 @pytest.mark.parametrize("cluster", [2, 3, 4, 8, 16])
 @pytest.mark.parametrize("resident", [True, False])
 def test_bisect_count_kernel_matches_plain_at_every_plan(cuda_device, cluster, resident):
-    """Both modes at every cluster size give the plain version's result;
-    a slice that does not fit in shared memory is refused, not run."""
+    """Both modes at every cluster size give the plain version's result; a
+    resident slice the card cannot hold is refused, not run, and only past
+    bisect_plan's budget; a refusal leaves no error for the next launch."""
     for m, kind in ((2565, "random"), (197, "ties")):
         table = _score_table(cuda_device, 4, m, kind, seed=cluster)
         want = bisect_count_reference(table, 4096, 0x3BA3D70A)
-        plan = BisectPlan(cluster, resident)
-        if resident and -(-m // cluster) * ROW_BYTES > BISECT_SMEM_BYTES:
-            with pytest.raises(RuntimeError, match="bisect_count"):
-                _launch_bisect(table, 4096, 0x3BA3D70A, plan)
-            continue
-        got = _launch_bisect(table, 4096, 0x3BA3D70A, plan)
+        try:
+            got = _launch_bisect(table, 4096, 0x3BA3D70A, BisectPlan(cluster, resident))
+        except RuntimeError as e:
+            assert "bisect_count" in str(e) and resident
+            assert -(-m // cluster) * ROW_BYTES > BISECT_SMEM_BYTES
+            got = bisect_count(table, 4096, 0x3BA3D70A)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
@@ -247,7 +264,8 @@ def test_bisect_count_kernel_matches_plain_at_every_plan(cuda_device, cluster, r
     (1, 2565, 16, True), (8, 2565, 16, True), (9, 2565, 16, True),
     (32, 2565, 16, True), (33, 2565, 16, True),
     (1, 12500, 16, False), (8, 12500, 16, False), (32, 12500, 16, False),  # too large a slice
-    (1, 5000, 16, True), (32, 7000, 16, True), (32, 7200, 16, False),
+    (1, 5000, 16, False), (32, 7000, 16, False), (32, 7200, 16, False),  # past half an SM
+    (8, 3200, 16, True), (8, 3201, 16, False),  # 200 rows a block fit, 201 do not
     (1, 1, 2, True), (4, 3, 3, True), (2, 40, 8, True), (65535, 197, 8, True),
 ])
 def test_bisect_plan(bsz, m, cluster, resident):
@@ -255,12 +273,13 @@ def test_bisect_plan(bsz, m, cluster, resident):
     assert plan == (cluster, resident)
     assert 2 <= plan.cluster <= 16
     rows = -(-m // plan.cluster)
-    # a valid launch: every row has a block; a resident block's rows and the
-    # kernel's static part fit in a block's 227 KB, and all blocks at once
+    # a valid launch: every row has a block; two resident blocks, each with
+    # its rows, the kernel's static part (under 4 KB) and the runtime's 1 KB,
+    # share an H100 SM's 228 KB, so a 16-block cluster needs 8 SMs
     assert rows * plan.cluster >= m
     assert plan.resident == (rows * ROW_BYTES <= BISECT_SMEM_BYTES)
     if plan.resident:
-        assert rows * 512 + 8192 <= 232448
+        assert 2 * (rows * 512 + 4096 + 1024) <= 228 * 1024
 
 
 def test_bisect_plan_refuses_an_empty_table_and_a_grid_past_its_limit():
@@ -269,17 +288,48 @@ def test_bisect_plan_refuses_an_empty_table_and_a_grid_past_its_limit():
             bisect_plan(bsz, m)
 
 
-@pytest.mark.parametrize("k,tile,stop,rows", [
-    (4096, 256, 301, 0),      # eval, stop_after 300: at most 556 keeps
-    (512, 256, 301, 0),
-    (4096, 256, 4097, 4096),  # stop_after 0: every candidate may be kept
-    (1024, 256, 1025, 0),     # 1024 keeps fit in shared memory
-    (16448, 256, 301, 0),
-    (16448, 128, 16449, 16448),
-    (4096, 256, 1000, 4096),  # 999 + 256 keeps
+def _greedy_work(boxes, valid, thr, tile, stop):
+    """Sequential greedy NMS with the early exit, one candidate at a time:
+    (keep (B, K) bool, exit per image, IoU pairs tested)."""
+    bsz, k, _ = boxes.shape
+    iou = box_iou_matrix(boxes, boxes) > torch.tensor(thr, dtype=torch.float32)
+    keep = valid.clone()
+    exits, pairs = [], 0
+    for b in range(bsz):
+        kept = []
+        exit_at = k
+        for i in range(k):
+            if i and i % tile == 0 and stop > 0 and len(kept) >= stop:
+                exit_at = i
+                break
+            if valid[b, i]:
+                pairs += len(kept)
+                keep[b, i] = not any(iou[b, i, j] for j in kept)
+                if keep[b, i]:
+                    kept.append(i)
+        exits.append(exit_at)
+    return keep, exits, pairs
+
+
+@pytest.mark.parametrize("k,tile,stop", [
+    (96, 16, 5), (96, 16, 12), (100, 32, 20), (100, 64, 1), (96, 16, 0),
 ])
-def test_nms_scratch_rows(k, tile, stop, rows):
-    assert nms_scratch_rows(k, tile, stop) == rows
+def test_chip_smoke_nms_work_counts_what_greedy_nms_needs(k, tile, stop):
+    """The smoke's nms_mask bound counts the IoU pairs and box bytes that
+    greedy NMS reads up to the early exit, checked by a sequential walk
+    (the exits fall in the first, a middle and no tile)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", PKG.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rng = np.random.default_rng(tile + stop)
+    cxy = rng.uniform(0, 100, (3, k, 2))
+    wh = rng.uniform(20, 60, (3, k, 2))  # crowded: many suppressions, later exits
+    boxes = torch.from_numpy(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(3, k)) < 0.8)
+    keep, exits, pairs = _greedy_work(boxes, valid, 0.3, tile, stop)
+    ref = nms_mask_reference(boxes, valid, 0.3, tile, stop)
+    assert torch.equal(ref, keep)
+    assert smoke.nms_work(ref, valid, tile, stop) == (16 * sum(exits) + 2 * 3 * k, pairs)
 
 
 @pytest.mark.cuda

@@ -16,10 +16,12 @@
 //     once (16-byte cp.async; whole rows keep the copies aligned), and
 //     every pass and the tier counts read them from there.  The eval table
 //     (2565 x 128 x 4 B = 1.3 MB an image) is read from device memory once,
-//     in slices of 82-164 KB a block.
-//   * streaming mode, for a slice larger than shared memory (a 12,500-row
-//     table at pre_nms_topk = 20000 is 6.4 MB an image): the same passes
-//     read the slice from device memory (L2) each time.
+//     in slices of 82 KB a block.
+//   * streaming mode, for a slice larger than half an SM's shared memory
+//     (a 12,500-row table at pre_nms_topk = 20000 is 6.4 MB an image): the
+//     same passes read the slice from device memory (L2) each time.  Half,
+//     so that two blocks share an SM and a 16-block cluster needs 8 SMs of
+//     a GPC, not 16.
 // Each pass builds the block's 256-bin histogram in its own shared memory;
 // after cluster.sync() every block sums the C histograms through
 // distributed shared memory (cluster.map_shared_rank) and picks the digit
@@ -268,30 +270,32 @@ int launch(const int* bits, int B, int m, int k, int thr, int* t, int* cnt_gt, i
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   const int rows_per = (m + cluster - 1) / cluster;
-  const size_t dyn = kResident ? (size_t)rows_per * kRowBytes : 0;
-  // once per device: allow the 16-block cluster and the shared memory left
-  // beside the kernel's static part
-  static int limit[64] = {};  // 1 + the dynamic shared-memory limit set, per device
+  const long long dyn = kResident ? (long long)rows_per * kRowBytes : 0;
+  if (dyn > INT_MAX) return (int)cudaErrorInvalidValue;
+  // per device: allow the 16-block cluster once, and raise the dynamic
+  // shared-memory limit to what a launch asks for; the runtime refuses a
+  // slice that does not fit beside the kernel's static part (the plan,
+  // bisect_plan, keeps a block to half an SM)
+  static long long limit[64] = {};  // 1 + the dynamic shared-memory limit set, per device
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (limit[dev] == 0) {
-    int optin = 0;
-    cudaFuncAttributes fattr;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fattr, kernel);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    const int left = kResident ? optin - (int)fattr.sharedSizeBytes : 0;
-    if (err == cudaSuccess && kResident)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, left);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
-    limit[dev] = 1 + left;
+    limit[dev] = 1;
   }
-  if (dyn + 1 > (size_t)limit[dev]) return (int)cudaErrorInvalidValue;
+  if (dyn + 1 > limit[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // refused here: leave no error for the next launch to report
+      return (int)err;
+    }
+    limit[dev] = 1 + dyn;
+  }
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, B, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = dyn;
+  cfg.dynamicSmemBytes = (size_t)dyn;
   cfg.stream = stream;
   cudaLaunchAttribute cluster_dim[1];
   cluster_dim[0].id = cudaLaunchAttributeClusterDimension;
@@ -301,8 +305,8 @@ int launch(const int* bits, int B, int m, int k, int thr, int* t, int* cnt_gt, i
   cfg.attrs = cluster_dim;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, bits, m, rows_per, k, thr, t, cnt_gt, cnt_eq);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) cudaGetLastError();  // reported here, not by the next launch
+  return (int)err;
 }
 
 }  // namespace

@@ -8,12 +8,11 @@
 //
 //   1. suppression by earlier tiles: four threads take each candidate of
 //      the tile, each testing it against every fourth box kept so far, and
-//      OR their verdicts into a bit set by ballots.  The kept list sits
-//      in shared memory (kKeptSmem boxes: 300 at stop_after = 300 take
-//      4.8 KB); beyond that it lives in a (B, K, 4) f32 scratch that the
-//      wrapper allocates only when the list can outgrow shared memory
-//      (stop_after = 0 or a large one), and is read back in pages of kPage
-//      boxes through shared memory.  K has no cap.
+//      OR their verdicts into a bit set by ballots.  The kept list lives
+//      in a (B, yt_nms_scratch_rows, 4) f32 scratch that the wrapper
+//      allocates (at most stop_after - 1 + tile boxes an image, K with
+//      stop_after = 0) and is read back in pages of kPage boxes through
+//      shared memory: one page at stop_after = 300.  K has no cap.
 //   2. the tile's own relation: the strict upper-triangular iou > thr bit
 //      matrix of the tile (256 x 256 bits, 8 KB of shared memory), one warp
 //      per row and one ballot per 32 columns, only for the rows that step 1
@@ -38,7 +37,8 @@
 // valid row against all later candidates (K^2/2 x valid, 2 MB of mask an
 // image) and walked one candidate per L2 round trip; this one computes
 // about visited x kept + visited x kTile / 2 IoUs and reads nothing but
-// the boxes from device memory.  Steps 1 and 2 are bound by IoU
+// the boxes and its own kept list (L2) from device memory.  Steps 1 and 2
+// are bound by IoU
 // instruction throughput (the correctly rounded division stays: a fast
 // __fdividef with an exact fallback near thr measured slower, PERF.md).
 //
@@ -60,8 +60,7 @@ constexpr int kSplit = 4;           // threads that test one candidate in step 1
 constexpr int kThreads = kTile * kSplit;
 constexpr int kWarps = kThreads / 32;
 constexpr int kWords = kTile / 32;  // 32-bit words of a tile's bit set
-constexpr int kKeptSmem = 1024;     // kept boxes held in shared memory
-constexpr int kPage = 512;          // kept boxes read back from the scratch at a time
+constexpr int kPage = 1024;         // kept boxes read back from the scratch at a time
 
 __device__ __forceinline__ float box_area(float4 b) {
   return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.f), fmaxf(__fsub_rn(b.w, b.y), 0.f));
@@ -87,13 +86,11 @@ __device__ __forceinline__ bool suppressed(const float4* list, const float* list
 
 __global__ void __launch_bounds__(kThreads)
     nms_mask_kernel(const float4* __restrict__ boxes, const uint8_t* __restrict__ valid,
-                    uint8_t* __restrict__ keep, float4* __restrict__ scratch, int K,
-                    float thr, int tile, int stop) {
+                    uint8_t* __restrict__ keep, float4* __restrict__ scratch, int rows,
+                    int K, float thr, int tile, int stop) {
   __shared__ float4 s_box[kTile];
   __shared__ float s_area[kTile];
   __shared__ uint32_t s_rel[kTile * kWords];  // row r: bits j > r with iou(r, j) > thr
-  __shared__ float4 s_kept[kKeptSmem];
-  __shared__ float s_kept_area[kKeptSmem];
   __shared__ float4 s_page[kPage];
   __shared__ float s_page_area[kPage];
   __shared__ uint32_t s_valid[kWords], s_supp[kWords], s_keep[kWords];
@@ -106,7 +103,7 @@ __global__ void __launch_bounds__(kThreads)
   const float4* bx = boxes + (size_t)b * K;
   const uint8_t* vb = valid + (size_t)b * K;
   uint8_t* kb = keep + (size_t)b * K;
-  float4* pages = scratch == nullptr ? nullptr : scratch + (size_t)b * K;
+  float4* kept_list = scratch + (size_t)b * rows;
 
   if (tid == 0) {
     s_kept_n = 0;
@@ -132,18 +129,16 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
 
-    // 1. suppression by the boxes kept in earlier tiles, kSplit threads a candidate
+    // 1. suppression by the boxes kept in earlier tiles, kSplit threads a
+    // candidate; the previous tiles' appends are visible after __syncthreads
     const float4 box = s_box[j];
     const float area = s_area[j];
     bool supp = false;
-    if ((s_valid[j >> 5] >> (j & 31)) & 1u) {
-      supp = suppressed(s_kept, s_kept_area, part, min(kept, kKeptSmem), box, area, thr);
-    }
-    for (int p0 = kKeptSmem; p0 < kept; p0 += kPage) {
+    for (int p0 = 0; p0 < kept; p0 += kPage) {
       const int n = min(kPage, kept - p0);
-      __syncthreads();  // every thread is done with the previous page
+      if (p0 > 0) __syncthreads();  // every thread is done with the previous page
       for (int e = tid; e < n; e += kThreads) {
-        const float4 kbox = pages[p0 + e];
+        const float4 kbox = kept_list[p0 + e];
         s_page[e] = kbox;
         s_page_area[e] = box_area(kbox);
       }
@@ -251,12 +246,7 @@ __global__ void __launch_bounds__(kThreads)
       if (k_i) {
         int slot = kept + __popc(s_keep[warp] & ((1u << lane) - 1u));
         for (int w = 0; w < warp; ++w) slot += __popc(s_keep[w]);
-        if (slot < kKeptSmem) {
-          s_kept[slot] = box;
-          s_kept_area[slot] = area;
-        } else {
-          pages[slot] = box;
-        }
+        kept_list[slot] = box;
       }
       if (in && i < s_exit) kb[i] = k_i;
     }
@@ -267,16 +257,22 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// scratch: (B, K, 4) f32, or null when no image can keep more than
-// kKeptSmem boxes (at most min(K, stop - 1 + tile)); stop > K never exits.
+// Rows per image of the kept-box scratch: the exit is checked at multiples
+// of `tile` once `stop` keeps are final, so an image keeps at most
+// min(K, stop - 1 + tile) boxes; stop > K never exits.
+extern "C" int yt_nms_scratch_rows(int K, int tile, int stop) {
+  const long long most = stop - 1LL + tile;
+  return most < K ? static_cast<int>(most) : K;
+}
+
+// scratch: (B, yt_nms_scratch_rows(K, tile, stop), 4) f32.
 extern "C" int yt_nms_mask(const void* boxes, const void* valid, void* keep, void* scratch,
                            int B, int K, float iou_thresh, int tile, int stop, void* stream) {
   if (B <= 0 || K <= 0) return 0;
-  if (tile <= 0 || stop <= 0) return (int)cudaErrorInvalidValue;
-  const long long most = stop - 1LL + tile < K ? stop - 1LL + tile : K;
-  if (scratch == nullptr && most > kKeptSmem) return (int)cudaErrorInvalidValue;
+  if (tile <= 0 || stop <= 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;
   nms_mask_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes), static_cast<const uint8_t*>(valid),
-      static_cast<uint8_t*>(keep), static_cast<float4*>(scratch), K, iou_thresh, tile, stop);
+      static_cast<uint8_t*>(keep), static_cast<float4*>(scratch),
+      yt_nms_scratch_rows(K, tile, stop), K, iou_thresh, tile, stop);
   return (int)cudaGetLastError();
 }

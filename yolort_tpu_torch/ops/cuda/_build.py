@@ -39,6 +39,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "yt_nms_mask": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
+    "yt_nms_scratch_rows": (_I, _I, _I),
     "yt_bisect_count": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P),
     "yt_row_fetch_p": (_P, _P, _P, *(_I,) * 6, _P),
     "yt_qconv1x1": (_P, _P, _P, _P, _F, _P, *(_I,) * 10, _P),

@@ -52,8 +52,13 @@ def bisect_count_reference(table: torch.Tensor, k: int, thr_bits: int):
 
 
 # bisect_count's launch plan: a cluster of blocks per image, each block on
-# a contiguous run of whole rows, held in its shared memory when that pays
-BISECT_SMEM_BYTES = 232448 - 8192  # a block's shared memory less the kernel's static part
+# a contiguous run of whole rows, held in its shared memory when that pays.
+# A resident block takes at most 100 KB of rows: with the kernel's static
+# part (~3 KB) and the 1 KB the runtime keeps per block, two blocks share
+# an H100 SM's 228 KB, so a 16-block cluster needs 8 SMs of a GPC, not 16.
+# This is the one budget: the C side sets a launch's shared memory to what
+# the launch asks for and the runtime refuses what does not fit.
+BISECT_SMEM_BYTES = 100 * 1024
 ROW_BYTES = CHUNK * 4
 
 
@@ -69,7 +74,8 @@ def bisect_plan(bsz: int, m: int) -> BisectPlan:
     and more blocks only pay where the rows are many; never more blocks
     than rows, never fewer than 2.  Resident (each block's rows read from
     device memory once, into shared memory) when a block's rows fit in
-    ``BISECT_SMEM_BYTES``, else streamed on each pass."""
+    ``BISECT_SMEM_BYTES``, half an SM, else streamed on each pass: from
+    3,201 rows at 16 blocks."""
     if not 1 <= bsz <= 65535 or m < 1:
         raise ValueError(f"bisect_plan needs 1-65535 images and a row, got ({bsz}, {m})")
     cluster = max(2, min(8 if m <= 8 * 64 else 16, m))

@@ -4,8 +4,9 @@ PyTorch version.
 Replaces ``yolort_tpu/ops/pallas/nms_kernel.py`` (``_nms_kernel`` /
 ``pallas_nms_mask``).  The kernel is one launch, one block per image: it
 walks the candidates a tile of 256 at a time, tests each against the boxes
-kept so far, builds the tile's own IoU relation in shared memory and walks
-it from keep to keep; the source note says what bounds it on the H100.
+kept so far (a list in a scratch buffer, read back through shared memory),
+builds the tile's own IoU relation in shared memory and walks it from keep
+to keep; the source note says what bounds it on the H100.
 Both versions compute what ``yolort_tpu.ops.nms.greedy_nms_mask`` computes,
 for the whole mask and any K: exact sequential greedy NMS through the tile
 at which ``stop_after`` keeps are final, validity passed through after it.
@@ -64,18 +65,6 @@ def nms_mask_reference(
     return alive[:, :k]
 
 
-NMS_KEPT_IN_SHARED = 1024  # kept boxes the kernel holds in shared memory (kKeptSmem)
-
-
-def nms_scratch_rows(k: int, tile: int, stop: int) -> int:
-    """Rows per image of the kernel's (B, rows, 4) f32 kept-box scratch:
-    ``k`` when an image can keep more boxes than shared memory holds, else
-    0 (no scratch).  The exit is checked at multiples of ``tile`` once
-    ``stop`` keeps are final, so an image keeps at most
-    min(k, stop - 1 + tile); ``stop`` > k never exits."""
-    return k if min(k, stop - 1 + tile) > NMS_KEPT_IN_SHARED else 0
-
-
 def nms_mask(
     boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     tile_size: int = 256, stop_after: int = 0,
@@ -105,14 +94,14 @@ def nms_mask(
     tile = min(tile_size, k)
     stop = min(stop_after, k + 1) if stop_after > 0 else k + 1  # k + 1: no early exit
     keep = torch.empty_like(valid)
-    rows = nms_scratch_rows(k, tile, stop)
-    scratch = torch.empty(bsz, rows, 4, dtype=torch.float32, device=boxes.device) if rows else None
     lib = _build.library()
+    # the kept-box list: as many rows an image as the kernel says it can keep
+    rows = lib.yt_nms_scratch_rows(k, tile, stop)
+    scratch = torch.empty(bsz, rows, 4, dtype=torch.float32, device=boxes.device)
     with torch.cuda.device(boxes.device):
         rc = lib.yt_nms_mask(
-            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), bsz, k, float(iou_thresh), tile, stop,
-            _build.stream_of(boxes),
+            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), scratch.data_ptr(), bsz, k,
+            float(iou_thresh), tile, stop, _build.stream_of(boxes),
         )
     _build.check(rc, "nms_mask")
     nms_mask.launches += 1
