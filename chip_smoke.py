@@ -19,9 +19,12 @@ Phases, each fatal on failure:
      on the two main-path tables (the variant 'full' also
      against lookup_fetch); row_fetch_p at every swept geometry against
      its plain version at both sweep shapes (experiments/
-     fetch_block_sweep.py), batch 8; results must be bit-identical (NaN
-     positions compared as NaN); compact_select must equal
-     select_topk_threshold on the same scores;
+     fetch_block_sweep.py), batch 8; fused_cells_stage1 (its tile plan
+     printed) at 8x640 with and without special logits, at 4x480x640 and
+     at batch 32, in both dtypes, timed at batch 8 and 32 beside its
+     bound, its plain version and torch.cat alone; results must be
+     bit-identical (NaN positions compared as NaN); compact_select must
+     equal select_topk_threshold on the same scores;
   4. slice: yolov5s at full width, seeded random weights with the head
      biases shifted to a realistic candidate load, serves uint8 frames of
      three sizes in float32 and bfloat16 under the eval (0.005 / 4096) and
@@ -422,14 +425,18 @@ def phase_sweep_kernels(device, card: str) -> dict:
                                 f"{sweep.LABELS['stage2']}")}
 
 
-def logit_levels(seed: int, bsz: int, device, dtype, special: bool = False):
-    """Head logits of the three yolov5s levels @640, (B, H, W, 255) NHWC;
-    ``special`` puts NaN, +-inf and logits below -1e4 in the last level."""
+S640 = ((80, 80), (40, 40), (20, 20))  # yolov5s head levels @640
+S480 = ((60, 80), (30, 40), (15, 20))  # @480x640: a 300-row level
+
+
+def logit_levels(seed: int, bsz: int, device, dtype, special: bool = False, sizes=S640):
+    """Head logits of the three yolov5s levels, (B, H, W, 255) NHWC, at
+    ``sizes`` (@640 by default); ``special`` puts NaN, +-inf and logits
+    below -1e4 in the last level (B >= 2, last level 6x6 or larger)."""
     import torch
 
     rng = np.random.default_rng(seed)
-    levels = [rng.standard_normal((bsz, h, w, 255), dtype=np.float32) * 3.0
-              for h, w in ((80, 80), (40, 40), (20, 20))]
+    levels = [rng.standard_normal((bsz, h, w, 255), dtype=np.float32) * 3.0 for h, w in sizes]
     if special:
         x = levels[2]
         x[0, 0, 0, 4] = np.nan       # obj of anchor 0
@@ -454,46 +461,65 @@ def phase_postprocess_kernels(device, card: str) -> dict:
     )
     from yolort_tpu_torch.experiments import lookup_kernel_variants
     from yolort_tpu_torch.ops.cuda.lookup_kernel import VARIANTS
+    from yolort_tpu_torch.ops.cuda.stage1_kernel import stage1_plan
     from yolort_tpu_torch.ops.select import compact_select, select_topk_threshold
 
     res = {}
     # --- fused_cells_stage1 ----------------------------------------------
+    # bit for bit at 8x640 (special logits and plain), at 4x480x640 (a
+    # 300-row level: bfloat16 tiles off 16-byte alignment) and at batch
+    # 32; timed at batch 8 and 32 in both dtypes
     err = 0.0
+    s1 = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for special in (True, False):  # time on the plain logits, left last
-            levels = logit_levels(30 + special, B, device, dtype, special)
+        plan = stage1_plan(255, dtype)
+        print(f"[kernels] fused_cells_stage1 {dtype} plan: {plan.rows} rows a tile, {plan.stages} "
+              f"stages of {plan.stage_bytes} B, {plan.smem} B of shared memory a block, "
+              f"{plan.grid} blocks", flush=True)
+        for bsz, sizes, special in ((B, S640, True), (4, S480, True), (B, S640, False),
+                                    (32, S640, False)):
+            levels = logit_levels(30 + special + bsz, bsz, device, dtype, special, sizes)
+            geometry = "+".join(f"{h}x{w}" for h, w in sizes)
             got = fused_cells_stage1(levels, 3, 85)
             ref = fused_cells_stage1_reference(levels, 3, 85)
             torch.cuda.synchronize()
             for a, b, what in zip(got, ref, ("cells", "obj_max", "cls_max")):
                 if not same_bits(a, b):
-                    raise AssertionError(f"fused_cells_stage1 {dtype} special={special}: {what} differs")
+                    raise AssertionError(f"fused_cells_stage1 {dtype} B={bsz} {geometry} "
+                                         f"special={special}: {what} differs")
                 err = max(err, abs_err(a, b))
             iv = torch.int32 if dtype == torch.float32 else torch.int16
             nan_bits = all(torch.equal(a.view(iv), b.view(iv)) for a, b in zip(got, ref))
-            print(f"[kernels] fused_cells_stage1 {dtype} B={B} 80x80+40x40+20x20 C=255"
+            print(f"[kernels] fused_cells_stage1 {dtype} B={bsz} {geometry} C=255"
                   f"{' with NaN/inf/below-floor logits' if special else ''}: equal "
                   f"(NaN bits too: {nan_bits}), NaNs in maxima "
                   f"{int(torch.isnan(got[1]).sum() + torch.isnan(got[2]).sum())}", flush=True)
-        run = lambda lv=levels: fused_cells_stage1(lv, 3, 85)  # noqa: E731
-        plain = lambda lv=levels: fused_cells_stage1_reference(lv, 3, 85)  # noqa: E731
-        flat = [lv.reshape(B, -1, 255) for lv in levels]
-        ms, pms = median_ms(run), median_ms(plain)
-        dev, pdev = device_profile(run)[0], device_profile(plain)[0]
-        partial = median_ms(lambda: torch.cat(flat, dim=1))
-        n_cells = sum(lv.shape[1] * lv.shape[2] for lv in levels)
-        esize = levels[0].element_size()
-        bms, bby = bound(2 * B * n_cells * 255 * esize + 2 * B * n_cells * 3 * esize)
-        print(f"[times] fused_cells_stage1 B={B} {dtype}: kernel {ms:.4f} ms (device {fmt_ms(dev)}), "
-              f"plain {pms:.4f} ms (device {fmt_ms(pdev)}), torch.cat alone {partial:.4f} ms, "
-              f"bound {bms:.4f} ms ({bby}) | {card}", flush=True)
-        if dtype == torch.float32:
-            res["fused_cells_stage1"] = dict(
+            if special or sizes != S640:
+                continue
+            del got, ref
+            run = lambda lv=levels: fused_cells_stage1(lv, 3, 85)  # noqa: E731
+            plain = lambda lv=levels: fused_cells_stage1_reference(lv, 3, 85)  # noqa: E731
+            flat = [lv.reshape(bsz, -1, 255) for lv in levels]
+            cat = lambda flat=flat: torch.cat(flat, dim=1)  # noqa: E731
+            ms, pms, cms = median_ms(run), median_ms(plain), median_ms(cat)
+            dev, pdev, cdev = device_profile(run)[0], device_profile(plain)[0], device_profile(cat)[0]
+            n_cells = sum(h * w for h, w in sizes)
+            esize = levels[0].element_size()
+            bms, bby = bound(2 * bsz * n_cells * 255 * esize + 2 * bsz * n_cells * 3 * esize)
+            share = f"{100 * bms / dev:.1f}%" if dev else "not measured"
+            print(f"[times] fused_cells_stage1 B={bsz} {dtype}: kernel {ms:.4f} ms (device "
+                  f"{fmt_ms(dev)}, {share} of bound), plain {pms:.4f} ms (device {fmt_ms(pdev)}), "
+                  f"torch.cat alone {cms:.4f} ms (device {fmt_ms(cdev)}), bound {bms:.4f} ms "
+                  f"({bby}) | {card}", flush=True)
+            s1[(bsz, dtype)] = dict(
                 ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, bound_ms=bms, bound_by=bby,
-                library_ms=None, library_call=None,
-                nearest_partial="torch.cat of the levels (no maxima)", nearest_partial_ms=partial,
-                at=f"B={B}, 80x80+40x40+20x20, C=255, float32")
-    res["fused_cells_stage1"]["max_abs_err"] = err
+                nearest_partial_ms=cms, nearest_partial_device_ms=cdev,
+                at=f"B={bsz}, 80x80+40x40+20x20, C=255, {str(dtype).split('.')[-1]}")
+            del levels, flat
+    res["fused_cells_stage1"] = dict(
+        **s1[(B, torch.float32)], library_ms=None, library_call=None,
+        nearest_partial="torch.cat of the levels (no maxima)", max_abs_err=err,
+        others=[s1[key] for key in ((B, torch.bfloat16), (32, torch.float32), (32, torch.bfloat16))])
 
     # --- lookup_fetch, select_extract, compact_place ------------------------
     cases = []

@@ -29,6 +29,7 @@ from yolort_tpu_torch.ops.cuda.lookup_kernel import (
     BISECT_SMEM_BYTES, ROW_BYTES, VARIANTS, BisectPlan, _launch_bisect, bisect_plan,
 )
 from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, padded_depth, qconv_plan
+from yolort_tpu_torch.ops.cuda.stage1_kernel import stage1_plan
 from yolort_tpu_torch.ops.boxes import box_iou_matrix
 from yolort_tpu_torch.ops.nms import NMSConfig, batched_postprocess_from_heads
 
@@ -614,22 +615,105 @@ def test_unknown_postprocess_routes_raise(field, value):
 
 
 @pytest.mark.cuda
-def test_postprocess_kernels_match_plain(cuda_device):
-    for run, plain in _postprocess_calls(cuda_device):
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            assert _same_bits(a, b)
+@pytest.mark.parametrize("kernel", range(4), ids=["fused_cells_stage1", "lookup_fetch",
+                                                  "select_extract", "compact_place"])
+def test_postprocess_kernels_match_plain(cuda_device, kernel):
+    run, plain = _postprocess_calls(cuda_device)[kernel]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+
+
+P5_640 = ((80, 80), (40, 40), (20, 20))
+# name: (batch, level sizes (H, W), kw); C = 3 * kw
+STAGE1_CASES = {
+    "8x640 special": (8, P5_640, 85),  # chip_smoke.logit_levels' NaN / inf / sub-floor logits
+    "4x480x640": (4, ((60, 80), (30, 40), (15, 20)), 85),  # bf16: tiles start 8 bytes off
+    "one level 5x7 kw 9": (3, ((5, 7),), 9),
+    "P6 at 640": (2, (*P5_640, (10, 10)), 85),
+    "offset views": (3, ((20, 20), (10, 10), (5, 5)), 85),  # bases 1 and 3 elements into a buffer
+    "B=1": (1, P5_640, 85),
+    "B=32": (32, P5_640, 85),
+}
+
+
+def _stage1_levels(name, device, dtype):
+    """Head levels (B, H, W, 3 * kw) of a STAGE1_CASES case, with NaN, +-inf,
+    logits below -1e4 and one anchor's classes all -inf in every level."""
+    bsz, sizes, kw = STAGE1_CASES[name]
+    if name == "8x640 special":
+        spec = importlib.util.spec_from_file_location("chip_smoke", PKG.parent / "chip_smoke.py")
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        return smoke.logit_levels(30, bsz, device, dtype, special=True)
+    rng = np.random.default_rng(len(name) + bsz)
+    levels = []
+    for i, (h, w) in enumerate(sizes):
+        x = (rng.standard_normal((bsz, h, w, 3 * kw)) * 3).astype(np.float32)
+        flat = x.reshape(-1)
+        flat[rng.choice(flat.size, 6, replace=False)] = [np.nan, np.inf, -np.inf, -3e4, np.nan, -2e4]
+        x[0, 0, 0, 4] = x[0, 0, 0, kw + 5] = np.nan  # obj of anchor 0, a class of anchor 1
+        x[-1, h - 1, w - 1, 5:kw] = -np.inf  # every class of anchor 0: the floor
+        t = torch.from_numpy(x).to(device=device, dtype=dtype)
+        if name == "offset views" and i < 2:  # a contiguous view 2i + 1 elements into a buffer
+            buf = torch.zeros(t.numel() + 2 * i + 5, dtype=dtype, device=device)
+            t = buf[2 * i + 1: 2 * i + 1 + t.numel()].view(t.shape).copy_(t)
+        levels.append(t)
+    return levels
 
 
 @pytest.mark.cuda
-def test_fused_cells_stage1_kernel_bf16_and_strided_levels(cuda_device):
-    heads, *_ = _postprocess_inputs(cuda_device, torch.bfloat16)
-    for a, b in zip(fused_cells_stage1(heads, 3, 85), fused_cells_stage1_reference(heads, 3, 85)):
-        assert a.dtype == torch.bfloat16 and _same_bits(a, b)
-    strided = heads[0].permute(0, 2, 1, 3)  # (B, W, H, C): not contiguous
-    with pytest.raises(ValueError, match="contiguous"):
-        fused_cells_stage1([strided], 3, 85)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [*STAGE1_CASES, "strided"])
+def test_fused_cells_stage1_kernel_bf16_and_strided_levels(cuda_device, case, dtype):
+    """The kernel against the plain version, bit for bit (NaN positions
+    compared as NaN), at every level geometry and base alignment; a
+    strided level raises."""
+    if case == "strided":
+        heads, *_ = _postprocess_inputs(cuda_device, dtype)
+        strided = heads[0].permute(0, 2, 1, 3)  # (B, W, H, C): not contiguous
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_cells_stage1([strided], 3, 85)
+        return
+    levels = _stage1_levels(case, cuda_device, dtype)
+    kw = STAGE1_CASES[case][2]
+    got = fused_cells_stage1(levels, 3, kw)
+    want = fused_cells_stage1_reference(levels, 3, kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and _same_bits(a, b)
+    floor = float(torch.tensor(-1e4, dtype=dtype))  # -9984 in bfloat16
+    assert torch.isnan(got[1]).any() and torch.isnan(got[2]).any() and (got[2] == floor).any()
+
+
+@pytest.mark.cuda
+def test_stage1_plan_fits_the_card(cuda_device):
+    """The C side's tile plan: 16 KB tiles of a multiple of 8 rows at C =
+    255, 4 stages within a block's shared memory, several blocks an SM."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for dtype, rows in ((torch.float32, 16), (torch.bfloat16, 32)):
+        plan = stage1_plan(255, dtype)
+        assert plan.rows == rows and plan.stage_bytes == 16320 + 16
+        assert plan.stages == 4 and plan.smem <= 232448 and plan.grid >= 2 * sms
+
+
+def test_stage1_variants_apply_to_the_kernel_source():
+    """Each variant of experiments/stage1_variants.py is made by edits that
+    still match csrc/cells_stage1.cu exactly once."""
+    from yolort_tpu_torch.experiments.stage1_variants import VARIANTS, variant_sources
+
+    source = (PKG / "csrc" / "cells_stage1.cu").read_text()
+    sources = variant_sources(source)
+    assert list(sources) == list(VARIANTS) and sources["full"] == source
+    assert len(set(sources.values())) == len(VARIANTS)
+    with pytest.raises(ValueError, match="once"):
+        variant_sources(source.replace("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 5;"))
+
+
+def test_stage1_plan_refuses_other_dtypes_without_building():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        stage1_plan(255, torch.float16)
 
 
 @pytest.mark.cuda

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "yt_qconv1x1": (_P, _P, _P, _P, _F, _P, *(_I,) * 10, _P),
     "yt_qconv_kxk": (_P, _P, _P, _P, _F, _P, *(_I,) * 15, _P),
     "yt_cells_stage1": (_P, _P, _P, _P, *(_I,) * 9, _F, _I, _P, _P, _P, _P),
+    "yt_cells_stage1_plan": (_I, _I, _P),
     "yt_lookup_fetch_variant": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P),
     "yt_select_extract": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "yt_compact_place": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),

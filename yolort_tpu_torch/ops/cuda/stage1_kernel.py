@@ -10,8 +10,9 @@ class logit on the way.  The sigmoid product stays with the caller
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -19,6 +20,32 @@ from yolort_tpu_torch.ops.cuda import _build
 
 NEG_LOGIT = -1.0e4  # floor of the masked maxima, as the JAX reductions fill
 MAX_LEVELS = 4
+
+
+class Stage1Plan(NamedTuple):
+    """The kernel's tiling on a card, as ``csrc/cells_stage1.cu``
+    (``make_plan``) chooses it: rows of one level a tile, stages of the
+    shared-memory ring, bytes of a stage, dynamic shared memory of a block,
+    and the persistent grid's size (blocks an SM x SMs)."""
+
+    rows: int
+    stages: int
+    stage_bytes: int
+    smem: int
+    grid: int
+
+
+def stage1_plan(row_len: int, dtype: torch.dtype) -> Stage1Plan:
+    """The plan ``fused_cells_stage1`` launches with on the current CUDA
+    device for rows of ``row_len`` = A*kw values of ``dtype``.  Builds the
+    kernels on first use."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+    out = (ctypes.c_int * 5)()
+    rc = _build.library().yt_cells_stage1_plan(row_len, torch.finfo(dtype).bits // 8,
+                                               ctypes.addressof(out))
+    _build.check(rc, "fused_cells_stage1 plan")
+    return Stage1Plan(*out)
 
 
 def _rows(level: torch.Tensor) -> int:
@@ -44,7 +71,8 @@ def fused_cells_stage1(levels: Sequence[torch.Tensor], num_anchors: int, kw: int
     A), cls (B, sum R_l, A)) in that dtype, equal to
     ``fused_cells_stage1_reference``.  CUDA tensors launch the kernel on
     the current stream and must be contiguous (a strided level raises
-    rather than being copied); CPU tensors take the plain version."""
+    rather than being copied); any base address and row count is taken.
+    CPU tensors take the plain version."""
     levels = list(levels)
     if not 1 <= len(levels) <= MAX_LEVELS:
         raise ValueError(f"fused_cells_stage1 takes 1-{MAX_LEVELS} levels, got {len(levels)}")
