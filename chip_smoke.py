@@ -16,8 +16,12 @@ Phases, each fatal on failure:
      (2565,128) tables, streamed (5000,128) and (12500,128) ones and the
      tie, few and empty cases, each timed shape beside torch.topk, and at
      every cluster size and mode within bisect_plan's shared-memory budget
-     on the two main-path tables (the variant 'full' also
-     against lookup_fetch); row_fetch_p at every swept geometry against
+     on the two main-path tables; lookup_fetch, select_extract (on the
+     lookup's metadata and on out-of-range metadata), compact_place and
+     the variants at the (325,128) k = 512 and (2565,128) k = 4096 tables,
+     random, tied, few, none-valid and dense at batch 8 and random at
+     batch 1 and 32 (the variant 'full' also against lookup_fetch), the
+     first three timed at both tables; row_fetch_p at every swept geometry against
      its plain version at both sweep shapes (experiments/
      fetch_block_sweep.py), batch 8; fused_cells_stage1 (its tile plan
      printed) at 8x640 with and without special logits, at 4x480x640 and
@@ -50,7 +54,9 @@ Phases, each fatal on failure:
      on one 480x640 frame within the bound printed there;
   6. times: each kernel's time beside its plain version's, its bound and
      the time of a PyTorch call that computes the same function where
-     there is one; images/s of the float and int8 slices at batch 32; the
+     there is one (the stage-2 row kernels, whose table and stores fit in
+     L2, also cold, with the L2 flushed before each launch, and their
+     share of the bound taken of that time); images/s of the float and int8 slices at batch 32; the
      postprocess's time per route at batch 32 in both configs and dtypes;
      then the two timing entry points at batch 128 (python -m
      yolort_tpu_torch.experiments.lookup_kernel_variants and
@@ -69,8 +75,8 @@ import time
 import numpy as np
 
 from yolort_tpu_torch.experiments.timing import (
-    PEAK_OPS_PER_S, abs_err, bound, card_line, device_profile, distinct_rows, fmt_ms, graph_ms,
-    median_ms, same_bits,
+    PEAK_OPS_PER_S, abs_err, bound, card_line, cold_ms, device_profile, distinct_rows, fmt_ms,
+    fmt_share, graph_ms, median_ms, same_bits,
 )
 
 B = 8  # images per kernel check
@@ -164,9 +170,11 @@ def nms_work(keep, valid, tile: int, stop: int):
 
 
 def score_table(seed: int, bsz: int, m: int, device, valid_frac: float = 1.0,
-                ties: bool = False):
+                ties: bool = False, dense: bool = False):
     """(B, m, 128) sigmoid-product scores; entries past valid_frac zeroed;
-    ``ties`` rounds them to 40 levels (boundary tie storms)."""
+    ``ties`` rounds them to 40 levels (boundary tie storms); ``dense``
+    sorts each image's scores descending and lifts them into [0.5, 1), so
+    every entry is valid and the top k fill whole chunk rows."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -176,6 +184,8 @@ def score_table(seed: int, bsz: int, m: int, device, valid_frac: float = 1.0,
     if ties:
         s = np.round(s * 40) / 40
     s[:, int(m * 128 * valid_frac):] = 0.0
+    if dense:
+        s = 0.5 + 0.5 * -np.sort(-s, axis=-1)
     return torch.from_numpy(s.astype(np.float32).reshape(bsz, m, 128)).to(device)
 
 
@@ -392,10 +402,14 @@ def phase_kernels(device, card: str) -> dict:
                 gidx = idx.long().clamp(0, m - 1)[..., None].expand(-1, -1, w)
                 lib = median_ms(lambda: torch.gather(tab, 1, gidx))
                 bms, bby = bound(B * k * 4 + distinct_rows(idx, m) * w * 4 + B * k * w * 4)
+                cold = cold_ms(lambda: row_fetch(tab, idx))
+                share = bms / cold if cold else None
+                print(f"[times] row_fetch B={B} ({m},{w}) f32 k={k}: cold L2 {fmt_ms(cold)}, "
+                      f"{fmt_share(share)} of bound {bms:.5f} ms ({bby}) | {card}", flush=True)
                 res["row_fetch"] = dict(
-                    ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, bound_ms=bms,
-                    bound_by=bby, library_ms=lib, library_call="torch.gather (clamped indices)",
-                    at=f"B={B}, (2565,128) f32, k=4096")
+                    ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, cold_ms=cold,
+                    bound_ms=bms, bound_by=bby, device_share_of_bound=share, library_ms=lib,
+                    library_call="torch.gather (clamped indices)", at=f"B={B}, (2565,128) f32, k=4096")
     res["row_fetch"]["max_abs_err"] = err
     return res
 
@@ -415,9 +429,10 @@ def phase_sweep_kernels(device, card: str) -> dict:
               f"bit-identical", flush=True)
         r = sweep.measure(tab, idx, card, geometries=((8, 1),), label=label, tag="[times] row_fetch_p")
         bms, bby = r["bound"]
-        out[name] = dict(ms=r[(8, 1)]["ms"], device_ms=r[(8, 1)]["device_ms"],
-                         cold_ms=r[(8, 1)]["cold_ms"], plain_ms=r["plain"]["ms"],
-                         plain_device_ms=r["plain"]["device_ms"], bound_ms=bms, bound_by=bby,
+        cold = r[(8, 1)]["cold_ms"]
+        out[name] = dict(ms=r[(8, 1)]["ms"], device_ms=r[(8, 1)]["device_ms"], cold_ms=cold,
+                         plain_ms=r["plain"]["ms"], plain_device_ms=r["plain"]["device_ms"],
+                         bound_ms=bms, bound_by=bby, device_share_of_bound=bms / cold if cold else None,
                          library_ms=r["library"]["ms"], library_device_ms=r["library"]["device_ms"])
     return {"row_fetch_p": dict(
         **out["cells"], library_call="torch.gather (clamped indices)", max_abs_err=err,
@@ -529,11 +544,16 @@ def phase_postprocess_kernels(device, card: str) -> dict:
             ("ties", score_table(41 + m, B, m, device, ties=True), m, k, thr),
             ("fewer-than-k", score_table(42 + m, B, m, device, valid_frac=0.002), m, k, thr),
             ("none-valid", score_table(43 + m, B, m, device) * (thr * 0.99), m, k, thr),
+            ("dense", score_table(45 + m, B, m, device, dense=True), m, k, thr),
+            ("random", score_table(46 + m, 1, m, device), m, k, thr),
+            ("random", score_table(47 + m, 32, m, device), m, k, thr),
         ]
     errs = dict(lookup_fetch=0.0, select_extract=0.0, compact_place=0.0, lookup_fetch_variant=0.0)
+    serving = {}  # the timed kernels at the serving table
     rng = np.random.default_rng(44)
     for name, tab, m, k, thr in cases:
         tab = tab.contiguous()
+        bsz = tab.shape[0]
         thr_bits = int(np.float32(thr).view(np.int32))
         t, cg, ce = bisect_count(tab, k, thr_bits)
         cnt = torch.cat([cg, ce], 1).contiguous()
@@ -544,38 +564,42 @@ def phase_postprocess_kernels(device, card: str) -> dict:
         torch.cuda.synchronize()
         for a, b in zip(got, ref):
             if not same_bits(a, b):
-                raise AssertionError(f"lookup_fetch {name} ({m},128) k={k}: differs from the plain version")
+                raise AssertionError(f"lookup_fetch {name} B={bsz} ({m},128) k={k}: differs from the "
+                                     f"plain version")
             errs["lookup_fetch"] = max(errs["lookup_fetch"], abs_err(a, b))
         _, phys, p, is_eq = ref
-        miss = (torch.from_numpy(rng.integers(-2, m + 2, (B, k)).astype(np.int32)).to(device),
-                torch.from_numpy(rng.integers(-2, 130, (B, k)).astype(np.int32)).to(device),
-                torch.from_numpy(rng.integers(0, 2, (B, k)).astype(bool)).to(device))
+        miss = (torch.from_numpy(rng.integers(-2, m + 2, (bsz, k)).astype(np.int32)).to(device),
+                torch.from_numpy(rng.integers(-2, 130, (bsz, k)).astype(np.int32)).to(device),
+                torch.from_numpy(rng.integers(0, 2, (bsz, k)).astype(bool)).to(device))
         for ph, pp, eq in ((phys, p, is_eq), miss):
             got = select_extract(tab, ph, pp, eq, t, thr_bits)
             ref = select_extract_reference(tab, ph, pp, eq, t, thr_bits)
             torch.cuda.synchronize()
             for a, b in zip(got, ref):
                 if not same_bits(a, b):
-                    raise AssertionError(f"select_extract {name} ({m},128) k={k}: differs from the plain version")
+                    raise AssertionError(f"select_extract {name} B={bsz} ({m},128) k={k}: differs from the "
+                                         f"plain version")
                 errs["select_extract"] = max(errs["select_extract"], abs_err(a, b))
         got = compact_place(tab, cnt, off, t, thr_bits, k)
         ref = compact_place_reference(tab, cnt, off, t, thr_bits, k)
         torch.cuda.synchronize()
         for a, b in zip(got, ref):
             if not same_bits(a, b):
-                raise AssertionError(f"compact_place {name} ({m},128) k={k}: differs from the plain version")
+                raise AssertionError(f"compact_place {name} B={bsz} ({m},128) k={k}: differs from the "
+                                     f"plain version")
             errs["compact_place"] = max(errs["compact_place"], abs_err(a, b))
-        flat = tab.reshape(B, -1)
+        flat = tab.reshape(bsz, -1)
         cs, st = compact_select(flat, k, thr), select_topk_threshold(flat, k, thr)
         if not (same_bits(cs[0], st[0]) and torch.equal(cs[1], st[1])):
-            raise AssertionError(f"compact_select {name} ({m},128) k={k}: differs from select_topk_threshold")
+            raise AssertionError(f"compact_select {name} B={bsz} ({m},128) k={k}: differs from "
+                                 f"select_topk_threshold")
         errs["lookup_fetch_variant"] = max(errs["lookup_fetch_variant"], lookup_kernel_variants.check(
-            tab, off, k, f"{name} B={B} ({m},128) k={k}"))
+            tab, off, k, f"{name} B={bsz} ({m},128) k={k}"))
         print(f"[kernels] lookup_fetch, select_extract, compact_place, lookup_fetch_variant x{len(VARIANTS)} "
-              f"{name} B={B} ({m},128) k={k}: equal (variant full == lookup_fetch); compact_select == "
+              f"{name} B={bsz} ({m},128) k={k}: equal (variant full == lookup_fetch); compact_select == "
               f"select_topk_threshold; selected/img {total[:3]}...", flush=True)
 
-        if name != "random":
+        if name != "random" or bsz != B:
             continue
         if m == 2565:
             var = lookup_kernel_variants.measure(tab, off, k, card, tag="[times] lookup_fetch_variant")
@@ -611,17 +635,29 @@ def phase_postprocess_kernels(device, card: str) -> dict:
         for kname, (run, plain, pname, pcall, nbytes) in runs.items():
             ms, pms = median_ms(run), median_ms(plain, 5)
             dev, pdev = device_profile(run)[0], device_profile(plain)[0]
+            cold = cold_ms(run)
             partial = median_ms(pcall)
             bms, bby = bound(nbytes)
-            print(f"[times] {kname} B={B} ({m},128) k={k}: kernel {ms:.4f} ms (device {fmt_ms(dev)}), "
-                  f"plain {pms:.4f} ms (device {fmt_ms(pdev)}), nearest partial {pname} "
-                  f"{partial:.4f} ms, bound {bms:.4f} ms ({bby}) | {card}", flush=True)
+            # the share is of the cold time: the bound moves every byte at
+            # the memory rate, and warm, L2 holds the table and the stores
+            share = bms / cold if cold else None
+            print(f"[times] {kname} B={B} ({m},128) k={k}: kernel {ms:.4f} ms (device {fmt_ms(dev)}, "
+                  f"cold L2 {fmt_ms(cold)}, {fmt_share(share)} of bound), plain {pms:.4f} ms (device "
+                  f"{fmt_ms(pdev)}), nearest partial {pname} {partial:.4f} ms, bound {bms:.5f} ms "
+                  f"({bby}) | {card}", flush=True)
+            r = dict(ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, cold_ms=cold,
+                     bound_ms=bms, bound_by=bby, device_share_of_bound=share, library_ms=None,
+                     library_call=None,
+                     nearest_partial=pname, nearest_partial_ms=partial,
+                     at=f"B={B}, ({m},128), k={k}, random table")
             if m == 2565:
-                res[kname] = dict(ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, bound_ms=bms,
-                                  bound_by=bby, library_ms=None, library_call=None, nearest_partial=pname,
-                                  nearest_partial_ms=partial, at=f"B={B}, ({m},128), k={k}, random table")
+                res[kname] = r
+            else:
+                serving[kname] = r
     for kname, e in errs.items():
         res[kname]["max_abs_err"] = e
+    for kname, r in serving.items():
+        res[kname]["others"] = [r]
     return res
 
 

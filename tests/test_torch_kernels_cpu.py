@@ -113,6 +113,7 @@ def test_build_names_library_by_source_hash(monkeypatch):
     assert path.parent == PKG.parent / "build" / "yolort_tpu_torch"
     assert re.fullmatch(r"libyolort_kernels_[0-9a-f]{16}\.so", path.name)
     assert {p.name for p in (PKG / "csrc").glob("*.cu")} == set(_build.SOURCES)
+    assert {p.name for p in (PKG / "csrc").glob("*.cuh")} == set(_build.HEADERS)
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.library_path() != path
 
@@ -184,8 +185,10 @@ def test_nms_mask_kernel_matches_plain(cuda_device, bsz, k, stop, tile, kind):
 
 def _score_table(device, bsz, m, kind, seed=0):
     """(bsz, m, 128) sigmoid-product scores: 'random', 'ties' (40 levels),
-    'fewer' (0.2% of the entries nonzero) or 'none' (all below 0.025); or
-    'inputs', the module's ``_inputs`` table (one sigmoid, (2, 40, 128))."""
+    'fewer' (0.2% of the entries nonzero), 'none' (all below 0.025) or
+    'dense' (each image's scores sorted descending and lifted into [0.5,
+    1): every entry valid, the top k fill whole chunk rows); or 'inputs',
+    the module's ``_inputs`` table (one sigmoid, (2, 40, 128))."""
     if kind == "inputs":
         return _inputs(device)[2]
     rng = np.random.default_rng(seed + m)
@@ -197,6 +200,8 @@ def _score_table(device, bsz, m, kind, seed=0):
         s[:, int(m * 128 * 0.002):] = 0.0
     if kind == "none":
         s *= 0.025
+    if kind == "dense":
+        s = 0.5 + 0.5 * -np.sort(-s, axis=-1)
     return torch.from_numpy(s.astype(np.float32).reshape(bsz, m, 128)).to(device)
 
 
@@ -524,11 +529,76 @@ def _postprocess_calls(device="cpu"):
     ]
 
 
+# the stage-2 slot kernels' cases: (bsz, m, k, thr) shapes, the serving and
+# eval tables at batch 8, a small one at batch 1, k = 700 (not a multiple
+# of 32) at batch 32 and the serving table at batch 16, each with a random,
+# tied, sparse, empty and dense table; then the module's postprocess inputs
+# (k = 700 and 5).  select_extract gives a run of 32 slots 4 warps at the
+# small grids (batch 1 and 8 serving, the module's inputs), 2 at batch 16
+# and 1 at the others
+SLOT_SHAPES = [(8, 325, 512, 0.25), (8, 2565, 4096, 0.005), (1, 40, 300, 0.25), (32, 325, 700, 0.25),
+               (16, 325, 512, 0.25)]
+SLOT_CASES = {"random": "random", "ties": "ties", "few": "fewer", "empty": "random", "dense": "dense"}
+SLOT_ROWS = [pytest.param(case, *shape, id=f"{case}-B{shape[0]}-m{shape[1]}-k{shape[2]}")
+             for case in SLOT_CASES for shape in SLOT_SHAPES]
+SLOT_ROWS.append(pytest.param("inputs", 2, 40, 700, 0.25, id="inputs-B2-m40-k700"))
+
+
+def _slot_inputs(device, case, bsz, m, k, thr):
+    """(table, off, t, thr_bits, ks) of a SLOT_ROWS row: the table, its
+    tier offsets and k-th value bits at k, and the k to run."""
+    if case == "inputs":
+        _, table, thr_bits, t, _, off = _postprocess_inputs(device)
+        return table, off, t, thr_bits, (k, 5)
+    table = _score_table(device, bsz, m, SLOT_CASES[case], seed=k)
+    if case == "empty":
+        table = table * (thr * 0.99)
+    thr_bits = int(np.float32(thr).view(np.int32))
+    t, cg, ce = bisect_count_reference(table, k, thr_bits)
+    cnt = torch.cat([cg, ce], 1)
+    return table, (cnt.cumsum(1, dtype=torch.int32) - cnt).contiguous(), t, thr_bits, (k,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,bsz,m,k,thr", SLOT_ROWS)
+def test_lookup_fetch_kernel_matches_plain(cuda_device, case, bsz, m, k, thr):
+    table, off, _, _, ks = _slot_inputs(cuda_device, case, bsz, m, k, thr)
+    for k in ks:
+        got = lookup_fetch(table, off, k)
+        want = lookup_fetch_reference(table, off, k)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert _same_bits(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("meta", ["lookup", "out_of_range"])
+@pytest.mark.parametrize("case,bsz,m,k,thr", SLOT_ROWS)
+def test_select_extract_kernel_matches_plain(cuda_device, case, bsz, m, k, thr, meta):
+    """On the lookup's own metadata, and on phys in [-2, m + 2), p in
+    [-2, 130) and random tiers, where most slots miss: (0.0, 0)."""
+    table, off, t, thr_bits, ks = _slot_inputs(cuda_device, case, bsz, m, k, thr)
+    _, phys, p, is_eq = lookup_fetch_reference(table, off, ks[0])
+    if meta == "out_of_range":
+        rng = np.random.default_rng(m + k)
+        bsz, m, k = phys.shape[0], table.shape[1], phys.shape[1]
+        phys, p, is_eq = (torch.from_numpy(x).to(cuda_device) for x in (
+            rng.integers(-2, m + 2, (bsz, k)).astype(np.int32),
+            rng.integers(-2, 130, (bsz, k)).astype(np.int32),
+            rng.integers(0, 2, (bsz, k)).astype(bool)))
+    got = select_extract(table, phys, p, is_eq, t, thr_bits)
+    want = select_extract_reference(table, phys, p, is_eq, t, thr_bits)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", VARIANTS)
-def test_lookup_fetch_variant_kernel_matches_plain(cuda_device, variant):
-    _, table, _, _, _, off = _postprocess_inputs(cuda_device)
-    for k in (700, 5):
+@pytest.mark.parametrize("case,bsz,m,k,thr", SLOT_ROWS)
+def test_lookup_fetch_variant_kernel_matches_plain(cuda_device, case, bsz, m, k, thr, variant):
+    table, off, _, _, ks = _slot_inputs(cuda_device, case, bsz, m, k, thr)
+    for k in ks:
         got = lookup_fetch_variant(table, off, k, variant)
         want = lookup_fetch_variant_reference(table, off, k, variant)
         torch.cuda.synchronize()
@@ -615,9 +685,9 @@ def test_unknown_postprocess_routes_raise(field, value):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", range(4), ids=["fused_cells_stage1", "lookup_fetch",
-                                                  "select_extract", "compact_place"])
+@pytest.mark.parametrize("kernel", [0, 3], ids=["fused_cells_stage1", "compact_place"])
 def test_postprocess_kernels_match_plain(cuda_device, kernel):
+    # lookup_fetch's and select_extract's cases are SLOT_ROWS
     run, plain = _postprocess_calls(cuda_device)[kernel]
     got, want = run(), plain()
     torch.cuda.synchronize()

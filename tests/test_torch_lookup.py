@@ -3,8 +3,8 @@
 ``lookup_fetch_reference`` and ``select_extract_reference`` (the plain
 versions of the port's kernels) against the Pallas
 ``pallas_lookup_fetch`` / ``pallas_select_extract`` in interpret mode on
-the same chunk tables and offsets, with random, tied, sparse and empty
-tables (m <= 325).  Then ``select_topk_threshold`` on each ``row_gather``
+the same chunk tables and offsets, with random, tied, sparse, empty and
+dense tables (m <= 325).  Then ``select_topk_threshold`` on each ``row_gather``
 route against the JAX function on the same route."""
 
 import jax
@@ -34,12 +34,14 @@ def table(seed, m, case, batch=2):
     elif case == "few":  # fewer entries above the threshold than k
         x = np.zeros((batch, n))
         x[:, rng.integers(0, n, 23)] = rng.uniform(0.1, 0.9, 23)
+    elif case == "dense":  # every entry valid, descending: the top k fill whole chunk rows
+        x = np.stack([np.linspace(0.99 - 0.1 * b / batch, 0.5, n) for b in range(batch)])
     else:  # nothing above the threshold
         x = np.zeros((batch, n))
     return x.astype(np.float32).reshape(batch, m, 128)
 
 
-CASES = ["random", "ties", "few", "empty"]
+CASES = ["random", "ties", "few", "empty", "dense"]
 SHAPES = [(325, 512, 0.25), (40, 300, 0.005)]  # (m, k, threshold): serving table, a small one
 
 

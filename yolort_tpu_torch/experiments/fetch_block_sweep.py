@@ -20,8 +20,8 @@ script's two fetches at batch 128:
 Inputs are drawn on the card from a seeded ``torch.Generator`` (the cells
 table is 548 MB at batch 128).  Each geometry is first held bit-identical
 to ``row_fetch_reference``, then timed: CUDA events over back-to-back
-launches, the profiler's device time (warm L2) and events around single
-launches after an L2 flush (cold L2), beside the bound (indices, the
+launches, the profiler's device time with the L2 cache warm and with it
+flushed before each launch (cold), beside the bound (indices, the
 distinct rows read once, the output written once, at the card's memory
 rate), the plain version and ``torch.gather``, the library call that
 computes the same rows.  Every time printed carries the card's name and
@@ -110,7 +110,7 @@ def measure(tab: torch.Tensor, idx: torch.Tensor, card: str, geometries=GEOMETRI
     by = "device_ms" if all(res[g]["device_ms"] is not None for g in geometries) else "ms"
     best = min(geometries, key=lambda g: res[g][by])
     print(f"{tag} B={bsz} {label}: fastest geometry by {'device time' if by == 'device_ms' else 'events'} "
-          f"{best} {res[best][by]:.4f} ms (cold {res[best]['cold_ms']:.4f} ms) | {card}", flush=True)
+          f"{best} {res[best][by]:.4f} ms (cold {fmt_ms(res[best]['cold_ms'])}) | {card}", flush=True)
     return res
 
 

@@ -10,8 +10,8 @@ random gt-tier counts 0-3 per chunk followed by four eq-tier chunks of one
 entry, k = 4096 slots.  Inputs are drawn on the card from a seeded
 ``torch.Generator``.  Each variant is first held bit-identical to its
 plain version (and ``full`` to ``lookup_fetch``), then timed: CUDA events
-over back-to-back launches, the profiler's device time (warm L2) and
-events around single launches after an L2 flush (cold L2), beside its
+over back-to-back launches, the profiler's device time with the L2
+cache warm and with it flushed before each launch (cold), beside its
 bound (bytes read once and written once at the card's memory rate) and
 the PyTorch calls that do a part of the work (``torch.searchsorted``, the
 lookup; ``torch.gather``, the row fetch).  The TPU script subtracted the
@@ -28,8 +28,8 @@ import sys
 import torch
 
 from yolort_tpu_torch.experiments.timing import (
-    abs_err, bound, card_line, cold_ms, device_profile, distinct_rows, fmt_ms, median_ms,
-    require_cuda, same_bits,
+    abs_err, bound, card_line, cold_ms, device_profile, distinct_rows, fmt_ms, fmt_share,
+    median_ms, require_cuda, same_bits,
 )
 from yolort_tpu_torch.ops.cuda.lookup_kernel import (
     CHUNK, VARIANTS, lookup_fetch, lookup_fetch_variant, lookup_fetch_variant_reference,
@@ -82,8 +82,9 @@ def variant_bytes(variant: str, phys: torch.Tensor, m: int, k: int) -> int:
 
 def measure(tab: torch.Tensor, off: torch.Tensor, k: int, card: str, tag: str = "[variants]") -> dict:
     """Each variant and its plain version timed (events, device and, for
-    the kernel, cold-L2 device), beside its bound; then the library calls that do a part of the work.  Prints
-    one line each; returns {variant | 'library ...': {...}}."""
+    the kernel, cold-L2 device and its share of the bound), beside its
+    bound; then the library calls that do a part of the work.  Prints one
+    line each; returns {variant | 'library ...': {...}}."""
     bsz, m, _ = tab.shape
     shape = f"B={bsz} ({m},{CHUNK}) k={k}"
     res = {}
@@ -95,11 +96,12 @@ def measure(tab: torch.Tensor, off: torch.Tensor, k: int, card: str, tag: str = 
         dev, pdev = device_profile(run, kernels_per_call=1)[0], device_profile(plain)[0]
         cold = cold_ms(run)
         bms, bby = bound(variant_bytes(variant, phys, m, k))
+        share = bms / cold if cold else None  # the bound moves every byte at the memory rate
         res[variant] = dict(ms=ms, device_ms=dev, cold_ms=cold, plain_ms=pms, plain_device_ms=pdev,
-                            bound_ms=bms, bound_by=bby)
+                            bound_ms=bms, bound_by=bby, device_share_of_bound=share)
         print(f"{tag} {shape} {variant:>11}: kernel {ms:.4f} ms (device {fmt_ms(dev)}, cold "
-              f"{fmt_ms(cold)}), plain {pms:.4f} ms (device {fmt_ms(pdev)}), bound {bms:.4f} ms "
-              f"({bby}) | {card}", flush=True)
+              f"{fmt_ms(cold)}, {fmt_share(share)} of bound), plain {pms:.4f} ms (device "
+              f"{fmt_ms(pdev)}), bound {bms:.4f} ms ({bby}) | {card}", flush=True)
     phys = lookup_fetch(tab, off, k)[1]
     s = torch.arange(k, dtype=torch.int32, device=tab.device).expand(bsz, k).contiguous()
     gidx = phys.long()[..., None].expand(-1, -1, CHUNK)

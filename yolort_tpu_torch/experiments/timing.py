@@ -188,30 +188,30 @@ def window_usable(counts: dict, iters: int, kernels_per_call=None) -> bool:
         records_per_call(n, iters) for n in counts.values()) == kernels_per_call
 
 
-def cold_ms(fn) -> float:
-    """Device time of one call with the L2 cache cold: before each call an
-    ``L2_FLUSH_BYTES`` buffer is written, so nothing the call reads is left
-    in L2; CUDA events around the call alone (the flush keeps the card
-    busy while the host launches it, so no host gap is timed).  The median
-    over 10 calls."""
+def cold_ms(fn, iters: int = 5):
+    """Device time of ``fn``'s own work a call with the L2 cache cold, by
+    the profiler (``device_profile``): before each call an
+    ``L2_FLUSH_BYTES`` buffer is written, so nothing the call reads is
+    left in L2 and every line it writes displaces a dirty one, which goes
+    back to memory.  The flush's own device records are dropped.  This is
+    the time to hold against a bound that moves every byte at the memory
+    rate: a warm-L2 time can beat such a bound, which is then no bound.
+    None (not measured) where the profiler saw no device time."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(10):
-        flush.fill_(1)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    flush_names = {name for name, _ in device_profile(lambda: flush.fill_(1), iters)[1]}
+    total, rows = device_profile(lambda: (flush.fill_(1), fn()), iters)
+    if not flush_names or total is None:
+        return None
+    own = [ms for name, ms in rows if name not in flush_names]
+    return sum(own) if own else None
 
 
 def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def fmt_share(x) -> str:
+    return "not measured" if x is None else f"{100 * x:.1f}%"
 
 
 def bound(nbytes: float, ops: float = 0.0, kind: str = "f32"):

@@ -25,6 +25,7 @@ SOURCES = (
     "nms_mask.cu", "bisect_count.cu", "row_fetch.cu", "qconv.cu", "cells_stage1.cu",
     "lookup_fetch.cu", "select_extract.cu", "compact_select.cu",
 )
+HEADERS = ("tier_rank.cuh",)  # included by the sources; part of the library's hash
 # -fmad=false: no contraction of a*b+c, so the NMS IoU and the qconv
 # epilogue round per operation exactly as the plain versions do (the
 # sources also use the _rn intrinsics); -Xptxas -v writes registers/spills
@@ -69,7 +70,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libyolort_kernels_{h.hexdigest()[:16]}.so"

@@ -14,8 +14,8 @@ row fetch at a swept geometry) and ``lookup_kernel_variants.py``
 the chunk table in VMEM and fetch rows with byte-plane one-hot matmuls to
 dodge the TPU's slow gathers; on the H100 the first is a radix select over
 the bit patterns by a thread-block cluster per image (``bisect_plan``) and
-the others read rows directly, a warp per row (the source notes say what
-bounds each).  All are batched over a leading image
+the others read rows directly (the source notes say how, and what bounds
+each).  All are batched over a leading image
 dimension.
 """
 
