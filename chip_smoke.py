@@ -29,6 +29,11 @@ Phases, each fatal on failure:
      bound, its plain version and torch.cat alone; results must be
      bit-identical (NaN positions compared as NaN); compact_select must
      equal select_topk_threshold on the same scores;
+     fused_cells_stage1 and bisect_count also at the yolov5s6 @1280 shapes:
+     four levels at 1280x1280 and on the 768x1280 canvas of a 720p frame,
+     and the stage-1 tables (797,128) and (479,128) at k = 4104 and 520,
+     timed at batch 8 warm and with the L2 flushed, beside their bounds;
+     row_fetch timed at both stage-2 tables, warm and cold;
   4. slice: yolov5s at full width, seeded random weights with the head
      biases shifted to a realistic candidate load, serves uint8 frames of
      three sizes in float32 and bfloat16 under the eval (0.005 / 4096) and
@@ -51,14 +56,38 @@ Phases, each fatal on failure:
      carry detections, one request served on each other route must launch
      that route's kernels and equal the default route's detections, and
      the card's int8 head outputs must agree with the CPU run of the port
-     on one 480x640 frame within the bound printed there;
-  6. times: each kernel's time beside its plain version's, its bound and
+     on one 480x640 frame within the bound printed there, and conv by
+     conv (int8_witness: each conv given the card's own input, the kernel
+     bit-identical to its plain version on the card, and the CPU's output
+     equal but for one-level flips whose exact value lies within 8 float32
+     ulps of a rounding boundary);
+  6. p6: phase 4 for yolov5s6 at full width @1280 (stride-64 rounding) on
+     8x720x1280, 2x1080x1920 and 1x1280x1280 frames, the card paired with
+     the CPU on the 1280x1280 request; then yolov5s6 in int8 on its seeded
+     weights, held against the CPU conv by conv (int8_witness), with the
+     spread of one flip on the card beside the card-vs-CPU counts at the
+     PAN outputs (in this network one flip reaches thousands of values,
+     so its end-to-end comparison is made conv by conv); then phase 5 for
+     yolov5s6 on the weights of the fabricated yolov5s6 checkpoint of
+     phase 7: calibrated on 1280x1280 frames, the qconv kernels at every
+     conv shape at batch 4 @1280, int8 serving in both dtypes and configs,
+     card against CPU end to end and conv by conv;
+  7. checkpoints: ultralytics-layout checkpoints fabricated by
+     tests/torch_fixture.make_checkpoint (yolov5s6 at full width @1280;
+     r3.1, r4.0 and TAN at nano width @640) loaded by
+     YOLOv5.load_from_yolov5 on the card in both dtypes and on the CPU:
+     served through the default route's kernels, the card's decode within
+     the JAX test's tolerance of the fixture's torch oracle, its head
+     outputs within 1e-3 of the largest logit of the CPU's, its
+     postprocess of them, put on a 1/64 grid, paired with the CPU's;
+  8. times: each kernel's time beside its plain version's, its bound and
      the time of a PyTorch call that computes the same function where
      there is one (the stage-2 row kernels, whose table and stores fit in
      L2, also cold, with the L2 flushed before each launch, and their
      share of the bound taken of that time); images/s of the float and int8 slices at batch 32; the
      postprocess's time per route at batch 32 in both configs and dtypes;
-     then the two timing entry points at batch 128 (python -m
+     yolov5s6 serving at batch 8 @1280 on each route (images/s, device
+     busy); then the two timing entry points at batch 128 (python -m
      yolort_tpu_torch.experiments.lookup_kernel_variants and
      .fetch_block_sweep: each checks its kernel against the plain version
      and prints its times), each with the launch counts read around it.
@@ -70,6 +99,7 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -378,6 +408,7 @@ def phase_kernels(device, card: str) -> dict:
     # --- row_fetch -------------------------------------------------------
     rng = np.random.default_rng(6)
     err = 0.0
+    timed = {}
     for m, w, k, dtype in ((325, 128, 512, torch.float32), (2565, 128, 4096, torch.float32),
                            (325, 128, 512, torch.bfloat16), (300, 85, 520, torch.bfloat16)):
         tab = special_table(m + k, B, m, w, dtype, device)
@@ -392,24 +423,26 @@ def phase_kernels(device, card: str) -> dict:
         err = max(err, (got.view(iv).double() - ref.view(iv).double()).abs().max().item())
         print(f"[kernels] row_fetch {dtype} ({m},{w}) k={k}: bit-identical", flush=True)
         if w == 128 and dtype == torch.float32:
+            # timed at the eval (2565,128) k=4096 and serving (325,128)
+            # k=512 tables, warm and with the L2 flushed
             ms = median_ms(lambda: row_fetch(tab, idx))
             pms = median_ms(lambda: row_fetch_reference(tab, idx))
             dev = device_profile(lambda: row_fetch(tab, idx))[0]
             pdev = device_profile(lambda: row_fetch_reference(tab, idx))[0]
-            print(f"[times] row_fetch B={B} ({m},{w}) f32 k={k}: kernel {ms:.4f} ms "
-                  f"(device {fmt_ms(dev)}), plain {pms:.4f} ms (device {fmt_ms(pdev)}) | {card}")
-            if m == 2565:
-                gidx = idx.long().clamp(0, m - 1)[..., None].expand(-1, -1, w)
-                lib = median_ms(lambda: torch.gather(tab, 1, gidx))
-                bms, bby = bound(B * k * 4 + distinct_rows(idx, m) * w * 4 + B * k * w * 4)
-                cold = cold_ms(lambda: row_fetch(tab, idx))
-                share = bms / cold if cold else None
-                print(f"[times] row_fetch B={B} ({m},{w}) f32 k={k}: cold L2 {fmt_ms(cold)}, "
-                      f"{fmt_share(share)} of bound {bms:.5f} ms ({bby}) | {card}", flush=True)
-                res["row_fetch"] = dict(
-                    ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, cold_ms=cold,
-                    bound_ms=bms, bound_by=bby, device_share_of_bound=share, library_ms=lib,
-                    library_call="torch.gather (clamped indices)", at=f"B={B}, (2565,128) f32, k=4096")
+            gidx = idx.long().clamp(0, m - 1)[..., None].expand(-1, -1, w)
+            lib = median_ms(lambda: torch.gather(tab, 1, gidx))
+            bms, bby = bound(B * k * 4 + distinct_rows(idx, m) * w * 4 + B * k * w * 4)
+            cold = cold_ms(lambda: row_fetch(tab, idx))
+            share = bms / cold if cold else None
+            print(f"[times] row_fetch B={B} ({m},{w}) f32 k={k}: kernel {ms:.4f} ms (device "
+                  f"{fmt_ms(dev)}, cold L2 {fmt_ms(cold)}, {fmt_share(share)} of bound), plain "
+                  f"{pms:.4f} ms (device {fmt_ms(pdev)}), torch.gather {lib:.4f} ms, bound "
+                  f"{bms:.5f} ms ({bby}) | {card}", flush=True)
+            timed[m] = dict(
+                ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, cold_ms=cold,
+                bound_ms=bms, bound_by=bby, device_share_of_bound=share, library_ms=lib,
+                library_call="torch.gather (clamped indices)", at=f"B={B}, ({m},{w}) f32, k={k}")
+    res["row_fetch"] = dict(**timed[2565], others=[timed[325]])
     res["row_fetch"]["max_abs_err"] = err
     return res
 
@@ -661,39 +694,124 @@ def phase_postprocess_kernels(device, card: str) -> dict:
     return res
 
 
+P6_1280 = ((160, 160), (80, 80), (40, 40), (20, 20))  # yolov5s6 head levels @1280x1280
+P6_768 = ((96, 160), (48, 80), (24, 40), (12, 20))     # @768x1280, a 720p or 1080p frame
+
+
+def phase_p6_kernels(device, card: str) -> dict:
+    """fused_cells_stage1 and bisect_count against their plain versions, bit
+    for bit, at the shapes yolov5s6 gives them @1280: four levels at
+    1280x1280 and on the 768x1280 canvas, and the stage-1 tables (797,128)
+    and (479,128) at k = 4104 (eval) and 520 (serving); timed at batch 8,
+    warm and with the L2 flushed, beside their bounds."""
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import (
+        bisect_count, bisect_count_reference, fused_cells_stage1, fused_cells_stage1_reference,
+    )
+    from yolort_tpu_torch.ops.cuda.lookup_kernel import bisect_plan
+
+    cells, tables = {}, {}
+    err = {"fused_cells_stage1": 0.0, "bisect_count": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for sizes in (P6_1280, P6_768):
+            geometry = "+".join(f"{h}x{w}" for h, w in sizes)
+            for special in (True, False):
+                levels = logit_levels(50 + special, B, device, dtype, special, sizes)
+                got = fused_cells_stage1(levels, 3, 85)
+                ref = fused_cells_stage1_reference(levels, 3, 85)
+                torch.cuda.synchronize()
+                for a, b, what in zip(got, ref, ("cells", "obj_max", "cls_max")):
+                    if not same_bits(a, b):
+                        raise AssertionError(f"fused_cells_stage1 P6 {dtype} B={B} {geometry} "
+                                             f"special={special}: {what} differs")
+                    err["fused_cells_stage1"] = max(err["fused_cells_stage1"], abs_err(a, b))
+                print(f"[p6 kernels] fused_cells_stage1 {dtype} B={B} {geometry} C=255"
+                      f"{' with NaN/inf/below-floor logits' if special else ''}: equal", flush=True)
+                del got, ref
+                if special:
+                    continue
+                run = lambda lv=levels: fused_cells_stage1(lv, 3, 85)  # noqa: E731
+                plain = lambda lv=levels: fused_cells_stage1_reference(lv, 3, 85)  # noqa: E731
+                flat = [lv.reshape(B, -1, 255) for lv in levels]
+                cat = lambda flat=flat: torch.cat(flat, dim=1)  # noqa: E731
+                dev, cold = device_profile(run)[0], cold_ms(run)
+                pdev, cdev = device_profile(plain)[0], device_profile(cat)[0]
+                n_cells = sum(h * w for h, w in sizes)
+                esize = levels[0].element_size()
+                bms, bby = bound(2 * B * n_cells * 255 * esize + 2 * B * n_cells * 3 * esize)
+                share = bms / cold if cold else None
+                print(f"[times] fused_cells_stage1 P6 B={B} {geometry} {dtype}: device "
+                      f"{fmt_ms(dev)}, cold L2 {fmt_ms(cold)} ({fmt_share(share)} of bound), plain "
+                      f"device {fmt_ms(pdev)}, torch.cat alone device {fmt_ms(cdev)}, bound "
+                      f"{bms:.4f} ms ({bby}) | {card}", flush=True)
+                cells[f"{geometry} {str(dtype).split('.')[-1]}"] = dict(
+                    device_ms=dev, cold_ms=cold, plain_device_ms=pdev, bound_ms=bms, bound_by=bby,
+                    device_share_of_bound=share, nearest_partial_device_ms=cdev)
+                del levels, flat
+    for m in (797, 479):
+        for k in (4104, 520):
+            for bsz in (1, B):
+                tab = score_table(60 + m + k + bsz, bsz, m, device)
+                got = bisect_count(tab, k, 0)
+                ref = bisect_count_reference(tab, k, 0)
+                for a, b in zip(got, ref):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"bisect_count P6 stage 1 B={bsz} ({m},128) k={k}: "
+                                             f"differs from the plain version")
+                    err["bisect_count"] = max(err["bisect_count"],
+                                              (a.double() - b.double()).abs().max().item())
+                plan = bisect_plan(bsz, m)
+                print(f"[p6 kernels] bisect_count stage 1 B={bsz} ({m},128) k={k}: equal, cluster "
+                      f"{plan.cluster} {'resident' if plan.resident else 'streamed'}", flush=True)
+                if bsz != B:
+                    continue
+                run = lambda tab=tab, k=k: bisect_count(tab, k, 0)  # noqa: E731
+                flat = tab.reshape(B, -1)
+                dev, cold = device_profile(run)[0], cold_ms(run)
+                tdev = device_profile(lambda flat=flat, k=k: torch.topk(flat, k, dim=1))[0]
+                bms, bby = bound(B * m * 128 * 4 + B * 4 + 2 * B * m * 4)
+                share = bms / cold if cold else None
+                print(f"[times] bisect_count P6 stage 1 B={B} ({m},128) k={k}: device {fmt_ms(dev)}, "
+                      f"cold L2 {fmt_ms(cold)} ({fmt_share(share)} of bound), torch.topk device "
+                      f"{fmt_ms(tdev)}, bound {bms:.5f} ms ({bby}) | {card}", flush=True)
+                tables[f"({m},128) k={k}"] = dict(
+                    device_ms=dev, cold_ms=cold, bound_ms=bms, bound_by=bby,
+                    device_share_of_bound=share, topk_device_ms=tdev, cluster=plan.cluster,
+                    resident=plan.resident)
+    return {"fused_cells_stage1": dict(p6=cells, p6_max_abs_err=err["fused_cells_stage1"]),
+            "bisect_count": dict(p6_stage1=tables, p6_max_abs_err=err["bisect_count"])}
+
+
 def frames(seed: int, n: int, h: int, w: int):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(n)]
 
 
-def calibrate_candidate_density(yolo, requests, target: int = 120, margin: float = 0.5) -> float:
+def calibrate_candidate_density(m, requests, target: int = 120, margin: float = 0.5) -> float:
     """Head-bias shift that gives every image at least ``target`` pairs with
     score > 0.25: seeded random weights keep scores near 1e-4, which would
     leave the selection and NMS kernels with no work.  Bisects the shift
-    on the model's own logits of the requests' frames, as
+    on ``YOLOv5`` ``m``'s own logits of the requests' frames, as
     bench.calibrate_candidate_density does, then adds ``margin``: random
     weights make the count a cliff in the shift, and the margin keeps a
     bias rounded to bfloat16 on the busy side of it."""
     import torch
 
-    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
-
-    dtype = next(yolo.parameters()).dtype
+    yolo = m.model
     logits = []
     for raw_u8 in requests:
-        x = torch.from_numpy(np.stack(raw_u8)).to(next(yolo.parameters()).device)
-        plan = make_plan([tuple(x.shape[1:3])])[0]
+        x = torch.from_numpy(np.stack(raw_u8)).to(m.device)
         with torch.inference_mode():
-            outs = yolo.head_outputs(letterbox_batch(x.to(dtype) / 255.0, plan))
-        logits.append(np.concatenate(
-            [o.reshape(o.shape[0], -1, 5 + yolo.num_classes).float().cpu().numpy() for o in outs], axis=1))
+            outs = yolo.head_outputs(m.canvas(x)[0])
+        logits.append(torch.cat([o.reshape(o.shape[0], -1, 5 + yolo.num_classes).float()
+                                 for o in outs], dim=1))
 
     def count_at(d):
         counts = []
         for lg in logits:
-            obj, cls = lg[..., 4], lg[..., 5:]
-            s = 1 / (1 + np.exp(-(obj + d)))[..., None] * (1 / (1 + np.exp(-(cls + d))))
-            counts.append((s > 0.25).sum(axis=(1, 2)).min())
+            s = torch.sigmoid(lg[..., 4:5] + d) * torch.sigmoid(lg[..., 5:] + d)
+            counts.append(int((s > 0.25).sum(dim=(1, 2)).min()))
         return min(counts)
 
     lo, hi = 0.0, 20.0
@@ -760,25 +878,18 @@ def check_served(res, label: str) -> list:
     return [len(d["boxes"]) for d in dets]
 
 
-def phase_slice(device, card: str) -> dict:
+def serve_routes(models, requests, label: str) -> dict:
+    """``YOLOv5.__call__`` of each model (by dtype) on the requests in both
+    configs, once per route of ROUTES, each route's launch counts set to 0
+    just before and read just after: every kernel of a route must launch
+    (the default route exactly DEFAULT_PER_BATCH a batch) and no other;
+    every image must carry detections; each route must serve the default
+    route's detections exactly."""
     import torch
 
-    import yolort_tpu_torch
-    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
     from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 
-    requests = [frames(10, 8, 720, 1280), frames(11, 4, 480, 640), frames(12, 1, 1080, 1920)]
-    t0 = time.perf_counter()
-    models = {dt: yolort_tpu_torch.yolov5s(device=device, dtype=dt, seed=0)
-              for dt in (torch.float32, torch.bfloat16)}
-    for dt, m in models.items():
-        delta = calibrate_candidate_density(m.model, requests)
-        shift_head_bias(m.model, delta)
-        print(f"[slice] yolov5s {dt} built, head bias shift {delta:.4f}", flush=True)
-    print(f"[slice] models ready in {time.perf_counter() - t0:.1f} s", flush=True)
-
-    runs = [(dt, name, cfg) for dt in (torch.float32, torch.bfloat16)
-            for name, cfg in (("eval", EVAL), ("serving", SERVING))]
+    runs = [(dt, name, cfg) for dt in models for name, cfg in (("eval", EVAL), ("serving", SERVING))]
     batches = len(runs) * len(requests)
     launches, outs = {}, {}
     for route in ROUTES:
@@ -792,45 +903,51 @@ def phase_slice(device, card: str) -> dict:
         torch.cuda.synchronize()
         counts = {fn.__name__: fn.launches for fn in KERNELS}
         launches[route] = counts
-        print(f"[slice] route {route}: float path launches over {batches} batches "
-              f"{counts}", flush=True)
+        print(f"[{label}] route {route}: launches over {batches} batches {counts}", flush=True)
         for kname, n in counts.items():
             if kname in ROUTE_KERNELS[route] and n <= 0:
-                raise AssertionError(f"kernel {kname} was not launched on route {route}")
+                raise AssertionError(f"{label}: kernel {kname} was not launched on route {route}")
             if kname not in ROUTE_KERNELS[route] and n:
-                raise AssertionError(f"kernel {kname} launched on route {route}, which "
+                raise AssertionError(f"{label}: kernel {kname} launched on route {route}, which "
                                      f"does not run it")
         if route == DEFAULT_ROUTE:
             want = {kname: DEFAULT_PER_BATCH.get(kname, 0) * batches for kname in counts}
             if counts != want:
-                raise AssertionError(f"default route launches {counts}, want {want}")
+                raise AssertionError(f"{label}: default route launches {counts}, want {want}")
     for m in models.values():
         m.model.row_gather = DEFAULT_ROUTE
     for (route, dt, name), res in outs.items():
-        counts = check_served(res, f"{route} {dt} {name}")
+        counts = check_served(res, f"{label} {route} {dt} {name}")
         if route == DEFAULT_ROUTE:
-            print(f"[slice] {str(dt):>14} {name:>7}: detections/img {counts}", flush=True)
+            print(f"[{label}] {str(dt):>14} {name:>7}: detections/img {counts}", flush=True)
             continue
         base = outs[(DEFAULT_ROUTE, dt, name)]
         for req, req0 in zip(res, base):
             for d, d0 in zip(req, req0):
                 if not all(np.array_equal(d[key], d0[key]) for key in ("boxes", "scores", "labels")):
-                    raise AssertionError(f"{route} {dt} {name}: served detections differ "
+                    raise AssertionError(f"{label} {route} {dt} {name}: served detections differ "
                                          f"from the default route's")
-    print(f"[slice] every route served the default route's detections exactly", flush=True)
+    print(f"[{label}] every route served the default route's detections exactly", flush=True)
+    totals = {kname: sum(launches[r][kname] for r in ROUTES) for kname in launches[DEFAULT_ROUTE]}
+    per_batch = {r: {k: n / batches for k, n in launches[r].items() if n} for r in ROUTES}
+    return dict(launches=totals, per_batch=per_batch)
 
-    # on the same head outputs: each route's Detections equal the default
-    # route's on the card, and the card agrees with the CPU run of the port
+
+def pair_routes_with_cpu(models, requests, label: str) -> dict:
+    """On the same head outputs, each route's Detections equal the default
+    route's on the card, and the card's postprocess agrees with the CPU run
+    of the port (``pair_detections``), in both dtypes and configs."""
+    import torch
+
     total_unpaired = {route: 0 for route in ROUTES}
-    for dt in (torch.float32, torch.bfloat16):
-        yolo = models[dt].model
+    for dt, m in models.items():
+        yolo = m.model
         for name, cfg in (("eval", EVAL), ("serving", SERVING)):
             yolo.score_thresh, yolo.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
             for req in requests:
-                x = torch.from_numpy(np.stack(req)).to(device)
-                plan = make_plan([tuple(x.shape[1:3])])[0]
+                x = torch.from_numpy(np.stack(req)).to(m.device)
                 with torch.inference_mode():
-                    heads = yolo.head_outputs(letterbox_batch(x.to(dt) / 255.0, plan))
+                    heads = yolo.head_outputs(m.canvas(x)[0])
                 heads_cpu = [h.cpu() for h in heads]
                 base = None
                 for route in ROUTES:
@@ -838,65 +955,128 @@ def phase_slice(device, card: str) -> dict:
                     with torch.inference_mode():
                         det_gpu = yolo.postprocess(heads)
                         det_cpu = yolo.postprocess(heads_cpu)
-                    label = f"{route} {dt} {name} {tuple(x.shape[1:3])}"
+                    tag = f"{label} {route} {dt} {name} {tuple(x.shape[1:3])}"
                     if base is None:
                         base = det_gpu
                     elif not all(torch.equal(a, b) for a, b in zip(det_gpu, base)):
-                        raise AssertionError(f"{label}: Detections differ from the default route's")
-                    un = pair_detections(det_gpu, det_cpu, label)
+                        raise AssertionError(f"{tag}: Detections differ from the default route's")
+                    un = pair_detections(det_gpu, det_cpu, tag)
                     total_unpaired[route] += un
-                    print(f"[slice] card vs CPU {label}: counts equal, {un} unpaired"
-                          f"{'' if route == DEFAULT_ROUTE else '; equal to the default route'}", flush=True)
+                    print(f"[{label}] card vs CPU {tag}: counts equal, {un} unpaired"
+                          f"{'' if route == DEFAULT_ROUTE else '; equal to the default route'}",
+                          flush=True)
                 yolo.row_gather = DEFAULT_ROUTE
-    print(f"[slice] unpaired card vs CPU by route: "
-          f"{ {r: n for r, n in total_unpaired.items()} }", flush=True)
-    totals = {kname: sum(launches[r][kname] for r in ROUTES) for kname in launches[DEFAULT_ROUTE]}
-    per_batch = {r: {k: n / batches for k, n in launches[r].items() if n}
-                 for r in ROUTES}
-    return dict(launches=totals, per_batch=per_batch, unpaired=total_unpaired, models=models,
-                requests=requests)
+    print(f"[{label}] unpaired card vs CPU by route: {total_unpaired}", flush=True)
+    return total_unpaired
 
 
-def build_int8(device, requests, batch):
-    """yolov5s int8 by the bench recipe: the seeded float32 model with its
-    head biases shifted, calibrated on 4 batches of 2 letterboxed frames
-    of ``batch``, quantized, and its scales finalized on one frame."""
+def build_shifted(factory, device, requests, label: str, **kwargs) -> dict:
+    """The factory's model in float32 and bfloat16, seeded, its head biases
+    shifted to a realistic candidate load (``calibrate_candidate_density``)."""
     import torch
 
+    t0 = time.perf_counter()
+    models = {dt: factory(device=device, dtype=dt, seed=0, **kwargs)
+              for dt in (torch.float32, torch.bfloat16)}
+    for dt, m in models.items():
+        delta = calibrate_candidate_density(m, requests)
+        shift_head_bias(m.model, delta)
+        print(f"[{label}] {m.arch} {dt} built, head bias shift {delta:.4f}", flush=True)
+    print(f"[{label}] models ready in {time.perf_counter() - t0:.1f} s; float32 PAN outputs' "
+          f"max |value| by level {pan_absmax(models[torch.float32], requests[0])}", flush=True)
+    return models
+
+
+def pan_absmax(m, req) -> list:
+    """Each PAN output's largest magnitude on ``YOLOv5`` ``m``'s canvas of
+    a request (seeded random weights' activations vanish with depth)."""
+    import torch
+
+    x = torch.from_numpy(np.stack(req)).to(m.device)
+    with torch.inference_mode():
+        feats = m.model.features(m.canvas(x)[0])
+    return [f"{float(f.float().abs().max()):.2e}" for f in feats]
+
+
+def near_tie_share(heads, k: int = 4096) -> float:
+    """The share of the gaps between neighbours among the first image's k
+    best pair scores (class x obj sigmoid) that are above 0 and under 4
+    float32 ulps: near-ties, which the card's and the CPU's sigmoids, an
+    ulp apart, can reorder (exact ties stay tied on both)."""
+    import torch
+
+    lg = torch.cat([h[:1].reshape(1, -1, 85).float() for h in heads], dim=1)
+    s = (torch.sigmoid(lg[..., 4:5]) * torch.sigmoid(lg[..., 5:])).flatten()
+    top = torch.topk(s, min(k, s.numel())).values
+    gaps = (top[:-1] - top[1:]) / top[1:]
+    return float(((gaps > 0) & (gaps < 4 * 2.0 ** -23)).float().mean())
+
+
+def phase_slice(device, card: str) -> dict:
+    """yolov5s at full width @640 on three request sizes, every route."""
     import yolort_tpu_torch
-    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
+
+    requests = [frames(10, 8, 720, 1280), frames(11, 4, 480, 640), frames(12, 1, 1080, 1920)]
+    models = build_shifted(yolort_tpu_torch.yolov5s, device, requests, "slice")
+    out = serve_routes(models, requests, "slice")
+    unpaired = pair_routes_with_cpu(models, requests, "slice")
+    return dict(**out, unpaired=unpaired, models=models, requests=requests)
+
+
+P6_SIZE = (1280, 1280)
+
+
+def phase_p6(device, card: str) -> dict:
+    """yolov5s6 at full width @1280 (stride-64 rounding) on 8x720x1280 and
+    2x1080x1920 frames (a 768x1280 canvas) and a 1280x1280 one, every
+    route, the card paired with the CPU on the 1280x1280 request."""
+    import yolort_tpu_torch
+
+    requests = [frames(14, 8, 720, 1280), frames(15, 2, 1080, 1920), frames(16, 1, 1280, 1280)]
+    models = build_shifted(yolort_tpu_torch.yolov5s6, device, requests, "p6", size=P6_SIZE)
+    out = serve_routes(models, requests, "p6")
+    unpaired = pair_routes_with_cpu(models, requests[-1:], "p6")
+    return dict(**out, unpaired=unpaired, models=models, requests=requests)
+
+
+def build_int8(m, device, requests, batch, label: str):
+    """Float32 ``YOLOv5`` ``m`` in int8 by the bench recipe: its head biases
+    shifted, calibrated on 4 batches of 2 letterboxed frames of ``batch``,
+    quantized, and its scales finalized on one frame.  Returns the
+    quantized YOLO."""
+    import torch
+
     from yolort_tpu_torch.ops.blocks import Conv, Conv2dOnly
     from yolort_tpu_torch.ops.quantization import (
         calibrate_activations, finalize_scales, quantize_compute_params,
     )
 
     t0 = time.perf_counter()
-    m = yolort_tpu_torch.yolov5s(device=device, dtype=torch.float32, seed=0)
-    delta = calibrate_candidate_density(m.model, requests)
+    delta = calibrate_candidate_density(m, requests)
     shift_head_bias(m.model, delta)
     x = torch.from_numpy(np.stack(batch[:8])).to(device)
-    plan = make_plan([tuple(x.shape[1:3])])[0]
-    cal = [letterbox_batch(x[i:i + 2].float() / 255.0, plan) for i in (0, 2, 4, 6)]
+    cal = [m.canvas(x[i:i + 2])[0] for i in (0, 2, 4, 6)]
     calibrate_activations(m.model, cal)
     qmodel = quantize_compute_params(m.model)
     finalize_scales(qmodel, cal[0][:1])
     convs = [mod for mod in qmodel.modules() if isinstance(mod, (Conv, Conv2dOnly))]
     if not all(mod.quantized for mod in convs):
-        raise AssertionError("yolov5s int8: a conv was left in float")
+        raise AssertionError(f"{m.arch} int8: a conv was left in float")
     torch.cuda.synchronize()
-    print(f"[int8] yolov5s head bias shift {delta:.4f}, calibrated on 4x2 frames "
+    print(f"[{label}] {m.arch} head bias shift {delta:.4f}, calibrated on 4x2 frames "
           f"{tuple(cal[0].shape[1:3])}, {len(convs)} convs quantized, scales finalized in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return qmodel
 
 
-def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
+def phase_qconv_kernels(qmodel, m, batch, bsz: int, device, card: str) -> dict:
     """qconv1x1 and qconv_kxk against their plain versions at every distinct
-    conv shape of the int8 yolov5s at batch 8 @640, on the activations the
-    network itself produces there; each timed beside its plain version."""
+    conv shape of the int8 network ``qmodel`` at batch ``bsz`` on the
+    canvas float ``YOLOv5`` ``m`` makes of ``batch``'s frames, on the
+    activations the network itself produces there; each timed beside its
+    plain version."""
     import torch
 
-    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
     from yolort_tpu_torch.ops.blocks import Conv, Conv2dOnly
     from yolort_tpu_torch.ops.cuda import (
         qconv1x1, qconv1x1_reference, qconv_kxk, qconv_kxk_reference,
@@ -916,10 +1096,11 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
 
     hooks = [mod.register_forward_hook(hook) for mod in qmodel.modules()
              if isinstance(mod, (Conv, Conv2dOnly))]
-    x = torch.from_numpy(np.stack(batch[:B])).to(device)
-    plan = make_plan([tuple(x.shape[1:3])])[0]
+    x = torch.from_numpy(np.stack(batch[:bsz])).to(device)
     with torch.inference_mode():
-        qmodel.head_outputs(letterbox_batch(x.float() / 255.0, plan))
+        canvas = m.canvas(x)[0]
+        qmodel.head_outputs(canvas)
+    at = f"B={bsz} @{canvas.shape[1]}x{canvas.shape[2]}"
     for h in hooks:
         h.remove()
 
@@ -995,7 +1176,7 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
         out = "float" if float_out else "int8"
         plan = qconv_plan(got.shape[0] * got.shape[2] * got.shape[3], cout, k * k * cin, cin,
                           mod.wq.shape[1])
-        print(f"[kernels] {name} B={B} {k}x{k}/s{s} {cin}->{cout} @{h}x{w} {act} -> {out} x{n_fwd} "
+        print(f"[kernels] {name} {at} {k}x{k}/s{s} {cin}->{cout} @{h}x{w} {act} -> {out} x{n_fwd} "
               f"a forward, tile {plan.bm}x{plan.bn} {'gather' if plan.gather else 'cp.async'}: "
               f"bit-identical; kernel device {gms:.4f} ms (graph replay), events {ms:.4f} ms, "
               f"plain {pms:.4f} ms; bound {bms:.4f} ms ({by}), {100 * bms / gms:.1f}% of bound, "
@@ -1010,33 +1191,36 @@ def phase_qconv_kernels(qmodel, batch, device, card: str) -> dict:
                                                   iters=2)[0]
             r["weighted_device_ms"] = device_profile(
                 lambda c=calls[name]: [run() for run, _, n in c for _ in range(n)], iters=3)[0]
-        r["at"] = f"B={B} @640, sum over the {r['shapes']} distinct shapes of the int8 network"
+        r["at"] = f"{at}, sum over the {r['shapes']} distinct shapes of the int8 network"
         r["bound_by"] = "operations" if r.pop("ops_ms") > r.pop("bytes_ms") else "bytes"
         r["lost_per_forward_ms"] = r["weighted_graph_ms"] - r["weighted_bound_ms"]
-        print(f"[times] {name} B={B}, all {r['shapes']} shapes once: kernel device "
+        print(f"[times] {name} {at}, all {r['shapes']} shapes once: kernel device "
               f"{fmt_ms(r['device_ms'])} (graph replay {r['graph_ms']:.4f} ms, events "
               f"{r['ms']:.4f} ms), plain {r['plain_ms']:.4f} ms (device "
               f"{fmt_ms(r['plain_device_ms'])}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"library {fmt_ms(r['library_ms'])} | {card}", flush=True)
-        print(f"[times] {name} B={B}, a forward ({r['launches_per_forward']} launches over "
+        print(f"[times] {name} {at}, a forward ({r['launches_per_forward']} launches over "
               f"{r['shapes']} shapes): kernel device {fmt_ms(r['weighted_device_ms'])} (graph "
               f"replay {r['weighted_graph_ms']:.4f} ms), bound {r['weighted_bound_ms']:.4f} ms, "
               f"lost {r['lost_per_forward_ms']:.4f} ms | {card}", flush=True)
     return res
 
 
-def phase_int8_slice(qmodel, requests, device, card: str) -> dict:
-    """The int8 model through ``YOLOv5.__call__`` in both dtypes and configs,
-    then the card against the CPU run of the port on one frame."""
+def phase_int8_slice(qmodel, requests, device, card: str, label: str = "int8",
+                     size=(640, 640), size_divisible: int = 32) -> dict:
+    """The int8 model through ``YOLOv5.__call__`` in both dtypes and configs
+    at ``size``, one request (the second) on each other route, then the
+    card against the CPU run of the port on one 480x640 frame letterboxed
+    to 640 (the CPU runs the plain versions in float64)."""
     import copy
 
     import torch
 
     from yolort_tpu_torch import YOLOv5
-    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
     from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 
-    models = {dt: YOLOv5(model=qmodel, device=device, dtype=dt) for dt in (torch.float32, torch.bfloat16)}
+    models = {dt: YOLOv5(model=qmodel, device=device, dtype=dt, size=size,
+                         size_divisible=size_divisible) for dt in (torch.float32, torch.bfloat16)}
     reset_launch_counts()
     outs = {}
     for dt, m in models.items():
@@ -1045,28 +1229,20 @@ def phase_int8_slice(qmodel, requests, device, card: str) -> dict:
             outs[(dt, name)] = [m(req) for req in requests]
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in KERNELS}
-    print(f"[int8] int8 path launches: {launches}", flush=True)
+    print(f"[{label}] int8 path launches: {launches}", flush=True)
     on_path = ROUTE_KERNELS[DEFAULT_ROUTE] + ("qconv1x1", "qconv_kxk")
     for kname, n in launches.items():
         if kname in on_path and n <= 0:
-            raise AssertionError(f"kernel {kname} was not launched on the int8 path")
+            raise AssertionError(f"{label}: kernel {kname} was not launched on the int8 path")
         if kname not in on_path and n:
-            raise AssertionError(f"kernel {kname} launched on the int8 path, which does not run it")
+            raise AssertionError(f"{label}: kernel {kname} launched on the int8 path, which does "
+                                 f"not run it")
     for (dt, name), res in outs.items():
-        dets = [d for req in res for d in req]
-        for d in dets:
-            if not len(d["boxes"]):
-                raise AssertionError(f"int8 {dt} {name}: an image has no detections")
-            if not (np.isfinite(d["boxes"]).all() and np.isfinite(d["scores"]).all()):
-                raise AssertionError(f"int8 {dt} {name}: non-finite detections")
-            if d["boxes"].shape[1] != 4 or not ((d["labels"] >= 0) & (d["labels"] < 80)).all():
-                raise AssertionError(f"int8 {dt} {name}: malformed detections")
-        print(f"[int8] {str(dt):>14} {name:>7}: detections/img {[len(d['boxes']) for d in dets]}",
-              flush=True)
+        counts = check_served(res, f"{label} {dt} {name}")
+        print(f"[{label}] {str(dt):>14} {name:>7}: detections/img {counts}", flush=True)
 
-    # one request (4x480x640), serving config, on each other route: its
-    # kernels launch on the int8 head outputs and it serves the default
-    # route's detections
+    # one request, serving config, on each other route: its kernels launch
+    # on the int8 head outputs and it serves the default route's detections
     qmodel.score_thresh, qmodel.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
     for route in ROUTES[1:]:
         qmodel.row_gather = route
@@ -1074,22 +1250,22 @@ def phase_int8_slice(qmodel, requests, device, card: str) -> dict:
         for dt, m in models.items():
             for d, d0 in zip(m(requests[1]), outs[(dt, "serving")][1]):
                 if not all(np.array_equal(d[key], d0[key]) for key in ("boxes", "scores", "labels")):
-                    raise AssertionError(f"int8 {route} {dt} serving: detections differ from the "
-                                         f"default route's")
+                    raise AssertionError(f"{label} {route} {dt} serving: detections differ from "
+                                         f"the default route's")
         torch.cuda.synchronize()
         counts = {fn.__name__: fn.launches for fn in KERNELS}
         want = ROUTE_KERNELS[route] + ("qconv1x1", "qconv_kxk")
         for kname, n in counts.items():
             if (kname in want) != (n > 0):
-                raise AssertionError(f"int8 route {route}: kernel {kname} launched {n} times")
-        print(f"[int8] route {route}, serving, 4x480x640 in both dtypes: launches {counts}; "
+                raise AssertionError(f"{label} route {route}: kernel {kname} launched {n} times")
+        shape = (len(requests[1]), *requests[1][0].shape[:2])
+        print(f"[{label}] route {route}, serving, {shape} in both dtypes: launches {counts}; "
               f"detections equal to the default route's", flush=True)
     qmodel.row_gather = DEFAULT_ROUTE
 
     # the card's int8 network against the CPU run of the port (plain
     # versions) on one 480x640 frame, same float32 canvas
-    raw = torch.from_numpy(np.stack(frames(13, 1, 480, 640)))
-    canvas = letterbox_batch(raw.float() / 255.0, make_plan([tuple(raw.shape[1:3])])[0])
+    canvas = pair_canvas(size_divisible)
     cpu_model = copy.deepcopy(qmodel).cpu()
     with torch.inference_mode():
         feats_gpu = qmodel.features(canvas.to(device))
@@ -1102,17 +1278,22 @@ def phase_int8_slice(qmodel, requests, device, card: str) -> dict:
         flips.append((int((d > 0).sum()), d.numel(), int(d.max())))
     head_err = max((hg.cpu() - hc).abs().max().item() for hg, hc in zip(heads_gpu, heads_cpu))
     head_max = max(hc.abs().max().item() for hc in heads_cpu)
-    print(f"[int8] card vs CPU, 1x480x640 float32: PAN int8 features differing (count, of, max levels) "
+    print(f"[{label}] card vs CPU, 1x480x640 float32 on a {tuple(canvas.shape[1:3])} canvas: PAN int8 "
+          f"features differing (count, of, max levels) "
           f"{flips}; head logits max abs diff {head_err:.3e} (max |logit| {head_max:.3f})", flush=True)
     # bound: the int8 activations identical but where the card's and the
     # CPU's sigmoid differ by an ulp at a rounding boundary (a one-level
-    # flip, rarely more after it propagates), and logits within 1e-3 of the
+    # flip; int8_witness holds each conv to that), and the flips' spread
+    # downstream small on these weights, and logits within 1e-3 of the
     # largest logit
     for n, total, mx in flips:
         if n > 1e-3 * total or mx > 2:
-            raise AssertionError(f"int8 card vs CPU: {n}/{total} feature values differ, up to {mx} levels")
+            raise AssertionError(f"{label} card vs CPU: {n}/{total} feature values differ, up to "
+                                 f"{mx} levels")
     if head_err > 1e-3 * head_max:
-        raise AssertionError(f"int8 card vs CPU: head logits differ by {head_err} (max |logit| {head_max})")
+        raise AssertionError(f"{label} card vs CPU: head logits differ by {head_err} (max |logit| "
+                             f"{head_max})")
+    int8_witness(qmodel, canvas.to(device), label)
 
     unpaired = 0
     for dt in (torch.float32, torch.bfloat16):
@@ -1123,11 +1304,401 @@ def phase_int8_slice(qmodel, requests, device, card: str) -> dict:
             with torch.inference_mode():
                 det_gpu = qmodel.postprocess(heads)
                 det_cpu = qmodel.postprocess([h.cpu() for h in heads])
-            un = pair_detections(det_gpu, det_cpu, f"int8 {dt} {name}")
+            un = pair_detections(det_gpu, det_cpu, f"{label} {dt} {name}")
             unpaired += un
-            print(f"[int8] card vs CPU postprocess, int8 {dt} {name} (480, 640): counts equal, "
-                  f"{un} unpaired", flush=True)
+            print(f"[{label}] card vs CPU postprocess, int8 {dt} {name} "
+                  f"{tuple(canvas.shape[1:3])}: counts equal, {un} unpaired", flush=True)
     return dict(launches=launches, models=models, unpaired=unpaired)
+
+
+def pair_canvas(size_divisible: int):
+    """The float32 canvas on which the card's int8 network is held against
+    the CPU's: one 480x640 frame letterboxed to 640, on the CPU."""
+    import torch
+
+    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
+
+    raw = torch.from_numpy(np.stack(frames(13, 1, 480, 640)))
+    plan = make_plan([(480, 640)], 640, 640, size_divisible)[0]
+    return letterbox_batch(raw.float() / 255.0, plan)
+
+
+def int8_calls(model, x) -> list:
+    """(name, module, input, output) of every quantized conv and residual
+    add of ``model.head_outputs(x)``, in the order they finish."""
+    import torch
+
+    from yolort_tpu_torch.ops.blocks import Bottleneck, Conv, Conv2dOnly
+
+    calls, hooks = [], []
+    for name, mod in model.named_modules():
+        if (isinstance(mod, (Conv, Conv2dOnly)) and mod.quantized) or (
+                isinstance(mod, Bottleneck) and mod.add):
+            hooks.append(mod.register_forward_hook(
+                lambda m, i, o, name=name: calls.append((name, m, i[0], o))))
+    try:
+        with torch.inference_mode():
+            model.head_outputs(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def _values(t):
+    """The int8 values of a QTensor, or a float tensor as float64, on the CPU."""
+    return t.q.cpu().int() if hasattr(t, "q") else t.cpu().double()
+
+
+def _to_cpu(t):
+    from yolort_tpu_torch.ops.blocks import QTensor
+
+    return QTensor(t.q.cpu(), t.s, t.dtype) if isinstance(t, QTensor) else t.cpu()
+
+
+def exact_epilogue(mod, xq, scale, bias, inv):
+    """A quantized conv's output in float64 from its exact s32
+    accumulator, before any rounding: ``y * inv`` (int8 out) or ``y``."""
+    import torch
+    import torch.nn.functional as F
+
+    k, cout, cin = mod.k, mod.wq.shape[0], xq.shape[1]
+    w = mod.wq[:, : k * k * cin].reshape(cout, k, k, cin).permute(0, 3, 1, 2).double()
+    y = F.conv2d(xq.double(), w, None, mod.s, mod.pad)
+    y = y * scale.double().view(1, -1, 1, 1) + bias.double().view(1, -1, 1, 1)
+    if getattr(mod, "act", "none") == "silu":
+        y = y * torch.sigmoid(y)
+    return y if inv is None else y * inv
+
+
+def int8_witness(qmodel, canvas, label: str, max_ulps: int = 8) -> dict:
+    """Where the card's int8 network and the CPU run of the port part, conv
+    by conv, on one float32 canvas.
+
+    Chained: the card and the CPU each feed their own values forward; the
+    first quantized conv or residual add whose output differs is printed
+    with the count at every later one.  Teacher-forced: every quantized
+    conv of the CPU copy and the plain version on the card are given the
+    card's own input to that conv, and held against the card's output and
+    the exact value (``exact_epilogue``).  Fails unless, at every conv,
+    the kernel equals its plain version on the card bit for bit and every
+    value where the card and the CPU part is one int8 level apart with an
+    exact value within ``max_ulps`` float32 ulps of a rounding boundary
+    (head convs, float out: within ``max_ulps`` ulps of each other); and
+    unless every residual add of the card's inputs gives the card's sum
+    on the CPU."""
+    import copy
+
+    import torch
+
+    from yolort_tpu_torch.ops.blocks import Bottleneck, _qadd
+    from yolort_tpu_torch.ops.cuda.qconv_kernel import qconv1x1_reference, qconv_kxk_reference
+
+    cpu_model = copy.deepcopy(qmodel).cpu()
+    cpu_mods = dict(cpu_model.named_modules())
+    card = int8_calls(qmodel, canvas)
+    cpu = int8_calls(cpu_model, canvas.cpu())
+    if [c[0] for c in card] != [c[0] for c in cpu]:
+        raise AssertionError(f"{label} witness: the card and the CPU ran different modules")
+
+    chained, first = [], None
+    for (name, _, _, yg), (_, _, _, yc) in zip(card, cpu):
+        d = (_values(yg) - _values(yc)).abs()
+        n = int((d > 0).sum())
+        chained.append((name, n, d.numel(), float(d.max())))
+        if n and first is None:
+            first = name
+    forced = []
+    prev = {}
+    with torch.inference_mode():
+        for name, mod, xg, yg in card:
+            if isinstance(mod, Bottleneck):
+                # the add of the card's input and its cv2 output, on the CPU
+                y = _qadd(_to_cpu(xg), _to_cpu(prev[name + ".cv2"]), cpu_mods[name].as_)
+                n = int((_values(y) != _values(yg)).sum())
+                if n:
+                    raise AssertionError(f"{label} witness: residual add {name} differs from the "
+                                         f"card's on its inputs at {n} values")
+                continue
+            prev[name] = yg
+            xq, scale, bias, os, ft = mod.qconv_operands(xg)
+            inv = None if os is None else 1.0 / os
+            kw = dict(act=getattr(mod, "act", "none"), inv_out_scale=inv, out_dtype=ft)
+            if mod.k == 1 and mod.s == 1 and mod.pad == 0 and xq.shape[1] % 4 == 0:
+                plain = qconv1x1_reference(xq, mod.wq, scale, bias, **kw)
+            else:
+                plain = qconv_kxk_reference(xq, mod.wq, scale, bias, k=mod.k, stride=mod.s,
+                                            pad=mod.pad, **kw)
+            card_v = _values(yg)
+            n_plain = int((card_v != _values(plain)).sum())
+            if n_plain:
+                raise AssertionError(f"{label} witness: {name}: the kernel differs from its plain "
+                                     f"version on the card at {n_plain} values")
+            cpu_v = _values(cpu_mods[name](_to_cpu(xg)))
+            exact = exact_epilogue(mod, xq, scale, bias, inv).cpu()
+            part = card_v != cpu_v
+            n = int(part.sum())
+            if os is None:
+                # float out: the distance of card and CPU in float32 ulps
+                a, b = card_v.float(), cpu_v.float()
+                ulp = (torch.nextafter(a.abs(), torch.tensor(float("inf"))) - a.abs()).double()
+                far = float(((a.double() - b.double()).abs() / ulp).max())
+                forced.append((name, n, card_v.numel(), far, None, None))
+                if far > max_ulps:
+                    raise AssertionError(f"{label} witness: {name} card and CPU logits {far} "
+                                         f"ulps apart")
+                continue
+            rounded = exact.round().clamp(-127, 127)
+            n_card = int((card_v.double() != rounded).sum())
+            n_cpu = int((cpu_v.double() != rounded).sum())
+            far = 0.0
+            if n:
+                t = exact[part]
+                levels = int((card_v - cpu_v).abs().max())
+                ulp = (torch.nextafter(t.float().abs(), torch.tensor(float("inf")))
+                       - t.float().abs()).double()
+                far = float(((t - (t.floor() + 0.5)).abs() / ulp).max())
+                if levels > 1 or far > max_ulps:
+                    raise AssertionError(f"{label} witness: {name}: card and CPU differ at {n} "
+                                         f"values, up to {levels} levels, exact values up to "
+                                         f"{far:.1f} ulps from a rounding boundary")
+            forced.append((name, n, card_v.numel(), far, n_card, n_cpu))
+    print(f"[{label}] witness, teacher-forced, {len(forced)} quantized convs: (conv, card != CPU, "
+          f"of, the largest distance of those from a rounding boundary in f32 ulps (float out: "
+          f"card - CPU in ulps), card != exact, CPU != exact): "
+          f"{[f for f in forced if f[1] or f[4] or f[5]]}; every other conv equal on all three; "
+          f"in all, of {sum(f[2] for f in forced)} values, card != CPU {sum(f[1] for f in forced)}, "
+          f"card != exact {sum(f[4] or 0 for f in forced)}, CPU != exact "
+          f"{sum(f[5] or 0 for f in forced)}", flush=True)
+    print(f"[{label}] witness, chained: first output to differ {first}; (module, differing, of, "
+          f"max |diff|) from there: {chained[[c[0] for c in chained].index(first):] if first else []}",
+          flush=True)
+    zero = [name for name, _, _, y in card if hasattr(y, "q") and not bool(y.q.any())]
+    print(f"[{label}] int8 outputs all 0 on the card: {zero}", flush=True)
+    return dict(forced=forced, chained=chained, first=first, zero=zero)
+
+
+def flip_spread(qmodel, canvas, target: str) -> list:
+    """(module, differing, of, max |diff|) of every quantized conv and
+    residual add from ``target`` on: the card's int8 network with one value
+    of ``target``'s int8 output moved by one level (the middle of the first
+    image), against the same network unchanged, on the same canvas."""
+    from yolort_tpu_torch.ops.blocks import QTensor
+
+    def hook(mod, inputs, out):
+        q = out.q.clone()
+        _, c, h, w = q.shape
+        v = int(q[0, c // 2, h // 2, w // 2])
+        q[0, c // 2, h // 2, w // 2] = v + 1 if v < 127 else v - 1
+        return QTensor(q, out.s, out.dtype)
+
+    base = int8_calls(qmodel, canvas)
+    handle = dict(qmodel.named_modules())[target].register_forward_hook(hook)
+    try:
+        moved = int8_calls(qmodel, canvas)
+    finally:
+        handle.remove()
+    names = [c[0] for c in base]
+    out = []
+    for (name, _, _, a), (_, _, _, b) in zip(base[names.index(target):], moved[names.index(target):]):
+        d = (_values(a) - _values(b)).abs()
+        out.append((name, int((d > 0).sum()), d.numel(), float(d.max())))
+    return out
+
+
+def phase_p6_int8_seeded(device, requests) -> dict:
+    """yolov5s6 @1280 in int8 on its seeded random weights, built as phase
+    5 builds yolov5s, held against the CPU conv by conv (``int8_witness``)
+    on phase 5's 480x640 frame; then the spread of one flip of one level
+    at the first conv where the card and the CPU part, on the card alone
+    (``flip_spread``), beside the chained count at each PAN output.  This
+    network's activations shrink by some 10^9 through its depth, and its
+    up walk's int8 outputs are all 0 where a concat's unified scale is far
+    above them: its int8 card-vs-CPU comparison is made here, where each
+    conv's rule holds on any weights, and served and paired end to end on
+    the fabricated checkpoint's weights (phase 6)."""
+    import torch
+
+    import yolort_tpu_torch
+
+    fmodel = yolort_tpu_torch.yolov5s6(device=device, dtype=torch.float32, seed=0, size=P6_SIZE)
+    qmodel = build_int8(fmodel, device, requests, frames(22, 8, 1280, 1280), "p6 int8 seeded")
+    canvas = pair_canvas(64).to(device)
+    wit = int8_witness(qmodel, canvas, "p6 int8 seeded")
+    outs = [c[0] for c in wit["chained"] if c[0].endswith(".cv3") and c[0].startswith("pan.layer.")]
+    chained = {c[0]: c[1:] for c in wit["chained"]}
+    print(f"[p6 int8 seeded] PAN outputs (differing, of, max levels), card vs CPU chained: "
+          f"{[(o, chained[o]) for o in outs]}", flush=True)
+    for name, n, *_ in wit["forced"]:
+        if n:
+            spread = {c[0]: c[1:] for c in flip_spread(qmodel, canvas, name)}
+            print(f"[p6 int8 seeded] one flip at {name} (where the card and the CPU part {n} "
+                  f"times), on the card alone: {[(o, spread.get(o)) for o in outs]}", flush=True)
+    mods = dict(qmodel.named_modules())
+    scales = {name: f"{mods[name].os:.3e}" for i in range(1, 2 * len(outs) - 1, 2)
+              for name in (f"pan.layer.{i}", f"pan.layer.{i + 1}.cv1")}
+    print(f"[p6 int8 seeded] output scales of the up walk's downsamples (unified with their "
+          f"concat group) and of the convs that read them: {scales}", flush=True)
+    return wit
+
+
+def oracle_hwa(oracle, canvas, outs, no: int):
+    """The fixture oracle's decoded predictions of a float32 NHWC canvas on
+    the CPU, reordered per level from its (anchor, h, w) order to the
+    port's (h, w, anchor)."""
+    import torch
+
+    with torch.inference_mode():
+        ref = oracle(canvas.permute(0, 3, 1, 2).contiguous()).numpy()
+    parts, off = [], 0
+    for o in outs:
+        h, w = o.shape[1:3]
+        parts.append(ref[:, off:off + 3 * h * w].reshape(-1, 3, h, w, no)
+                     .transpose(0, 2, 3, 1, 4).reshape(ref.shape[0], -1, no))
+        off += 3 * h * w
+    return np.concatenate(parts, axis=1)
+
+
+# (label, make_checkpoint keywords, load_from_yolov5 keywords, decode
+# tolerance (rtol, atol) of the JAX test of the family)
+CHECKPOINTS = (
+    ("s6 r6.0", dict(dm=0.33, wm=0.5, p6=True), dict(size=P6_SIZE, size_divisible=64),
+     (2e-3, 3e-2)),
+    ("n r3.1", dict(version="r3.1"), dict(version="r3.1"), (2e-3, 3e-2)),
+    ("n r4.0", dict(version="r4.0"), dict(version="r4.0"), (2e-3, 3e-2)),
+    ("n tan", dict(version="tan"), dict(version="r4.0", use_tan=True), (2e-3, 3e-2)),
+)
+
+
+def fabricate(tmp: str, label: str):
+    """(path, torch oracle) of the CHECKPOINTS entry ``label``, written into
+    ``tmp`` by tests/torch_fixture.make_checkpoint (80 classes, seed 0)."""
+    import importlib.util
+    from pathlib import Path
+
+    # by path: an installed package named 'tests' would shadow the
+    # checkout's test directory
+    spec = importlib.util.spec_from_file_location(
+        "torch_fixture", Path(__file__).resolve().parent / "tests" / "torch_fixture.py")
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    make_kw = next(mk for lab, mk, _, _ in CHECKPOINTS if lab == label)
+    path = f"{tmp}/{label.replace(' ', '_')}.pt"
+    return path, fixture.make_checkpoint(path, nc=80, seed=0, **make_kw)
+
+
+def phase_checkpoints(tmp: str, made: dict, device, card: str) -> dict:
+    """Ultralytics-layout checkpoints fabricated by
+    tests/torch_fixture.make_checkpoint into ``tmp``, or taken from
+    ``made`` ({label: (path, oracle)}) (80 classes, fp16, random
+    BatchNorm statistics): yolov5s6 at full width @1280, and nano r3.1,
+    r4.0 and TAN @640, each loaded by ``YOLOv5.load_from_yolov5`` on the
+    card in both dtypes and on the CPU.  Each serves frames on the card
+    through the default route (its kernels must launch, and no other);
+    on one frame its card decode agrees with the fixture's torch oracle
+    within the JAX test's tolerance, its card head outputs with the CPU's
+    within 1e-3 of the largest logit, and the card's postprocess of its
+    head outputs (on a 1/64 grid, see below) pairs with the CPU's in both
+    dtypes.  The card's postprocess is paired with the CPU's on
+    real-valued logits in phases 4 and 6 (seeded weights), not here."""
+    import torch
+
+    from yolort_tpu_torch import YOLOv5
+    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    requests = {"s6 r6.0": [frames(17, 2, 720, 1280), frames(18, 1, 1280, 1280)]}
+    unpaired, launches = 0, {}
+    for label, _, load_kw, (rtol, atol) in CHECKPOINTS:
+        t0 = time.perf_counter()
+        path, oracle = made[label] if label in made else fabricate(tmp, label)
+        models = {dt: YOLOv5.load_from_yolov5(path, device=device, dtype=dt, **load_kw)
+                  for dt in (torch.float32, torch.bfloat16)}
+        cpu = YOLOv5.load_from_yolov5(path, device="cpu", **load_kw)
+        reqs = requests.get(label, [frames(19, 2, 480, 640)])
+        reset_launch_counts()
+        for dt, m in models.items():
+            counts = [check_served([m(req)], f"checkpoint {label} {dt}") for req in reqs]
+            print(f"[checkpoint] {label} {dt} served: detections/img {counts}", flush=True)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        for kname, n in counts.items():
+            if (kname in ROUTE_KERNELS[DEFAULT_ROUTE]) != (n > 0):
+                raise AssertionError(f"checkpoint {label}: kernel {kname} launched {n} times")
+        for kname, n in counts.items():
+            launches[kname] = launches.get(kname, 0) + n
+
+        raw = torch.from_numpy(np.stack(reqs[0][:1]))
+        canvas = cpu.canvas(raw)[0]
+        with torch.inference_mode():
+            outs = models[torch.float32].model.head_outputs(canvas.to(device))
+            dec = models[torch.float32].model.decode(canvas.to(device)).cpu().numpy()
+            outs_cpu = cpu.model.head_outputs(canvas)
+        ref = oracle_hwa(oracle, canvas, outs_cpu, 85)
+        print(f"[checkpoint] {label}: PAN outputs' max |value| by level "
+              f"{pan_absmax(models[torch.float32], reqs[0][:1])}; near-ties among the 4096 best "
+              f"pair scores {100 * near_tie_share(outs):.1f}% of the gaps", flush=True)
+        dec_err = np.abs(dec - ref).max()
+        bad = ~np.isclose(dec, ref, rtol=rtol, atol=atol)
+        bad[..., 4:] |= np.abs(dec[..., 4:] - ref[..., 4:]) > 2e-3
+        if bad.any():
+            raise AssertionError(f"checkpoint {label}: card decode differs from the torch "
+                                 f"oracle at {int(bad.sum())} values (max abs {dec_err})")
+        head_err = max((g.cpu() - c).abs().max().item() for g, c in zip(outs, outs_cpu))
+        head_max = max(c.abs().max().item() for c in outs_cpu)
+        if head_err > 1e-3 * head_max:
+            raise AssertionError(f"checkpoint {label}: card head outputs differ from the CPU's "
+                                 f"by {head_err} (max |logit| {head_max})")
+        print(f"[checkpoint] {label} {tuple(canvas.shape[1:3])}: card decode vs torch oracle "
+              f"max abs {dec_err:.3e} (rtol {rtol}, atol {atol}); card vs CPU head outputs "
+              f"max abs {head_err:.3e} of max |logit| {head_max:.3f}", flush=True)
+        for dt, m in models.items():
+            with torch.inference_mode():
+                # the head outputs on a 1/64 grid, the same on both sides: a
+                # fabricated network scores every pair within 0.002 of the
+                # others (98% of the gaps between its top 4096 scores are
+                # under 4 ulps), where the card's and the CPU's sigmoids,
+                # which differ by an ulp, reorder them; on the grid two
+                # scores are equal or far more than an ulp apart
+                heads = [(torch.round(h * 64) / 64).contiguous()
+                         for h in m.model.head_outputs(canvas.to(device, dt))]
+                det_gpu = m.model.postprocess(heads)
+                det_cpu = m.model.postprocess([h.cpu() for h in heads])
+            un = pair_detections(det_gpu, det_cpu, f"checkpoint {label} {dt}")
+            unpaired += un
+            print(f"[checkpoint] {label} {dt} card vs CPU postprocess: counts equal, "
+                  f"{un} unpaired; {time.perf_counter() - t0:.1f} s", flush=True)
+        del models, cpu
+    return dict(launches=launches, unpaired=unpaired)
+
+
+def phase_p6_times(models, card: str) -> dict:
+    """yolov5s6 serving, batch 8 @1280x1280 uint8, on each route: images/s
+    (host clock, median of 5), the device-busy time of one call and its
+    share of the wall time (profiler), in both dtypes."""
+    import torch
+
+    batch = frames(21, 8, 1280, 1280)
+    out = {}
+    for dt, m in models.items():
+        m.model.score_thresh, m.model.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+        for route in ROUTES:
+            m.model.row_gather = route
+            m(batch)
+            ts = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m(batch)
+                ts.append(time.perf_counter() - t0)
+            sec = float(np.median(ts))
+            busy = device_profile(lambda: m(batch), iters=3)[0]
+            share = f"{100 * busy / (sec * 1e3):.1f}%" if busy else "not measured"
+            out[(str(dt), route)] = dict(images_per_s=8 / sec, batch_ms=sec * 1e3, device_busy_ms=busy)
+            print(f"[times] yolov5s6 serving {dt} batch 8 @1280x1280 uint8, route {route}: "
+                  f"{8 / sec:.1f} images/s ({sec * 1e3:.2f} ms/batch, host clock, median of 5); "
+                  f"device busy {fmt_ms(busy)} ({share} of the wall) | {card}", flush=True)
+        m.model.row_gather = DEFAULT_ROUTE
+    return out
 
 
 def phase_throughput(models, card: str, label: str) -> None:
@@ -1136,8 +1707,6 @@ def phase_throughput(models, card: str, label: str) -> None:
     the heaviest kernels and the hand-written kernels' share by
     torch.profiler."""
     import torch
-
-    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
 
     batch = frames(20, 32, 640, 640)
     for dt, m in models.items():
@@ -1156,10 +1725,9 @@ def phase_throughput(models, card: str, label: str) -> None:
 
         yolo = m.model
         x = torch.from_numpy(np.stack(batch)).to(m.device)
-        plan = make_plan([tuple(x.shape[1:3])])[0]
         with torch.inference_mode():
             def net():
-                return yolo.head_outputs(letterbox_batch(x.to(dt) * (1.0 / 255.0), plan))
+                return yolo.head_outputs(m.canvas(x)[0])
 
             heads = net()
             net_ms = median_ms(net, 5, 3)
@@ -1189,16 +1757,13 @@ def phase_route_times(models, card: str) -> dict:
     calls (host gaps included) and the profiler's device time."""
     import torch
 
-    from yolort_tpu_torch.models.transform import letterbox_batch, make_plan
-
     batch = frames(20, 32, 640, 640)
     out = {}
     for dt, m in models.items():
         yolo = m.model
         x = torch.from_numpy(np.stack(batch)).to(m.device)
-        plan = make_plan([tuple(x.shape[1:3])])[0]
         with torch.inference_mode():
-            heads = yolo.head_outputs(letterbox_batch(x.to(dt) * (1.0 / 255.0), plan))
+            heads = yolo.head_outputs(m.canvas(x)[0])
             for name, cfg in (("eval", EVAL), ("serving", SERVING)):
                 yolo.score_thresh, yolo.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
                 line = []
@@ -1249,7 +1814,8 @@ def main() -> int:
     import torch
 
     card = phase_device()
-    import yolort_tpu_torch  # noqa: F401  (fails outside a checkout)
+    import yolort_tpu_torch  # (fails outside a checkout)
+    from yolort_tpu_torch import YOLOv5
 
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -1262,20 +1828,46 @@ def main() -> int:
     res = phase_kernels(device, card)
     res.update(phase_postprocess_kernels(device, card))
     res.update(phase_sweep_kernels(device, card))
+    for name, extra in phase_p6_kernels(device, card).items():
+        res[name].update(extra)
     done("kernels")
     sl = phase_slice(device, card)
     done("slice")
     batch = frames(20, 32, 640, 640)
-    qmodel = build_int8(device, sl["requests"], batch)
-    res.update(phase_qconv_kernels(qmodel, batch, device, card))
+    fmodel = yolort_tpu_torch.yolov5s(device=device, dtype=torch.float32, seed=0)
+    qmodel = build_int8(fmodel, device, sl["requests"], batch, "int8")
+    res.update(phase_qconv_kernels(qmodel, fmodel, batch, B, device, card))
     done("int8 build and qconv kernels")
     q8 = phase_int8_slice(qmodel, sl["requests"], device, card)
     done("int8 slice")
+    p6 = phase_p6(device, card)
+    done("p6 slice")
+    phase_p6_int8_seeded(device, p6["requests"])
+    done("p6 int8 seeded")
+    with tempfile.TemporaryDirectory() as tmp:
+        # P6 int8 served on the fabricated yolov5s6 checkpoint's weights:
+        # on the seeded ones one flip spreads to thousands of values
+        # (phase_p6_int8_seeded)
+        made = {"s6 r6.0": fabricate(tmp, "s6 r6.0")}
+        path = made["s6 r6.0"][0]
+        fmodel6 = YOLOv5.load_from_yolov5(path, device=device, size=P6_SIZE, size_divisible=64)
+        batch6 = frames(22, 8, 1280, 1280)
+        qmodel6 = build_int8(fmodel6, device, p6["requests"], batch6, "p6 int8")
+        for name, r in phase_qconv_kernels(qmodel6, fmodel6, batch6, 4, device, card).items():
+            res[name]["p6"] = r
+        q86 = phase_int8_slice(qmodel6, p6["requests"], device, card, "p6 int8", size=P6_SIZE,
+                               size_divisible=64)
+        del qmodel6, fmodel6, q86["models"]
+        done("p6 int8")
+        ck = phase_checkpoints(tmp, made, device, card)
+        done("checkpoints")
     phase_throughput(sl["models"], card, "float")
     phase_throughput(q8["models"], card, "int8")
     phase_route_times(sl["models"], card)
+    phase_p6_times(p6["models"], card)
     done("times")
-    paths = {"float": sl["launches"], "int8": q8["launches"], **phase_entry_points()}
+    paths = {"float": sl["launches"], "int8": q8["launches"], "p6": p6["launches"],
+             "p6_int8": q86["launches"], "checkpoint": ck["launches"], **phase_entry_points()}
     done("entry points")
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

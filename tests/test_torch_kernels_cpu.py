@@ -28,7 +28,7 @@ from yolort_tpu_torch.experiments.fetch_block_sweep import GEOMETRIES
 from yolort_tpu_torch.ops.cuda.lookup_kernel import (
     BISECT_SMEM_BYTES, ROW_BYTES, VARIANTS, BisectPlan, _launch_bisect, bisect_plan,
 )
-from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, padded_depth, qconv_plan
+from yolort_tpu_torch.ops.cuda.qconv_kernel import TILES, pack_weight, padded_depth, qconv_plan
 from yolort_tpu_torch.ops.cuda.stage1_kernel import stage1_plan
 from yolort_tpu_torch.ops.boxes import box_iou_matrix
 from yolort_tpu_torch.ops.nms import NMSConfig, batched_postprocess_from_heads
@@ -219,6 +219,11 @@ BISECT_CASES = [  # (bsz, m, k, thr, kind)
     (8, 12500, 20000, 0.005, "random"),  # streamed: pre_nms_topk = 20000
     (1, 12500, 20000, 0.005, "ties"),
     (8, 12500, 20000, 0.25, "fewer"),
+    (1, 479, 4104, 0.0, "random"),     # stage 1 of P6 on the 768x1280 canvas, eval
+    (8, 479, 520, 0.0, "random"),      # ... serving
+    (1, 797, 4104, 0.0, "ties"),       # stage 1 of P6 at 1280x1280, eval
+    (8, 797, 4104, 0.0, "random"),
+    (8, 797, 520, 0.0, "random"),      # ... serving
     (8, 5000, 8000, 0.005, "random"),  # streamed: past half an SM at 16 blocks
     (32, 7000, 11000, 0.005, "random"),
     (2, 40, 300, 0.25, "random"),
@@ -250,7 +255,7 @@ def test_bisect_count_kernel_matches_plain_at_every_plan(cuda_device, cluster, r
     """Both modes at every cluster size give the plain version's result; a
     resident slice the card cannot hold is refused, not run, and only past
     bisect_plan's budget; a refusal leaves no error for the next launch."""
-    for m, kind in ((2565, "random"), (197, "ties")):
+    for m, kind in ((2565, "random"), (197, "ties"), (479, "random"), (797, "random")):
         table = _score_table(cuda_device, 4, m, kind, seed=cluster)
         want = bisect_count_reference(table, 4096, 0x3BA3D70A)
         try:
@@ -272,6 +277,7 @@ def test_bisect_count_kernel_matches_plain_at_every_plan(cuda_device, cluster, r
     (1, 12500, 16, False), (8, 12500, 16, False), (32, 12500, 16, False),  # too large a slice
     (1, 5000, 16, False), (32, 7000, 16, False), (32, 7200, 16, False),  # past half an SM
     (8, 3200, 16, True), (8, 3201, 16, False),  # 200 rows a block fit, 201 do not
+    (1, 479, 8, True), (8, 479, 8, True), (1, 797, 16, True), (8, 797, 16, True),  # P6 stage 1
     (1, 1, 2, True), (4, 3, 3, True), (2, 40, 8, True), (65535, 197, 8, True),
 ])
 def test_bisect_plan(bsz, m, cluster, resident):
@@ -336,6 +342,35 @@ def test_chip_smoke_nms_work_counts_what_greedy_nms_needs(k, tile, stop):
     ref = nms_mask_reference(boxes, valid, 0.3, tile, stop)
     assert torch.equal(ref, keep)
     assert smoke.nms_work(ref, valid, tile, stop) == (16 * sum(exits) + 2 * 3 * k, pairs)
+
+
+def test_chip_smoke_int8_witness_and_flip_spread():
+    """The smoke's conv-by-conv int8 comparison, run with the CPU on both
+    sides: every quantized conv and residual add in call order, nothing
+    parts, and the exact epilogue rounds to the plain version's int8 but
+    at values an ulp from a rounding boundary; one flip of one level is
+    seen at its own conv as one value, and spreads downstream."""
+    from yolort_tpu_torch.ops import quantization as Q
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", PKG.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    m = yolort_tpu_torch.yolov5n6(device="cpu", seed=0, size=(128, 128))
+    x = torch.from_numpy(np.random.default_rng(0).random((2, 128, 128, 3), dtype=np.float32))
+    Q.calibrate_activations(m.model, [x])
+    q = Q.finalize_scales(Q.quantize_compute_params(m.model), x[:1])
+    calls = smoke.int8_calls(q, x[:1])
+    convs = [c for c in calls if hasattr(c[1], "wq")]
+    assert len(convs) == sum(getattr(mod, "quantized", False) for mod in q.modules())
+    assert [c[0] for c in calls][-4:] == ["head.0", "head.1", "head.2", "head.3"]
+    wit = smoke.int8_witness(q, x[:1], "cpu")
+    assert wit["first"] is None and all(n == 0 for _, n, _, _ in wit["chained"])
+    assert len(wit["forced"]) == len(convs)
+    values = sum(total for _, _, total, _, n_card, _ in wit["forced"] if n_card is not None)
+    assert sum(n_card or 0 for *_, n_card, _ in wit["forced"]) < 1e-4 * values
+    spread = smoke.flip_spread(q, x[:1], "backbone.1")
+    assert spread[0][:2] == ("backbone.1", 1) and spread[0][3] == 1.0
+    assert sum(n for _, n, _, _ in spread[1:]) > 0
 
 
 @pytest.mark.cuda
@@ -431,6 +466,26 @@ def test_qconv_wrappers_check_their_inputs_and_refuse_groups():
         qconv1x1(*(t.to("meta") for t in (xq, wq[:, :16].contiguous(), scale, bias)))
 
 
+@pytest.mark.parametrize("m,cout,k,cin", [
+    (4 * 640 * 640, 32, 6, 3),     # the yolov5s6 stem at 1280, batch 4
+    (4 * 40 * 40, 384, 3, 256),    # the backbone's Cout 384 downsample
+    (4 * 40 * 40, 384, 1, 768),    # a PAN C3's Cin 768
+    (4 * 20 * 20, 512, 3, 384),    # the p6 downsample
+    (4 * 20 * 20, 384, 1, 512),
+    (2 * 40 * 40, 768, 3, 512),    # yolov5l6's Cout 768
+])
+def test_qconv_plan_covers_the_p6_shapes(m, cout, k, cin):
+    """The tile and loader qconv_plan picks at the P6 shapes: a tile of the
+    kernel's, output tiles that cover every pixel and channel, the
+    cp.async loader for 16-channel rows, a ring that fits the card's
+    shared memory."""
+    plan = qconv_plan(m, cout, k * k * cin, cin, padded_depth(k, cin))
+    assert (plan.bm, plan.bn) in TILES or (plan.bm, plan.bn) == (128, 32)
+    assert plan.tiles[0] * plan.bm >= m and plan.tiles[1] * plan.bn >= cout
+    assert plan.gather == (cin % 16 != 0) and plan.smem <= 232_448
+    assert plan.slabs * 64 >= k * k * cin
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,s,pad,n,h,w,c,co,fill", [
     (6, 2, 2, 2, 64, 96, 3, 32, "random"),
@@ -456,6 +511,15 @@ def test_qconv_wrappers_check_their_inputs_and_refuse_groups():
     (3, 2, 1, 2, 2, 3, 64, 64, "random"),
     # a 20x20 batch-8 layer, which takes a 64-row tile
     (3, 1, 1, 8, 20, 20, 256, 256, "random"),
+    # yolov5s6 at 1280, batch 4: the stem, Cout 384 and Cin 768; Cout 768 (l6)
+    (6, 2, 2, 4, 1280, 1280, 3, 32, "random"),
+    (3, 2, 1, 4, 80, 80, 256, 384, "random"),
+    (1, 1, 0, 4, 40, 40, 384, 192, "random"),
+    (1, 1, 0, 4, 40, 40, 768, 384, "random"),
+    (3, 2, 1, 4, 40, 40, 384, 512, "random"),
+    (1, 1, 0, 4, 20, 20, 512, 384, "random"),
+    (3, 2, 1, 2, 80, 80, 512, 768, "random"),
+    (1, 1, 0, 2, 40, 40, 768, 768, "random"),
 ])
 def test_qconv_kernels_match_plain(cuda_device, k, s, pad, n, h, w, c, co, fill):
     args = _qconv_operands(k, n, h, w, c, co, seed=k + c, device=cuda_device,
@@ -702,6 +766,8 @@ STAGE1_CASES = {
     "4x480x640": (4, ((60, 80), (30, 40), (15, 20)), 85),  # bf16: tiles start 8 bytes off
     "one level 5x7 kw 9": (3, ((5, 7),), 9),
     "P6 at 640": (2, (*P5_640, (10, 10)), 85),
+    "P6 at 1280": (8, ((160, 160), (80, 80), (40, 40), (20, 20)), 85),
+    "P6 on 768x1280": (8, ((96, 160), (48, 80), (24, 40), (12, 20)), 85),  # a 720p frame
     "offset views": (3, ((20, 20), (10, 10), (5, 5)), 85),  # bases 1 and 3 elements into a buffer
     "B=1": (1, P5_640, 85),
     "B=32": (32, P5_640, 85),

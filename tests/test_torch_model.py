@@ -102,12 +102,11 @@ def test_factories_and_registry():
     from yolort_tpu.models.yolo import ARCHS as JARCHS
     from yolort_tpu_torch.models.yolo import ARCHS, build_yolo
 
-    assert set(ARCHS) <= set(JARCHS)
-    assert {a[len("yolov5_darknet_pan_"):][0] for a in ARCHS} == set("nsmlx")
+    assert set(ARCHS) == set(JARCHS)
     m = yolort_tpu_torch.yolov5n(device="cpu", seed=1)
     assert m.model.num_classes == 80 and m.dtype == torch.float32
     with pytest.raises(ValueError):
-        build_yolo("yolov5_darknet_pan_s_r31", device="cpu")
+        build_yolo("yolov5_darknet_pan_n_r31", device="cpu")
     with pytest.raises(ValueError):
         yolort_tpu_torch.yolov5n(device="cpu", dtype=torch.float16)
 

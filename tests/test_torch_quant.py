@@ -26,7 +26,7 @@ import torch
 
 from torch_parity import (
     MARKS, copy_marks, nhwc_to_port, port_int8_leaf, port_to_nhwc, randomize_convs,
-    shift_head_bias, tiny_pair, unwrap_static,
+    shift_head_bias, tiny_pair, unwrap_static, walk_convs,
 )
 from yolort_tpu.models import transform as JT
 from yolort_tpu.models.yolo import YOLO as JaxYOLO
@@ -136,24 +136,12 @@ def calibrated():
     return jm, params, pc, tm, batches
 
 
-def _walk(tree, module, path=()):
-    """(path, JAX node, port module) for every conv leaf and Bottleneck."""
-    if isinstance(module, (Conv, Conv2dOnly)):
-        yield path, tree, module
-        return
-    if isinstance(module, Bottleneck):
-        yield path, tree, module
-    for key, sub in tree.items():
-        if isinstance(sub, dict):
-            yield from _walk(sub, module._modules[key], path + (key,))
-
-
 def test_calibration_ranges_match_jax(calibrated):
     jm, params, pc, tm, batches = calibrated
     port = copy.deepcopy(tm)
     TQ.calibrate_activations(port, [torch.from_numpy(b) for b in batches])
     n = 0
-    for path, node, mod in _walk(pc, port):
+    for path, node, mod in walk_convs(pc, port):
         for key in MARKS:
             assert (key in node) == hasattr(mod, key), (path, key)
             if key in node:
@@ -206,7 +194,7 @@ def _quantized_pair(calibrated):
 def test_quantize_compute_params_matches_jax(calibrated):
     jq, tq = _quantized_pair(calibrated)
     counts = {"int8": 0, "float": 0, "as": 0}
-    for path, node, mod in _walk(jq, tq):
+    for path, node, mod in walk_convs(jq, tq):
         assert not any(hasattr(mod, k) for k in MARKS)
         if isinstance(mod, Bottleneck):
             assert (mod.as_ is None) == ("as" not in node)
@@ -272,7 +260,7 @@ def test_finalize_scales_matches_jax(calibrated):
     jf = unwrap_static(JQ.finalize_scales(jm.head_outputs, jq, x))
     TQ.finalize_scales(tq, x)
     n = 0
-    for path, node, mod in _walk(jf, tq):
+    for path, node, mod in walk_convs(jf, tq):
         for key, attr in (("xs", "xs"), ("os", "os"), ("as", "as_")):
             if key in node:
                 v = getattr(mod, attr)

@@ -18,7 +18,7 @@ from yolort_tpu.models.yolo import YOLO as JaxYOLO
 from yolort_tpu.ops.blocks import StaticScale, fuse_conv_bn
 from yolort_tpu_torch.models._bridge import params_from_jax
 from yolort_tpu_torch.models.yolo import YOLO
-from yolort_tpu_torch.ops.blocks import Conv, Conv2dOnly
+from yolort_tpu_torch.ops.blocks import Bottleneck, Conv, Conv2dOnly
 
 # the gate runs several xdist workers on few cores
 torch.set_num_threads(1)
@@ -32,7 +32,9 @@ def to_numpy(tree):
 
 def randomize_convs(params, seed: int = 0):
     """Random BatchNorm statistics on every unfused conv leaf, then every
-    other such leaf folded to {'w', 'b'}.  Returns a new numpy tree."""
+    other such leaf folded to {'w', 'b'}; a standalone BatchNorm leaf (no
+    'w') gets random statistics and stays unfused.  Returns a new numpy
+    tree."""
     rng = np.random.default_rng(seed)
     count = [0]
 
@@ -40,12 +42,14 @@ def randomize_convs(params, seed: int = 0):
         if isinstance(p, dict) and "gamma" in p:
             c = p["gamma"].shape[0]
             q = dict(
-                w=np.asarray(p["w"], np.float32),
                 gamma=rng.uniform(0.5, 1.5, c).astype(np.float32),
                 beta=(rng.standard_normal(c) * 0.1).astype(np.float32),
                 mean=(rng.standard_normal(c) * 0.1).astype(np.float32),
                 var=rng.uniform(0.5, 1.5, c).astype(np.float32),
             )
+            if "w" not in p:
+                return q
+            q["w"] = np.asarray(p["w"], np.float32)
             count[0] += 1
             if count[0] % 2:
                 w, b = fuse_conv_bn(q["w"], q["gamma"], q["beta"], q["mean"], q["var"])
@@ -136,3 +140,16 @@ def port_int8_leaf(module) -> dict:
     if module.os is not None:
         leaf["os"] = module.os
     return leaf
+
+
+def walk_convs(tree, module, path=()):
+    """(path, JAX node, port module) for every conv leaf and Bottleneck of
+    a JAX tree and the port module holding it."""
+    if isinstance(module, (Conv, Conv2dOnly)):
+        yield path, tree, module
+        return
+    if isinstance(module, Bottleneck):
+        yield path, tree, module
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from walk_convs(sub, module._modules[key], path + (key,))

@@ -1,9 +1,10 @@
 """YOLO detection head and anchor properties.
 
 Port of ``yolort_tpu/models/head.py``: per-level 1x1 convs producing
-A*(5+nc) channels with the prior-probability bias init, and the flat-index
-anchor arithmetic the postprocess uses.  Head outputs are returned NHWC,
-(B, H, W, A*(5+nc)), as in the JAX package.
+A*(5+nc) channels with the prior-probability bias init, the COCO and P6
+anchors, the flat-index anchor arithmetic the postprocess uses, and the
+full decode (``concat_pred_logits``: everything but the NMS).  Head
+outputs are returned NHWC, (B, H, W, A*(5+nc)), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +23,14 @@ DEFAULT_ANCHOR_GRIDS = (
     (10, 13, 16, 30, 33, 23),
     (30, 61, 62, 45, 59, 119),
     (116, 90, 156, 198, 373, 326),
+)
+# P6 defaults
+P6_STRIDES = (8, 16, 32, 64)
+P6_ANCHOR_GRIDS = (
+    (19, 27, 44, 40, 38, 94),
+    (96, 68, 86, 152, 180, 137),
+    (140, 301, 303, 264, 238, 542),
+    (436, 615, 739, 380, 925, 792),
 )
 
 # logit of the padding lanes of a lane-padded head: sigmoid(-1e4) == 0
@@ -85,3 +94,46 @@ def anchor_props_from_index(
             sh = torch.where(m, float(ag[2 * ai + 1]), sh)
         off += n_l
     return torch.stack([gx, gy], dim=-1), torch.stack([sw, sh], dim=-1), st
+
+
+def make_grids_and_shifts(
+    grid_sizes: Sequence[Tuple[int, int]],
+    anchor_grids: Sequence[Sequence[float]],
+    device="cpu",
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Per level, the anchor cell centres (x, y) and the anchors' (w, h)
+    in pixels, each (H*W*A, 2) f32 in the NHWA order of the head outputs."""
+    num_anchors = len(anchor_grids[0]) // 2
+    grids, shifts = [], []
+    for (h, w), ag in zip(grid_sizes, anchor_grids):
+        ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        grid = torch.stack([xs, ys], dim=-1).float()[:, :, None, :].expand(h, w, num_anchors, 2)
+        anchors = torch.tensor(ag, dtype=torch.float32).reshape(num_anchors, 2)
+        grids.append(grid.reshape(-1, 2).to(device))
+        shifts.append(anchors.expand(h, w, num_anchors, 2).reshape(-1, 2).to(device))
+    return grids, shifts
+
+
+def decode_level(head_logits: torch.Tensor, grid: torch.Tensor, shift: torch.Tensor,
+                 stride: float, num_anchors: int) -> torch.Tensor:
+    """sigmoid and box decode of one level: (N, H, W, A*K) -> (N, H*W*A, K)
+    f32, columns [cx, cy, w, h, obj, cls...]; xy = (2 sig - 0.5 + grid) *
+    stride, wh = (2 sig)^2 * anchor."""
+    n, h, w, c = head_logits.shape
+    sig = torch.sigmoid(head_logits.reshape(n, h * w * num_anchors, c // num_anchors).float())
+    xy = (sig[..., 0:2] * 2.0 - 0.5 + grid) * stride
+    wh = (sig[..., 2:4] * 2.0) ** 2 * shift
+    return torch.cat([xy, wh, sig[..., 4:]], dim=-1)
+
+
+def concat_pred_logits(
+    head_outputs: Sequence[torch.Tensor],
+    grid_sizes: Sequence[Tuple[int, int]],
+    strides: Sequence[int],
+    anchor_grids: Sequence[Sequence[float]],
+) -> torch.Tensor:
+    """Every level decoded and concatenated: (N, total_anchors, 5+nc)."""
+    num_anchors = len(anchor_grids[0]) // 2
+    grids, shifts = make_grids_and_shifts(grid_sizes, anchor_grids, head_outputs[0].device)
+    return torch.cat([decode_level(ho, g, s, float(st), num_anchors)
+                      for ho, g, s, st in zip(head_outputs, grids, shifts, strides)], dim=1)

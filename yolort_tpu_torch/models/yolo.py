@@ -1,8 +1,10 @@
 """YOLO model: backbone -> PAN -> head -> postprocess.
 
-Port of ``yolort_tpu/models/yolo.py`` for r6.0 with three levels.  The
-module takes NHWC images, runs the network in channels_last NCHW, returns
-NHWC head outputs and padded ``Detections``.
+Port of ``yolort_tpu/models/yolo.py``: the r3.1, r4.0 and r6.0 families,
+P6 (four levels, strides 8-64) and the TAN variant, and the registry of
+the JAX package's 17 architectures.  The module takes NHWC images, runs
+the network in channels_last NCHW, returns NHWC head outputs, decoded
+predictions and padded ``Detections``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ import torch
 from torch import nn
 
 from yolort_tpu_torch.models.darknet import DarkNet, make_divisible
-from yolort_tpu_torch.models.head import DEFAULT_ANCHOR_GRIDS, DEFAULT_STRIDES, YOLOHead
+from yolort_tpu_torch.models.head import (
+    DEFAULT_ANCHOR_GRIDS, DEFAULT_STRIDES, P6_ANCHOR_GRIDS, P6_STRIDES, YOLOHead,
+    concat_pred_logits,
+)
 from yolort_tpu_torch.models.pan import PathAggregationNetwork
 from yolort_tpu_torch.ops.nms import Detections, batched_postprocess_from_heads
 
@@ -30,9 +35,11 @@ def resolve_device(device) -> torch.device:
 
 
 class YOLO(nn.Module):
-    """YOLOv5 r6.0.  ``depth_multiple``/``width_multiple`` select the size;
-    the postprocess thresholds are plain attributes (the defaults are the
-    eval config), and so is its stage-2 route ``row_gather``
+    """YOLOv5.  ``depth_multiple``/``width_multiple`` select the size,
+    ``version`` the family ('r3.1', 'r4.0', 'r6.0'), ``use_p6`` the fourth
+    level (with its strides and anchors unless given), ``use_tan`` the C3TR
+    first inner block.  The postprocess thresholds are plain attributes
+    (the defaults are the eval config), and so is its stage-2 route ``row_gather``
     (``ops.nms.NMSConfig``; any route gives the same detections).  Weights
     are drawn from ``torch.Generator(seed)`` on the CPU, then the module
     moves to ``device`` (the card unless the caller passes ``"cpu"``) and
@@ -45,7 +52,10 @@ class YOLO(nn.Module):
         *,
         device="cuda",
         dtype: torch.dtype = torch.float32,
+        version: str = "r6.0",
         num_classes: int = 80,
+        use_p6: bool = False,
+        use_tan: bool = False,
         strides: Optional[Sequence[int]] = None,
         anchor_grids: Optional[Sequence[Sequence[float]]] = None,
         score_thresh: float = 0.005,
@@ -60,8 +70,10 @@ class YOLO(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.num_classes = num_classes
-        self.strides = tuple(strides or DEFAULT_STRIDES)
-        self.anchor_grids = tuple(tuple(a) for a in (anchor_grids or DEFAULT_ANCHOR_GRIDS))
+        self.version = version
+        self.strides = tuple(strides or (P6_STRIDES if use_p6 else DEFAULT_STRIDES))
+        self.anchor_grids = tuple(tuple(a) for a in (
+            anchor_grids or (P6_ANCHOR_GRIDS if use_p6 else DEFAULT_ANCHOR_GRIDS)))
         self.score_thresh = score_thresh
         self.nms_thresh = nms_thresh
         self.detections_per_img = detections_per_img
@@ -71,9 +83,12 @@ class YOLO(nn.Module):
         self.row_gather = row_gather
 
         gen = torch.Generator().manual_seed(seed)
-        in_channels = tuple(make_divisible(c * width_multiple, 8) for c in (256, 512, 1024))
-        self.backbone = DarkNet(depth_multiple, width_multiple, gen=gen)
-        self.pan = PathAggregationNetwork(in_channels, depth_multiple, gen=gen)
+        widths = (256, 512, 768, 1024) if use_p6 else (256, 512, 1024)
+        in_channels = tuple(make_divisible(c * width_multiple, 8) for c in widths)
+        self.backbone = DarkNet(depth_multiple, width_multiple, version,
+                                last_channel=768 if use_p6 else 1024, gen=gen)
+        self.pan = PathAggregationNetwork(in_channels, depth_multiple, version, use_p6,
+                                          first_inner="c3tr" if use_tan else "auto", gen=gen)
         self.head = YOLOHead(in_channels, self.num_anchors, self.strides, num_classes, gen=gen)
         self.eval().requires_grad_(False)  # inference only: no autograd graph
         self.to(device=device, dtype=dtype, memory_format=torch.channels_last)
@@ -90,6 +105,13 @@ class YOLO(nn.Module):
     def head_outputs(self, images: torch.Tensor) -> List[torch.Tensor]:
         """Per-level raw logits (B, Hl, Wl, A*(5+nc)), NHWC."""
         return self.head(self.features(images))
+
+    def decode(self, images: torch.Tensor) -> torch.Tensor:
+        """Decoded predictions (B, total_anchors, 5+nc) f32 in canvas pixels:
+        everything but the NMS."""
+        outs = self.head_outputs(images)
+        return concat_pred_logits(outs, [tuple(o.shape[1:3]) for o in outs], self.strides,
+                                  self.anchor_grids)
 
     def postprocess(self, head_outputs: Sequence[torch.Tensor]) -> Detections:
         """Padded detections, in canvas coordinates, of per-level logits."""
@@ -108,11 +130,19 @@ class YOLO(nn.Module):
 
 _SIZES = {"n": (0.33, 0.25), "s": (0.33, 0.5), "m": (0.67, 0.75), "l": (1.0, 1.0), "x": (1.33, 1.25)}
 
-ARCHS = {f"yolov5_darknet_pan_{s}_r60": s for s in _SIZES}
+# name -> (size, version, use_p6, use_tan), the JAX package's registry
+ARCHS = {
+    **{f"yolov5_darknet_pan_{s}_{v.replace('.', '')}": (s, v, False, False)
+       for v in ("r3.1", "r4.0") for s in "sml"},
+    **{f"yolov5_darknet_pan_{s}_r60": (s, "r6.0", False, False) for s in _SIZES},
+    **{f"yolov5_darknet_pan_{s}6_r60": (s, "r6.0", True, False) for s in _SIZES},
+    "yolov5_darknet_tan_s_r40": ("s", "r4.0", False, True),
+}
 
 
 def build_yolo(arch: str, *, device="cuda", num_classes: int = 80, **kwargs) -> YOLO:
     if arch not in ARCHS:
         raise ValueError(f"Unknown arch '{arch}'. Available: {sorted(ARCHS)}")
-    dm, wm = _SIZES[ARCHS[arch]]
-    return YOLO(dm, wm, device=device, num_classes=num_classes, **kwargs)
+    size, version, use_p6, use_tan = ARCHS[arch]
+    return YOLO(*_SIZES[size], device=device, version=version, num_classes=num_classes,
+                use_p6=use_p6, use_tan=use_tan, **kwargs)

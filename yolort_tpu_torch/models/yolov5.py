@@ -3,7 +3,7 @@
 Port of ``yolort_tpu/models/yolov5.py``.  ``__call__`` groups images of one
 raw size into a batch (a shape bucket) and runs the whole pipeline on the
 model's device: uint8 frames are normalised there, float images are taken
-as [0, 1].
+as [0, 1].  ``load_from_yolov5`` builds one from an ultralytics checkpoint.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from yolort_tpu_torch.models._bridge import params_from_jax
+from yolort_tpu_torch.models._checkpoint import load_from_ultralytics
 from yolort_tpu_torch.models.transform import letterbox_batch, make_plan, scale_coords_back
 from yolort_tpu_torch.models.yolo import YOLO, build_yolo, resolve_device
 from yolort_tpu_torch.ops.nms import Detections
@@ -74,15 +76,52 @@ class YOLOv5:
         self.fill_color = fill_color
         self.dtype = dtype
 
+    @classmethod
+    def load_from_yolov5(
+        cls,
+        checkpoint_path: str,
+        *,
+        version: str = "r6.0",
+        device="cuda",
+        dtype: torch.dtype = torch.float32,
+        size: Tuple[int, int] = (640, 640),
+        size_divisible: int = 32,
+        fill_color: int = 114,
+        score_thresh: float = 0.25,
+        nms_thresh: float = 0.45,
+        **kwargs: Any,
+    ) -> "YOLOv5":
+        """Build from an ultralytics/yolov5 checkpoint: the architecture
+        (depth, width, classes, P6, strides and anchors) from its metadata,
+        the weights from its tree (``models/_checkpoint.py``).  ``version``
+        names the family, as the checkpoint does not; a TAN checkpoint
+        loads as 'r4.0' with ``use_tan=True``, passed on to ``YOLO`` with
+        the other ``kwargs``."""
+        info = load_from_ultralytics(checkpoint_path, version=version)
+        model = YOLO(info["depth_multiple"], info["width_multiple"], device=device, dtype=dtype,
+                     version=version, num_classes=info["num_classes"], use_p6=info["use_p6"],
+                     strides=info["strides"], anchor_grids=info["anchor_grids"],
+                     score_thresh=score_thresh, nms_thresh=nms_thresh, **kwargs)
+        params_from_jax(info["params"], model)
+        return cls(model=model, size=size, size_divisible=size_divisible, fill_color=fill_color,
+                   dtype=dtype)
+
+    def canvas(self, raw: torch.Tensor):
+        """(canvas, plan) of raw (B, H, W, 3) uint8 or float in [0, 1], one
+        shape bucket: the letterboxed batch the model takes, in its dtype,
+        and the ``LetterboxPlan`` that made it."""
+        _, h, w, _ = raw.shape
+        plan = make_plan([(h, w)], min_size=self.size[0], max_size=self.size[1],
+                         size_divisible=self.size_divisible)[0]
+        x = raw.to(self.dtype) * (1.0 / 255.0) if raw.dtype == torch.uint8 else raw.to(self.dtype)
+        return letterbox_batch(x, plan, self.fill_color / 255.0), plan
+
     @torch.inference_mode()
     def _infer(self, raw: torch.Tensor) -> Detections:
         """raw: (B, H, W, 3) uint8 or float in [0, 1], one shape bucket, on
         the model's device."""
         _, h, w, _ = raw.shape
-        plan = make_plan([(h, w)], min_size=self.size[0], max_size=self.size[1],
-                         size_divisible=self.size_divisible)[0]
-        x = raw.to(self.dtype) * (1.0 / 255.0) if raw.dtype == torch.uint8 else raw.to(self.dtype)
-        canvas = letterbox_batch(x, plan, self.fill_color / 255.0)
+        canvas, plan = self.canvas(raw)
         det = self.model(canvas)
         orig = torch.tensor([h, w], dtype=torch.float32, device=raw.device)
         return det._replace(boxes=scale_coords_back(det.boxes, plan.canvas_hw, orig))

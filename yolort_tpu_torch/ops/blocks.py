@@ -1,7 +1,9 @@
 """YOLOv5 building blocks as ``nn.Module``s, float and int8 paths.
 
-Port of ``yolort_tpu/ops/blocks.py`` (Conv, Conv2dOnly, Bottleneck, C3,
-SPP/SPPF, ``max_pool_same``, ``upsample2x``, and the int8-compute glue:
+Port of ``yolort_tpu/ops/blocks.py`` (the activations, ``fuse_conv_bn``,
+Conv, Conv2dOnly, BatchNorm, Bottleneck, C3, BottleneckCSP, SPP/SPPF,
+``space_to_depth``, Focus, Linear, TransformerLayer, TransformerBlock,
+C3TR, ``max_pool_same``, ``upsample2x``, and the int8-compute glue:
 ``QTensor``, ``_as_float``, ``_qconcat``, ``_qadd``; the JAX
 ``_quantize_input`` and ``_requantize`` are ``quantize_int8`` of the qconv
 module, whose kernel epilogue does the requantize).
@@ -45,6 +47,31 @@ def autopad(k: int, p: Optional[int] = None) -> int:
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     return F.silu(x)
+
+
+def hardswish(x: torch.Tensor) -> torch.Tensor:
+    """x * relu6(x + 3) / 6, written as the JAX package computes it."""
+    return x * torch.clamp(x + 3.0, 0.0, 6.0) * (1.0 / 6.0)
+
+
+def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, 0.1 * x)
+
+
+ACTS = {"silu": silu, "hardswish": hardswish}
+
+
+def act_for_version(version: str) -> str:
+    """r4.0 and r6.0 use SiLU, r3.1 Hardswish."""
+    return "hardswish" if version == "r3.1" else "silu"
+
+
+def fuse_conv_bn(w, gamma, beta, mean, var, eps: float = BN_EPS):
+    """Fold eval-mode BatchNorm into HWIO conv weights and a bias, in
+    float64, as ``yolort_tpu.ops.blocks.fuse_conv_bn`` does."""
+    w, gamma, beta, mean, var = (np.asarray(a, np.float64) for a in (w, gamma, beta, mean, var))
+    scale = gamma / np.sqrt(var + eps)
+    return (w * scale).astype(np.float32), (beta - mean * scale).astype(np.float32)
 
 
 def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
@@ -181,17 +208,20 @@ class Conv2dOnly(_Int8Conv, nn.Module):
 
 
 class Conv(_Int8Conv, nn.Module):
-    """Conv2d + BatchNorm + SiLU.
+    """Conv2d + BatchNorm + activation (``act``: a key of ``ACTS``).
 
     Two parameter forms, as in JAX: fused (``weight`` + ``bias``; random
     init folds the identity BatchNorm of a fresh model into the weight) or
     unfused (``weight`` + the BatchNorm buffers ``gamma``, ``beta``,
-    ``mean``, ``var``, applied after the conv as ``y * scale + bias``)."""
+    ``mean``, ``var``, applied after the conv as ``y * scale + bias``).
+    The int8 form takes SiLU only, the qconv epilogue's activation: a
+    quantized Hardswish conv raises."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
-                 g: int = 1, *, gen: torch.Generator):
+                 g: int = 1, act: str = "silu", *, gen: torch.Generator):
         super().__init__()
         self.k, self.s, self.pad, self.g = k, s, autopad(k, p), g
+        self.act = act
         bound = 1.0 / math.sqrt(k * k * (c1 // g))
         w = _uniform(gen, (c2, c1 // g, k, k), bound) * (1.0 / math.sqrt(1.0 + BN_EPS))
         self.weight = nn.Parameter(w)
@@ -211,27 +241,49 @@ class Conv(_Int8Conv, nn.Module):
 
     def forward(self, x):
         if self.quantized:
-            return self._forward_int8(x, "silu")
+            return self._forward_int8(x, self.act)
         x = _as_float(x)
         if self.bias is not None:
-            return silu(F.conv2d(x, self.weight, self.bias, self.s, self.pad, 1, self.g))
+            return ACTS[self.act](F.conv2d(x, self.weight, self.bias, self.s, self.pad, 1, self.g))
         y = F.conv2d(x, self.weight, None, self.s, self.pad, 1, self.g)
-        # scale and shift in f32, cast to the activation type (as in JAX)
-        scale = self.gamma.float() * torch.rsqrt(self.var.float() + BN_EPS)
-        bias = self.beta.float() - self.mean.float() * scale
-        y = y * scale.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
-        return silu(y)
+        return ACTS[self.act](_batch_norm(y, self.gamma, self.beta, self.mean, self.var))
+
+
+def _batch_norm(y, gamma, beta, mean, var):
+    """Eval BatchNorm over NCHW channels: scale and shift computed in f32,
+    cast to the activation type (as in JAX)."""
+    scale = gamma.float() * torch.rsqrt(var.float() + BN_EPS)
+    bias = beta.float() - mean.float() * scale
+    return y * scale.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
+
+
+class BatchNorm(nn.Module):
+    """Standalone eval BatchNorm (BottleneckCSP's gate on its concat):
+    buffers ``gamma``, ``beta``, ``mean``, ``var``."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        for name, v in (("gamma", 1.0), ("beta", 0.0), ("mean", 0.0), ("var", 1.0)):
+            self.register_buffer(name, torch.full((c,), v))
+
+    def set_params(self, p: Dict[str, np.ndarray]) -> None:
+        """Load a JAX leaf {'gamma', 'beta', 'mean', 'var'}."""
+        for name in ("gamma", "beta", "mean", "var"):
+            setattr(self, name, _as_tensor(p[name], self.gamma))
+
+    def forward(self, x):
+        return _batch_norm(x, self.gamma, self.beta, self.mean, self.var)
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 (+ residual when shapes allow)."""
 
     def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1, e: float = 0.5,
-                 *, gen: torch.Generator):
+                 act: str = "silu", *, gen: torch.Generator):
         super().__init__()
         c_ = int(c2 * e)
-        self.cv1 = Conv(c1, c_, 1, 1, gen=gen)
-        self.cv2 = Conv(c_, c2, 3, 1, g=g, gen=gen)
+        self.cv1 = Conv(c1, c_, 1, 1, act=act, gen=gen)
+        self.cv2 = Conv(c_, c2, 3, 1, g=g, act=act, gen=gen)
         self.add = shortcut and c1 == c2
         self.as_: Optional[float] = None  # calibrated post-add scale (JAX 'as')
 
@@ -244,19 +296,44 @@ class C3(nn.Module):
     """CSP bottleneck with 3 convolutions."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
-                 e: float = 0.5, *, gen: torch.Generator):
+                 e: float = 0.5, act: str = "silu", *, gen: torch.Generator):
         super().__init__()
         c_ = int(c2 * e)
-        self.cv1 = Conv(c1, c_, 1, 1, gen=gen)
-        self.cv2 = Conv(c1, c_, 1, 1, gen=gen)
-        self.cv3 = Conv(2 * c_, c2, 1, gen=gen)
-        self.m = nn.ModuleList(Bottleneck(c_, c_, shortcut, g, e=1.0, gen=gen) for _ in range(n))
+        self.cv1 = Conv(c1, c_, 1, 1, act=act, gen=gen)
+        self.cv2 = Conv(c1, c_, 1, 1, act=act, gen=gen)
+        self.cv3 = Conv(2 * c_, c2, 1, act=act, gen=gen)
+        self.m = nn.ModuleList(Bottleneck(c_, c_, shortcut, g, e=1.0, act=act, gen=gen)
+                               for _ in range(n))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y1 = self.cv1(x)
         for b in self.m:
             y1 = b(y1)
         return self.cv3(_qconcat([y1, self.cv2(x)]))
+
+
+class BottleneckCSP(nn.Module):
+    """The r3.1 CSP bottleneck: Hardswish convs, raw 1x1 convs on both
+    branches, BatchNorm + LeakyReLU(0.1) on their concat."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, *, gen: torch.Generator):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1, act="hardswish", gen=gen)
+        self.cv2 = Conv2dOnly(c1, c_, 1, 1, bias=False, gen=gen)
+        self.cv3 = Conv2dOnly(c_, c_, 1, 1, bias=False, gen=gen)
+        self.cv4 = Conv(2 * c_, c2, 1, 1, act="hardswish", gen=gen)
+        self.bn = BatchNorm(2 * c_)
+        self.m = nn.ModuleList(Bottleneck(c_, c_, shortcut, g, e=1.0, act="hardswish", gen=gen)
+                               for _ in range(n))
+
+    def forward(self, x):
+        y1 = self.cv1(x)
+        for b in self.m:
+            y1 = b(y1)
+        y = torch.cat([_as_float(self.cv3(y1)), _as_float(self.cv2(x))], dim=1)
+        return self.cv4(leaky_relu01(self.bn(y)))
 
 
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -268,11 +345,11 @@ class SPP(nn.Module):
     """Spatial pyramid pooling with k=(5, 9, 13), computed as a chain of
     three 5x5 pools (the SPPF identity); same parameters as SPPF."""
 
-    def __init__(self, c1: int, c2: int, *, gen: torch.Generator):
+    def __init__(self, c1: int, c2: int, act: str = "silu", *, gen: torch.Generator):
         super().__init__()
         c_ = c1 // 2
-        self.cv1 = Conv(c1, c_, 1, 1, gen=gen)
-        self.cv2 = Conv(c_ * 4, c2, 1, 1, gen=gen)
+        self.cv1 = Conv(c1, c_, 1, 1, act=act, gen=gen)
+        self.cv2 = Conv(c_ * 4, c2, 1, 1, act=act, gen=gen)
 
     def forward(self, x):
         x = self.cv1(x)
@@ -303,3 +380,121 @@ def upsample2x(x):
         v = v[:, :, None, :, None, :].expand(n, h, 2, w, 2, c).reshape(n, 2 * h, 2 * w, c)
         return QTensor(v.permute(0, 3, 1, 2), x.s, x.dtype)
     return F.interpolate(x, scale_factor=2.0, mode="nearest")
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, 4C, H/2, W/2) in YOLOv5's Focus channel order:
+    the pixels (0, 0), (1, 0), (0, 1), (1, 1) of each 2x2 patch, as (row,
+    column) offsets."""
+    parts = [x[:, :, 0::2, 0::2], x[:, :, 1::2, 0::2], x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]]
+    return torch.cat(parts, dim=1)
+
+
+class Focus(nn.Module):
+    """``space_to_depth`` then a Conv (the r3.1 / r4.0 stem)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
+                 g: int = 1, act: str = "silu", *, gen: torch.Generator):
+        super().__init__()
+        self.conv = Conv(c1 * 4, c2, k, s, p, g, act=act, gen=gen)
+
+    def forward(self, x):
+        return self.conv(space_to_depth(_as_float(x)))
+
+
+# --- transformer blocks (C3TR, the TAN variant) ---------------------------
+
+class Linear(nn.Module):
+    """x @ w (+ b); ``weight`` is held (out, in) as in torch, the JAX leaf
+    {'w' (in, out)[, 'b']}."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True, *, gen: torch.Generator):
+        super().__init__()
+        bound = 1.0 / math.sqrt(cin)
+        self.weight = nn.Parameter(_uniform(gen, (cout, cin), bound))
+        self.bias = nn.Parameter(_uniform(gen, (cout,), bound)) if bias else None
+
+    def set_params(self, p: Dict[str, np.ndarray]) -> None:
+        self.weight.data = _as_tensor(np.asarray(p["w"]).T, self.weight)
+        self.bias = nn.Parameter(_as_tensor(p["b"], self.weight)) if "b" in p else None
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class TransformerLayer(nn.Module):
+    """LayerNorm-free transformer layer on (L, N, C) tokens: q/k/v Linears,
+    then the input projection, scaled dot-product attention and output
+    projection of ``torch.nn.MultiheadAttention``, written as matmuls and a
+    softmax as the JAX package writes them, then two Linears; both with a
+    residual.  ``in_proj_w`` (3C, C) and ``in_proj_b`` (3C,) are the JAX
+    keys of the attention's input projection."""
+
+    def __init__(self, c: int, num_heads: int, *, gen: torch.Generator):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q = Linear(c, c, bias=False, gen=gen)
+        self.k = Linear(c, c, bias=False, gen=gen)
+        self.v = Linear(c, c, bias=False, gen=gen)
+        bound = math.sqrt(6.0 / (c + 3 * c))  # xavier_uniform of MultiheadAttention
+        self.in_proj_w = nn.Parameter(_uniform(gen, (3 * c, c), bound))
+        self.in_proj_b = nn.Parameter(torch.zeros(3 * c))
+        self.out_proj = Linear(c, c, bias=True, gen=gen)
+        self.fc1 = Linear(c, c, bias=False, gen=gen)
+        self.fc2 = Linear(c, c, bias=False, gen=gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        L, N, c = x.shape
+        h = self.num_heads
+        hd = c // h
+        wq, wk, wv = self.in_proj_w.chunk(3, dim=0)
+        bq, bk, bv = self.in_proj_b.chunk(3, dim=0)
+        q = self.q(x) @ wq.T + bq
+        k = self.k(x) @ wk.T + bk
+        v = self.v(x) @ wv.T + bv
+
+        def heads(t):  # (L, N, C) -> (N*h, L, hd)
+            return t.reshape(L, N * h, hd).transpose(0, 1)
+
+        attn = torch.softmax((heads(q) * (1.0 / math.sqrt(hd))) @ heads(k).transpose(1, 2), dim=-1)
+        out = (attn @ heads(v)).transpose(0, 1).reshape(L, N, c)
+        x = self.out_proj(out) + x
+        return self.fc2(self.fc1(x)) + x
+
+
+class TransformerBlock(nn.Module):
+    """A Linear position term, then ``num_layers`` TransformerLayers over
+    the feature map's pixels as tokens, in row-major order.  (The JAX
+    block's Conv for c1 != c2 is not ported: C3TR, its one caller, keeps
+    the width.)"""
+
+    def __init__(self, c: int, num_heads: int, num_layers: int, *, gen: torch.Generator):
+        super().__init__()
+        self.linear = Linear(c, c, bias=True, gen=gen)
+        self.tr = nn.ModuleList(TransformerLayer(c, num_heads, gen=gen) for _ in range(num_layers))
+
+    def forward(self, x):
+        x = _as_float(x)
+        n, c, h, w = x.shape
+        tokens = x.flatten(2).permute(2, 0, 1)  # (H*W, N, C)
+        tokens = tokens + self.linear(tokens)
+        for layer in self.tr:
+            tokens = layer(tokens)
+        y = tokens.permute(1, 2, 0).reshape(n, c, h, w)
+        return y.contiguous(memory_format=torch.channels_last)
+
+
+class C3TR(nn.Module):
+    """C3 with a 4-head TransformerBlock in place of its Bottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, *, gen: torch.Generator):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1, gen=gen)
+        self.cv2 = Conv(c1, c_, 1, 1, gen=gen)
+        self.cv3 = Conv(2 * c_, c2, 1, gen=gen)
+        self.m = TransformerBlock(c_, 4, n, gen=gen)
+
+    def forward(self, x):
+        return self.cv3(_qconcat([self.m(self.cv1(x)), self.cv2(x)]))

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from yolort_tpu_torch.ops import blocks
-from yolort_tpu_torch.ops.blocks import BN_EPS, Bottleneck, Conv, Conv2dOnly
+from yolort_tpu_torch.ops.blocks import Bottleneck, Conv, Conv2dOnly, fuse_conv_bn
 
 _MARKS = ("_absmax", "_out_absmax", "_add_absmax")
 # convs with a shallower reduction (kh*kw*cin) stay float: int8 buys
@@ -49,14 +49,6 @@ def quantize_tensor_per_channel(w: np.ndarray, axis: int = -1) -> Tuple[np.ndarr
     scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
     q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
     return q, np.squeeze(scale)
-
-
-def fuse_conv_bn(w, gamma, beta, mean, var, eps: float = BN_EPS):
-    """Fold eval-mode BatchNorm into HWIO conv weights and a bias, in
-    float64 (as ``yolort_tpu.ops.blocks.fuse_conv_bn`` does)."""
-    w, gamma, beta, mean, var = (np.asarray(a, np.float64) for a in (w, gamma, beta, mean, var))
-    scale = gamma / np.sqrt(var + eps)
-    return (w * scale).astype(np.float32), (beta - mean * scale).astype(np.float32)
 
 
 def _observe(module: nn.Module, key: str, t: torch.Tensor) -> None:
