@@ -21,9 +21,13 @@ Phases, each fatal on failure:
      the variants at the (325,128) k = 512 and (2565,128) k = 4096 tables,
      random, tied, few, none-valid and dense at batch 8 and random at
      batch 1 and 32 (the variant 'full' also against lookup_fetch), the
-     first three timed at both tables; row_fetch_p at every swept geometry against
-     its plain version at both sweep shapes (experiments/
-     fetch_block_sweep.py), batch 8; fused_cells_stage1 (its tile plan
+     first three timed at both tables, compact_place with the device
+     kernels of one call counted from the profiler's rows (must be 1: the
+     kernel writes the empty tail itself), and row_fetch there on the main
+     path's own indices (select_topk_threshold's phys); row_fetch_p at every
+     swept geometry against its plain version at both sweep shapes
+     (experiments/fetch_block_sweep.py), batch 8, and timed there at
+     row_fetch's own geometry (row_fetch_geometry); fused_cells_stage1 (its tile plan
      printed) at 8x640 with and without special logits, at 4x480x640 and
      at batch 32, in both dtypes, timed at batch 8 and 32 beside its
      bound, its plain version and torch.cat alone; results must be
@@ -33,7 +37,8 @@ Phases, each fatal on failure:
      four levels at 1280x1280 and on the 768x1280 canvas of a 720p frame,
      and the stage-1 tables (797,128) and (479,128) at k = 4104 and 520,
      timed at batch 8 warm and with the L2 flushed, beside their bounds;
-     row_fetch timed at both stage-2 tables, warm and cold;
+     row_fetch timed at both stage-2 tables, warm and cold, with random
+     and with main-path indices;
   4. slice: yolov5s at full width, seeded random weights with the head
      biases shifted to a realistic candidate load, serves uint8 frames of
      three sizes in float32 and bfloat16 under the eval (0.005 / 4096) and
@@ -449,10 +454,11 @@ def phase_kernels(device, card: str) -> dict:
 
 def phase_sweep_kernels(device, card: str) -> dict:
     """row_fetch_p at every swept geometry against its plain version at
-    both sweep shapes, batch 8, bit for bit; then row_fetch's geometry
-    (8, 1) timed at each beside the plain version, torch.gather and the
-    bound."""
+    both sweep shapes, batch 8, bit for bit; then timed at row_fetch's own
+    geometry (row_fetch_geometry) at each beside the plain version,
+    torch.gather and the bound."""
     from yolort_tpu_torch.experiments import fetch_block_sweep as sweep
+    from yolort_tpu_torch.ops.cuda.lookup_kernel import row_fetch_geometry
 
     err, out = 0.0, {}
     for name, (tab, idx) in sweep.make_inputs(B, device, seed=50).items():
@@ -460,17 +466,19 @@ def phase_sweep_kernels(device, card: str) -> dict:
         err = max(err, sweep.check(tab, idx, label=f"B={B} {label}"))
         print(f"[kernels] row_fetch_p B={B} {label}: all {len(sweep.GEOMETRIES)} geometries "
               f"bit-identical", flush=True)
-        r = sweep.measure(tab, idx, card, geometries=((8, 1),), label=label, tag="[times] row_fetch_p")
+        g = row_fetch_geometry(tab.shape[2] * tab.element_size(), *idx.shape)
+        r = sweep.measure(tab, idx, card, geometries=(g,), label=label, tag="[times] row_fetch_p")
         bms, bby = r["bound"]
-        cold = r[(8, 1)]["cold_ms"]
-        out[name] = dict(ms=r[(8, 1)]["ms"], device_ms=r[(8, 1)]["device_ms"], cold_ms=cold,
+        cold = r[g]["cold_ms"]
+        out[name] = dict(ms=r[g]["ms"], device_ms=r[g]["device_ms"], cold_ms=cold,
                          plain_ms=r["plain"]["ms"], plain_device_ms=r["plain"]["device_ms"],
                          bound_ms=bms, bound_by=bby, device_share_of_bound=bms / cold if cold else None,
-                         library_ms=r["library"]["ms"], library_device_ms=r["library"]["device_ms"])
+                         library_ms=r["library"]["ms"], library_device_ms=r["library"]["device_ms"],
+                         geometry=g)
     return {"row_fetch_p": dict(
         **out["cells"], library_call="torch.gather (clamped indices)", max_abs_err=err,
-        stage2=out["stage2"], at=f"B={B}, {sweep.LABELS['cells']}, geometry (8, 1); stage2: "
-                                f"{sweep.LABELS['stage2']}")}
+        stage2=out["stage2"], at=f"B={B}, {sweep.LABELS['cells']}, row_fetch's geometry "
+                                f"{out['cells']['geometry']}; stage2: {sweep.LABELS['stage2']}")}
 
 
 S640 = ((80, 80), (40, 40), (20, 20))  # yolov5s head levels @640
@@ -504,8 +512,8 @@ def phase_postprocess_kernels(device, card: str) -> dict:
 
     from yolort_tpu_torch.ops.cuda import (
         bisect_count, compact_place, compact_place_reference, fused_cells_stage1,
-        fused_cells_stage1_reference, lookup_fetch, lookup_fetch_reference, select_extract,
-        select_extract_reference,
+        fused_cells_stage1_reference, lookup_fetch, lookup_fetch_reference, row_fetch,
+        row_fetch_reference, select_extract, select_extract_reference,
     )
     from yolort_tpu_torch.experiments import lookup_kernel_variants
     from yolort_tpu_torch.ops.cuda.lookup_kernel import VARIANTS
@@ -583,6 +591,7 @@ def phase_postprocess_kernels(device, card: str) -> dict:
         ]
     errs = dict(lookup_fetch=0.0, select_extract=0.0, compact_place=0.0, lookup_fetch_variant=0.0)
     serving = {}  # the timed kernels at the serving table
+    main_path = []  # row_fetch on select_topk_threshold's own phys
     rng = np.random.default_rng(44)
     for name, tab, m, k, thr in cases:
         tab = tab.contiguous()
@@ -665,9 +674,22 @@ def phase_postprocess_kernels(device, card: str) -> dict:
                               lambda: torch.nonzero(mask),
                               busy * 512 + B * 2 * m * 8 + B * 4 + B * k * 8),
         }
+        # row_fetch on the indices the default route hands it: phys is
+        # select_topk_threshold's (the chunk of each slot, from the offsets)
+        ph32 = phys.to(torch.int32).contiguous()
+        if not same_bits(row_fetch(tab, ph32), row_fetch_reference(tab, ph32)):
+            raise AssertionError(f"row_fetch B={B} ({m},128) k={k} main-path indices: differs from "
+                                 f"the plain version")
+        runs["row_fetch"] = (lambda: row_fetch(tab, ph32), lambda: row_fetch_reference(tab, ph32),
+                             "torch.gather (clamped indices)", lambda: torch.gather(tab, 1, gidx),
+                             B * k * 4 + distinct_rows(phys, m) * 512 + B * k * 512)
         for kname, (run, plain, pname, pcall, nbytes) in runs.items():
             ms, pms = median_ms(run), median_ms(plain, 5)
-            dev, pdev = device_profile(run)[0], device_profile(plain)[0]
+            dev, rows = device_profile(run)
+            pdev = device_profile(plain)[0]
+            if kname == "compact_place" and len(rows) != 1:
+                raise AssertionError(f"compact_place B={B} ({m},128) k={k}: {len(rows)} device "
+                                     f"kernels a call ({[n for n, _ in rows]}), want 1")
             cold = cold_ms(run)
             partial = median_ms(pcall)
             bms, bby = bound(nbytes)
@@ -680,10 +702,14 @@ def phase_postprocess_kernels(device, card: str) -> dict:
                   f"({bby}) | {card}", flush=True)
             r = dict(ms=ms, plain_ms=pms, device_ms=dev, plain_device_ms=pdev, cold_ms=cold,
                      bound_ms=bms, bound_by=bby, device_share_of_bound=share, library_ms=None,
-                     library_call=None,
+                     library_call=None, kernels_per_call=len(rows),
                      nearest_partial=pname, nearest_partial_ms=partial,
                      at=f"B={B}, ({m},128), k={k}, random table")
-            if m == 2565:
+            if kname == "row_fetch":
+                r.update(library_ms=partial, library_call=pname, nearest_partial=None,
+                         nearest_partial_ms=None, at=f"{r['at']}, main-path indices")
+                main_path.append(r)
+            elif m == 2565:
                 res[kname] = r
             else:
                 serving[kname] = r
@@ -691,6 +717,7 @@ def phase_postprocess_kernels(device, card: str) -> dict:
         res[kname]["max_abs_err"] = e
     for kname, r in serving.items():
         res[kname]["others"] = [r]
+    res["row_fetch"] = {"main_path": main_path}
     return res
 
 
@@ -1826,7 +1853,8 @@ def main() -> int:
     phase_build()
     done("build")
     res = phase_kernels(device, card)
-    res.update(phase_postprocess_kernels(device, card))
+    for name, r in phase_postprocess_kernels(device, card).items():
+        res.setdefault(name, {}).update(r)
     res.update(phase_sweep_kernels(device, card))
     for name, extra in phase_p6_kernels(device, card).items():
         res[name].update(extra)

@@ -12,6 +12,7 @@ import torch
 from yolort_tpu.ops.pallas.compact_kernel import compact_select as jax_compact_select
 from yolort_tpu_torch.ops.cuda import bisect_count_reference, compact_place, compact_place_reference
 from yolort_tpu_torch.ops.select import compact_select, select_topk_threshold
+from tests.test_torch_kernels_cpu import COMPACT_CASES, COMPACT_THRESH, compact_scores
 
 
 def scores(dist, n, seed=0, batch=2):
@@ -76,3 +77,21 @@ def test_compact_place_reference_positions():
     assert idx.tolist() == [[5, 135, 3]]
     vals, idx = compact_place(tab, cnt, off, t, thr, 8)
     assert idx[0, 5:].tolist() == [0, 0, 0] and vals[0, 5:].tolist() == [0.0, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("name", list(COMPACT_CASES))
+def test_compact_select_matches_jax_where_the_kernel_is_hard(name):
+    """The cases the placement kernel makes hard (tests/test_torch_kernels_cpu.py
+    holds the kernel against this plain version on them): a chunk all in
+    the gt tier, a chunk holding both tiers, the eq tier straddling k, an
+    empty tail, no valid entry, one chunk and a warp's 32-chunk run plus
+    one; sorted and unsorted."""
+    _, k = COMPACT_CASES[name]
+    x = compact_scores(name, 2)
+    for sort in (True, False):
+        vals, idx = compact_select(torch.from_numpy(x), k, COMPACT_THRESH, sort=sort)
+        for b in range(x.shape[0]):
+            jv, ji = jax_compact_select(jnp.asarray(x[b]), k, COMPACT_THRESH, sort=sort,
+                                        interpret=True)
+            np.testing.assert_array_equal(vals[b].numpy().view(np.int32), np.asarray(jv).view(np.int32))
+            np.testing.assert_array_equal(idx[b].numpy(), np.asarray(ji))

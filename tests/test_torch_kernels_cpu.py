@@ -27,11 +27,13 @@ from yolort_tpu_torch.ops.cuda import (
 from yolort_tpu_torch.experiments.fetch_block_sweep import GEOMETRIES
 from yolort_tpu_torch.ops.cuda.lookup_kernel import (
     BISECT_SMEM_BYTES, ROW_BYTES, VARIANTS, BisectPlan, _launch_bisect, bisect_plan,
+    row_fetch_geometry,
 )
 from yolort_tpu_torch.ops.cuda.qconv_kernel import TILES, pack_weight, padded_depth, qconv_plan
 from yolort_tpu_torch.ops.cuda.stage1_kernel import stage1_plan
 from yolort_tpu_torch.ops.boxes import box_iou_matrix
 from yolort_tpu_torch.ops.nms import NMSConfig, batched_postprocess_from_heads
+from yolort_tpu_torch.ops.select import _chunk_table
 
 PKG = Path(yolort_tpu_torch.__file__).parent
 
@@ -386,12 +388,103 @@ def test_vector_load_kernels_reject_misaligned_tensors(cuda_device):
         bisect_count(shifted_table, 10, 0)
 
 
+# row_fetch's cases: (dtype, width) pairs whose rows are 512 (the stage-2
+# table), 508, 16 and 4 bytes in float32 and 510 (the cells table), 170,
+# 256 and 2 bytes in bfloat16; k from 1 to 4104; and the index kinds
+ROW_WIDTHS = [(torch.float32, 128), (torch.float32, 127), (torch.float32, 4), (torch.float32, 1),
+              (torch.bfloat16, 255), (torch.bfloat16, 85), (torch.bfloat16, 128),
+              (torch.bfloat16, 1)]
+ROW_KS = [1, 31, 33, 512, 4104]
+ROW_INDEX_KINDS = ("random", "sorted", "repeated", "out_of_range")
+# every geometry row_fetch_geometry returns for those widths, at batch 1 to
+# 128 and those k
+FETCH_GEOMETRIES = sorted({row_fetch_geometry(w * dt.itemsize, bsz, k) for dt, w in ROW_WIDTHS
+                           for bsz in (1, 2, 8, 32, 128) for k in ROW_KS})
+
+
+def _row_index(kind, bsz, m, k, seed):
+    """(bsz, k) int32 row indices: 'random' in [-5, m + 5); 'sorted', two
+    index-ordered runs as stage 2's phys (with repeats, and out-of-range
+    ends); 'repeated', every index four times in a row; 'out_of_range',
+    each below 0 or at least m."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        idx = rng.integers(-5, m + 5, (bsz, k))
+    elif kind == "sorted":
+        cut = k * 3 // 4
+        idx = np.concatenate([np.sort(rng.integers(-2, m + 2, (bsz, cut)), 1),
+                              np.sort(rng.integers(0, m, (bsz, k - cut)), 1)], 1)
+    elif kind == "repeated":
+        idx = np.repeat(rng.integers(0, m, (bsz, -(-k // 4))), 4, axis=1)[:, :k]
+    else:
+        idx = np.where(rng.random((bsz, k)) < 0.5, rng.integers(-100, 0, (bsz, k)),
+                       rng.integers(m, m + 100, (bsz, k)))
+    return torch.from_numpy(idx.astype(np.int32))
+
+
+def _row_cases(device, bsz=2, m=300):
+    """(table, idx) for every width, k and index kind of the row cases: a
+    table with sign / exponent corners and a NaN payload in each image."""
+    rng = np.random.default_rng(11)
+    for dt, w in ROW_WIDTHS:
+        tab = torch.from_numpy(rng.standard_normal((bsz, m, w)).astype(np.float32)).to(dt)
+        bits = tab.view(torch.int32 if dt == torch.float32 else torch.int16)
+        bits[:, 3, w - 1] = 0x7FC00123 if dt == torch.float32 else 0x7FC1  # NaN payload
+        bits[:, 4, 0] = -(2**31) if dt == torch.float32 else -(2**15)     # -0.0
+        tab = tab.to(device)
+        for k in ROW_KS:
+            for n, kind in enumerate(ROW_INDEX_KINDS):
+                yield tab, _row_index(kind, bsz, m, k, seed=k + n).to(device)
+
+
+def _poisoned(monkeypatch, call):
+    """``call()`` with every ``torch.empty`` it makes filled with all-ones
+    bytes first (NaN as a float, -1 as an int), so that an output slot the
+    kernel skips shows."""
+    empty = torch.empty
+
+    def poisoned_empty(*args, **kwargs):
+        x = empty(*args, **kwargs)
+        x.view(torch.uint8).fill_(255)
+        return x
+
+    with monkeypatch.context() as mp:
+        mp.setattr(torch, "empty", poisoned_empty)
+        return call()
+
+
+def test_row_fetch_geometry_follows_the_row_width_and_the_grid():
+    assert row_fetch_geometry(512, 8, 512) == (4, 4)     # stage 2, serving
+    assert row_fetch_geometry(512, 8, 4096) == (4, 4)    # stage 2, eval
+    assert row_fetch_geometry(512, 128, 4096) == (4, 4)  # the sweep's batch
+    assert row_fetch_geometry(512, 1, 512) == (4, 2)     # batch 1 serving: 512 slots
+    assert row_fetch_geometry(510, 8, 4104) == (4, 2)    # the cells table: 2-byte words
+    assert row_fetch_geometry(508, 8, 4096) == (4, 2)    # 4-byte words
+    assert row_fetch_geometry(2048, 8, 4096) == (4, 4)
+    assert FETCH_GEOMETRIES == [(4, 2), (4, 4)]
+
+
 @pytest.mark.cuda
-def test_row_fetch_kernel_matches_plain(cuda_device):
+def test_row_fetch_kernel_matches_plain(cuda_device, monkeypatch):
+    """At its own geometry, every width, k and index kind, its output
+    blocks poisoned first."""
     _, _, table, idx = _inputs(cuda_device)
     for tab in (table, table.to(torch.bfloat16), table[..., :85].contiguous().to(torch.bfloat16)):
         iv = torch.int32 if tab.dtype == torch.float32 else torch.int16
         assert torch.equal(row_fetch(tab, idx).view(iv), row_fetch_reference(tab, idx).view(iv))
+    for tab, idx in _row_cases(cuda_device):
+        iv = torch.int32 if tab.dtype == torch.float32 else torch.int16
+        got = _poisoned(monkeypatch, lambda: row_fetch(tab, idx))
+        assert torch.equal(got.view(iv), row_fetch_reference(tab, idx).view(iv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", FETCH_GEOMETRIES)
+def test_row_fetch_kernel_matches_plain_at_every_geometry(cuda_device, geometry):
+    for tab, idx in _row_cases(cuda_device):
+        iv = torch.int32 if tab.dtype == torch.float32 else torch.int16
+        want = row_fetch_reference(tab, idx).view(iv)
+        assert torch.equal(row_fetch_p(tab, idx, *geometry).view(iv), want)
 
 
 @pytest.mark.cuda
@@ -403,6 +496,83 @@ def test_row_fetch_p_kernel_matches_plain(cuda_device, geometry):
         iv = torch.int32 if tab.dtype == torch.float32 else torch.int16
         want = row_fetch_reference(tab, idx).view(iv)
         assert torch.equal(row_fetch_p(tab, idx, *geometry).view(iv), want)
+        for kind in ROW_INDEX_KINDS[1:]:  # sorted, repeated and out-of-range runs
+            sidx = _row_index(kind, 2, tab.shape[1], 700, seed=geometry[0]).to(cuda_device)
+            want = row_fetch_reference(tab, sidx).view(iv)
+            assert torch.equal(row_fetch_p(tab, sidx, *geometry).view(iv), want)
+
+
+# compact_place's cases: name -> (chunks m, k); the scores come from
+# compact_scores.  Shared with tests/test_torch_compact.py, which holds
+# their plain version against the JAX kernel
+COMPACT_CASES = {
+    "all-gt chunk": (40, 300),   # one chunk's 128 entries all strictly above the k-th value
+    "gt and eq": (40, 60),       # one chunk holding both tiers; the eq tier straddles k
+    "ties straddle k": (40, 500),  # 20 levels: the eq tier runs past k across chunks
+    "tail": (40, 512),           # fewer valid entries than k: the empty tail
+    "none valid": (40, 512),
+    "m=1": (1, 50),
+    "m=33": (33, 700),           # a warp's run of 32 chunks plus one
+}
+COMPACT_THRESH = 0.25
+
+
+def compact_scores(name, bsz, seed=0):
+    """(bsz, m * 128) float32 scores of a ``COMPACT_CASES`` case, at the
+    threshold ``COMPACT_THRESH``."""
+    m, _ = COMPACT_CASES[name]
+    rng = np.random.default_rng([seed, m, len(name)])
+    n = m * 128
+    x = rng.random((bsz, n), dtype=np.float32)
+    if name == "all-gt chunk":
+        x *= 0.3
+        for b, c in enumerate(rng.integers(0, m, bsz)):
+            x[b, c * 128:(c + 1) * 128] = 0.9 + 0.05 * rng.random(128, dtype=np.float32)
+    elif name == "gt and eq":
+        x *= 0.2
+        for b in range(bsz):
+            c, c2 = rng.choice(m, 2, replace=False)
+            x[b, c * 128:c * 128 + 20] = 0.9
+            x[b, c * 128 + 20:c * 128 + 80] = 0.5
+            x[b, c2 * 128:c2 * 128 + 40] = 0.5
+            x[b, c2 * 128 + 40:c2 * 128 + 50] = 0.8
+    elif name == "ties straddle k":
+        x = np.round(x * 20) / 20
+    elif name == "tail":
+        x *= 0.2
+        for b in range(bsz):
+            x[b, rng.choice(n, 30 + b % 7, replace=False)] = 0.3 + 0.7 * rng.random(30 + b % 7)
+    elif name == "none valid":
+        x *= COMPACT_THRESH
+    return x.astype(np.float32)
+
+
+def _compact_inputs(name, bsz, device):
+    """(table, cnt, off, t, thr_bits, k) of a COMPACT_CASES case: the
+    tier counts and k-th value bits from bisect_count's plain version."""
+    _, k = COMPACT_CASES[name]
+    table = _chunk_table(torch.from_numpy(compact_scores(name, bsz))).to(device)
+    thr_bits = int(np.float32(COMPACT_THRESH).view(np.int32))
+    t, cg, ce = bisect_count_reference(table, k, thr_bits)
+    cnt = torch.cat([cg, ce], 1).contiguous()
+    off = (cnt.cumsum(1, dtype=torch.int32) - cnt).contiguous()
+    return table, cnt, off, t, thr_bits, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz", [1, 8, 32])
+@pytest.mark.parametrize("name", list(COMPACT_CASES))
+def test_compact_place_kernel_matches_plain(cuda_device, monkeypatch, name, bsz):
+    """Bit for bit, every slot written: the outputs' blocks are poisoned
+    (NaN, -1) before the call; one launch a call."""
+    table, cnt, off, t, thr_bits, k = _compact_inputs(name, bsz, cuda_device)
+    want = compact_place_reference(table, cnt, off, t, thr_bits, k)
+    before = compact_place.launches
+    got = _poisoned(monkeypatch, lambda: compact_place(table, cnt, off, t, thr_bits, k))
+    torch.cuda.synchronize()
+    assert compact_place.launches == before + 1
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
 
 
 def _qconv_operands(k, n, h, w, c, co, seed, device="cpu", extreme=False):
@@ -845,6 +1015,27 @@ def test_stage1_variants_apply_to_the_kernel_source():
     assert len(set(sources.values())) == len(VARIANTS)
     with pytest.raises(ValueError, match="once"):
         variant_sources(source.replace("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 5;"))
+
+
+def test_fetch_place_variants_apply_to_the_kernel_sources():
+    """Each variant of experiments/fetch_place_variants.py is made by edits
+    that still match csrc/row_fetch.cu or csrc/compact_select.cu exactly
+    once; the builds that take a part out are the ones not checked."""
+    from yolort_tpu_torch.experiments.fetch_place_variants import VARIANTS, computes, variant_sources
+
+    files = {f: (PKG / "csrc" / f).read_text() for f in ("row_fetch.cu", "compact_select.cu")}
+    sources = variant_sources(files)
+    assert list(sources) == list(VARIANTS)
+    assert sources["row_fetch"] == files["row_fetch.cu"]
+    assert sources["compact_place"] == files["compact_select.cu"]
+    assert len(set(sources.values())) == len(VARIANTS)
+    assert [n for n in VARIANTS if not computes(n)] == [
+        "row_fetch no stores", "row_fetch no row loads", "row_fetch index alone", "row_fetch empty",
+        "compact_place no stores", "compact_place no row loads", "compact_place metadata alone",
+        "compact_place empty"]
+    with pytest.raises(ValueError, match="once"):
+        variant_sources({**files, "compact_select.cu": files["compact_select.cu"].replace(
+            "int warps = 8;", "int warps = 4;")})
 
 
 def test_stage1_plan_refuses_other_dtypes_without_building():

@@ -23,10 +23,12 @@ import torch
 
 import yolort_tpu_torch
 from yolort_tpu.ops.pallas.lookup_kernel import pallas_lookup_fetch
-from yolort_tpu_torch.experiments import fetch_block_sweep, lookup_kernel_variants, qconv_split
+from yolort_tpu_torch.experiments import (
+    fetch_block_sweep, fetch_place_compare, fetch_place_variants, lookup_kernel_variants, qconv_split,
+)
 from yolort_tpu_torch.ops.cuda import (
-    KERNELS, _build, bisect_count_reference, lookup_fetch_variant, lookup_fetch_variant_reference,
-    reset_launch_counts, row_fetch_p, row_fetch_reference,
+    KERNELS, _build, bisect_count_reference, lookup_fetch_reference, lookup_fetch_variant,
+    lookup_fetch_variant_reference, reset_launch_counts, row_fetch_p, row_fetch_reference,
 )
 from yolort_tpu_torch.ops.cuda.lookup_kernel import VARIANTS
 
@@ -178,6 +180,8 @@ def test_importing_the_entry_points_runs_nothing():
             "import yolort_tpu_torch.experiments.fetch_block_sweep\n"
             "import yolort_tpu_torch.experiments.lookup_kernel_variants\n"
             "import yolort_tpu_torch.experiments.qconv_split\n"
+            "import yolort_tpu_torch.experiments.fetch_place_compare\n"
+            "import yolort_tpu_torch.experiments.fetch_place_variants\n"
             "import yolort_tpu_torch.experiments.timing\n"
             "from yolort_tpu_torch.ops.cuda import KERNELS, _build\n"
             "assert not _build._loaded and not any(fn.launches for fn in KERNELS)\n"
@@ -188,13 +192,26 @@ def test_importing_the_entry_points_runs_nothing():
     assert out.stdout == "" and out.stderr == ""
 
 
-@pytest.mark.parametrize("module", [lookup_kernel_variants, fetch_block_sweep, qconv_split])
+@pytest.mark.parametrize("module", [lookup_kernel_variants, fetch_block_sweep, qconv_split,
+                                    fetch_place_compare, fetch_place_variants])
 def test_entry_points_raise_without_a_gpu(module, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point would run")
     with pytest.raises(RuntimeError, match="CUDA device"):
-        module.main(["--batch", "2"])
+        module.main(["--seed", "1"] if module is fetch_place_variants else ["--batch", "2"])
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("cfg", list(fetch_place_compare.STAGE2))
+def test_compare_times_row_fetch_on_the_default_routes_indices(cfg):
+    """fetch_place_compare's main-path indices are the phys that
+    select_topk_threshold's default route hands row_fetch (the lookup's)."""
+    m, k, thr = fetch_place_compare.STAGE2[cfg]
+    tab = fetch_place_compare.score_table(1, 2, m, "cpu")
+    t, cnt, off, thr_bits = fetch_place_compare.tiers(tab, k, thr)
+    assert thr_bits == int(np.float32(thr).view(np.int32)) and cnt.shape == (2, 2 * m)
+    _, phys, _, _ = lookup_fetch_reference(tab, off, k)
+    assert torch.equal(fetch_place_compare.main_path_phys(off, k, m), phys)
 
 
 def test_variant_inputs_are_the_tpu_scripts():

@@ -144,3 +144,35 @@ def test_row_fetch_reference_bf16_bits(m):
             jtab = jax.lax.bitcast_convert_type(jnp.asarray(bits[b]), jnp.bfloat16)
             want = pallas_row_fetch(jtab, jnp.asarray(phys[b]), interpret=True)
             np.testing.assert_array_equal(got[b], np.asarray(jax.lax.bitcast_convert_type(want, jnp.int16)))
+
+
+@pytest.mark.parametrize("dtype,w", [(np.float32, 128), ("bfloat16", 85), ("bfloat16", 255)])
+def test_row_fetch_reference_matches_pallas_on_sorted_runs(dtype, w):
+    """The main path's index shape: two index-ordered runs (stage 2's gt
+    then eq tier) with repeats and out-of-range ends, at the stage-2 width
+    and the bf16 widths of the cells rows (85, and 255 across two 128-lane
+    column groups).  bf16 tables here hold no NaN (see
+    test_row_fetch_reference_bf16_bits)."""
+    rng = np.random.default_rng(w)
+    m, k = 300, 520
+    tab32 = rng.standard_normal((2, m, w)).astype(np.float32)
+    tab32[:, 4, 0] = -0.0
+    phys = np.concatenate([np.sort(rng.integers(-3, m // 2, (2, 400)), 1),
+                           np.sort(rng.integers(0, m + 3, (2, k - 400)), 1)], 1).astype(np.int32)
+    if dtype == "bfloat16":
+        tab = torch.from_numpy(tab32).to(torch.bfloat16)
+        bits = tab.view(torch.int16).numpy()
+        got = row_fetch_reference(tab, torch.from_numpy(phys)).view(torch.int16).numpy()
+    else:
+        bits = tab32.view(np.int32)
+        got = row_fetch_reference(torch.from_numpy(tab32), torch.from_numpy(phys)).numpy().view(np.int32)
+    for b in range(2):
+        np.testing.assert_array_equal(got[b], bits[b][np.clip(phys[b], 0, m - 1)])
+        if dtype == "bfloat16":
+            jtab = jax.lax.bitcast_convert_type(jnp.asarray(bits[b]), jnp.bfloat16)
+            want = pallas_row_fetch(jtab, jnp.asarray(phys[b]), interpret=True)
+            want = np.asarray(jax.lax.bitcast_convert_type(want, jnp.int16))
+        else:
+            want = np.asarray(pallas_row_fetch(jnp.asarray(tab32[b]), jnp.asarray(phys[b]),
+                                               interpret=True)).view(np.int32)
+        np.testing.assert_array_equal(got[b], want[:, :w])

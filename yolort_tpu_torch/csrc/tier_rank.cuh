@@ -1,9 +1,9 @@
 // The stage-2 tier step on one 128-entry chunk row, shared by the kernels
-// that rank a row's entries (csrc/select_extract.cu): read the row as four
-// passes of 32 consecutive entries, one 4-byte load a lane a pass (entry
-// 32 j + lane in pass j, so every ballot is in entry order), take the gt-
-// and eq-tier ballots of each pass, and find the entry of a given rank in a
-// tier by popcounts.
+// that rank a row's entries (csrc/select_extract.cu, csrc/compact_select.cu):
+// read the row as four passes of 32 consecutive entries, one 4-byte load a
+// lane a pass (entry 32 j + lane in pass j, so every ballot is in entry
+// order), take the gt- and eq-tier ballots of each pass, and find the entry
+// of a given rank in a tier, or the rank of a given entry, by popcounts.
 //
 // Tiers, against the k-th value bits tb: valid bits > thr; gt tier valid
 // and bits >= tb + 1 (int32 wrap-around, as in JAX); eq tier valid and
@@ -72,6 +72,16 @@ __device__ __forceinline__ int entry_of_rank(const unsigned (&bal)[kPasses], int
     r -= c;
   }
   return pass < 0 ? -1 : 32 * pass + nth_set(x, rank);
+}
+
+// the rank of entry 32 j + lane in a tier, in entry order: the tier's set
+// bits before it, over the earlier passes and this pass's lower lanes
+__device__ __forceinline__ int rank_of(const unsigned (&bal)[kPasses], int j, int lane) {
+  int r = __popc(bal[j] & ((1u << lane) - 1u));
+#pragma unroll
+  for (int i = 0; i < kPasses; ++i)
+    if (i < j) r += __popc(bal[i]);
+  return r;
 }
 
 }  // namespace tier

@@ -4,10 +4,12 @@
 
 The counterpart of ``tools/experiments/fetch_block_sweep.py``.  The TPU
 script swept the VMEM blocks of its byte-plane fetch (slots x table rows);
-those mean nothing on a GPU, whose copy is a warp per row, so this sweeps
-the launch geometry of ``row_fetch_p``: warps per block x rows per warp
-(``GEOMETRIES``; ``row_fetch`` itself runs (8, 1)).  Shapes are the
-script's two fetches at batch 128:
+those mean nothing on a GPU, where a block owns a run of 32 output
+slots and copies each distinct row they name, so this sweeps the launch
+geometry of ``row_fetch_p``: warps per block (sharing the run's rows) x
+rows a warp keeps in flight (``GEOMETRIES``; ``row_fetch`` itself runs
+``row_fetch_geometry``'s, from the grid).  Shapes are the script's two
+fetches at batch 128:
 
   * stage 2: the (2565, 128) float32 chunk table, k = 4096 sorted indices
     (512-byte rows, 16-byte copies);
@@ -44,6 +46,7 @@ from yolort_tpu_torch.ops.cuda.lookup_kernel import row_fetch_p, row_fetch_refer
 BATCH = 128
 STAGE2 = (2565, 128, 4096)  # (rows, width, k), float32
 CELLS = (8400, 255, 4104, 3500)  # (rows, width, k, first sorted run), bfloat16
+# (warps per block, slots a warp copies with all their rows in flight)
 GEOMETRIES = tuple((w, r) for w in (1, 2, 4, 8, 16, 32) for r in (1, 2, 4, 8))
 LABELS = {"stage2": "stage-2 (2565,128) f32 k=4096 sorted",
           "cells": "cells (8400,255) bf16 k=4104 in two sorted runs"}

@@ -47,7 +47,8 @@ def compact_place(table: torch.Tensor, cnt: torch.Tensor, off: torch.Tensor, t: 
     t (B,) i32 the k-th value bits; thr_bits the f32 bits of a threshold
     >= 0.  Returns (vals (B, k) f32, idx (B, k) i32 flat indices); slots
     past the selected total hold (0.0, 0).  CUDA tensors launch the kernel
-    on the current stream; CPU tensors take ``compact_place_reference``."""
+    on the current stream, once, and it writes every slot; CPU tensors take
+    ``compact_place_reference``."""
     _check_table(table, "compact_place")
     bsz, m, _ = table.shape
     for name, x in (("cnt", cnt), ("off", off)):
@@ -65,8 +66,9 @@ def compact_place(table: torch.Tensor, cnt: torch.Tensor, off: torch.Tensor, t: 
     if table.device.type == "cpu":
         return compact_place_reference(table, cnt, off, t, thr_bits, k)
     _check_cuda("compact_place", table, cnt, off, t)
-    vals = torch.zeros(bsz, k, dtype=torch.float32, device=table.device)
-    idx = torch.zeros(bsz, k, dtype=torch.int32, device=table.device)
+    # the kernel writes every slot, the empty tail too: one launch a call
+    vals = torch.empty(bsz, k, dtype=torch.float32, device=table.device)
+    idx = torch.empty(bsz, k, dtype=torch.int32, device=table.device)
     lib = _build.library()
     with torch.cuda.device(table.device):
         rc = lib.yt_compact_place(

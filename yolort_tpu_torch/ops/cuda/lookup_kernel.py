@@ -128,7 +128,25 @@ def bisect_count(table: torch.Tensor, k: int, thr_bits: int):
 bisect_count.launches = 0
 
 _INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
-ROW_FETCH_GEOMETRY = (8, 1)  # row_fetch's (warps per block, rows per warp)
+# row_fetch's launch geometry (csrc/row_fetch.cu): a warp a slice of
+# consecutive slots, all of their rows in flight
+FETCH_WARPS_PER_BLOCK = 4
+FETCH_SMALL_SLOTS = 2048  # slots of all images below which a warp takes 2
+
+
+def row_fetch_geometry(row_bytes: int, bsz: int, k: int) -> tuple:
+    """``row_fetch``'s (warps per block, slots a warp copies, all their rows
+    in flight) for rows of ``row_bytes`` bytes, ``bsz`` images and ``k``
+    slots an image: 4 slots for rows of 16-byte words, 2 for rows of
+    2- or 4-byte words, which take 4-8 times the loads and registers a row
+    (the cells table's 510-byte rows), and 2 where the launch has fewer than
+    ``FETCH_SMALL_SLOTS`` slots (batch 1 serving: 512), whose few warps
+    then each wait on fewer rows.  As measured on the H100 by
+    ``experiments/fetch_block_sweep.py`` (1-32 warps x 1-8 slots: 4 slots
+    best at the stage-2 table, 2 at the cells table; the warps a block
+    barely matter) and PERF.md, section 6."""
+    rows = 4 if row_bytes % 16 == 0 and bsz * k >= FETCH_SMALL_SLOTS else 2
+    return FETCH_WARPS_PER_BLOCK, rows
 
 
 def row_fetch_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -181,11 +199,12 @@ def _launch_rows(table: torch.Tensor, idx: torch.Tensor, warps_per_block: int,
 def row_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Bit-exact row gather, (B, m, w) f32|bf16 + (B, k) int32 -> (B, k, w),
     indices clamped to [0, m-1].  CUDA tensors launch the kernel on the
-    current stream (8 warps a block, one row a warp); CPU tensors take
+    current stream, at ``row_fetch_geometry``'s launch; CPU tensors take
     ``row_fetch_reference``."""
     if _check_rows("row_fetch", table, idx):
         return row_fetch_reference(table, idx)
-    out = _launch_rows(table, idx, *ROW_FETCH_GEOMETRY)
+    out = _launch_rows(table, idx, *row_fetch_geometry(table.shape[2] * table.element_size(),
+                                                      *idx.shape))
     row_fetch.launches += 1
     return out
 
@@ -197,9 +216,11 @@ def row_fetch_p(table: torch.Tensor, idx: torch.Tensor, warps_per_block: int,
                 rows_per_warp: int) -> torch.Tensor:
     """``row_fetch`` at a chosen launch geometry: ``warps_per_block`` warps
     (1-32) in a block, each copying ``rows_per_warp`` (>= 1) consecutive
-    output rows.  The result does not depend on the geometry: CPU tensors
-    take ``row_fetch_reference``; CUDA tensors launch the kernel on the
-    current stream.  A bad geometry raises."""
+    output slots with all their rows in flight (in batches of at most 8,
+    fewer where the block's registers would not hold them).  The result
+    does not depend on the geometry: CPU tensors take
+    ``row_fetch_reference``; CUDA tensors launch the kernel on the current
+    stream.  A bad geometry raises."""
     if not (1 <= warps_per_block <= 32 and rows_per_warp >= 1):
         raise ValueError(f"row_fetch_p: warps_per_block must be in [1, 32] and rows_per_warp >= 1, "
                          f"got ({warps_per_block}, {rows_per_warp})")
