@@ -66,6 +66,25 @@ Phases, each fatal on failure:
      bit-identical to its plain version on the card, and the CPU's output
      equal but for one-level flips whose exact value lies within 8 float32
      ulps of a rounding boundary);
+  5b. flatten and decoded paths: on phase 4's models and requests, the
+     classes_per_anchor (= CPA) flatten path through YOLOv5.__call__ and
+     batched_postprocess of YOLO.decode, both dtypes and configs, once per
+     route: exactly FLATTEN_KERNELS a batch (bisect_count 2, the route's
+     fetch kernel 2, nms_mask 1), each route's detections equal to the
+     default route's, the card's postprocess paired with the CPU's on
+     every route, each path's postprocess time per route;
+  5c. fixed_shape: 720x1280, 480x640 and 1080x1920 frames served as one
+     batch on a 640x640 canvas (YOLOv5(fixed_shape=...)), both dtypes and
+     configs: the default route's kernels once a batch, canvas slices
+     equal to each frame's own canvas, the batch's postprocess equal to
+     each image's own, each image paired with its frame served alone and
+     the card's postprocess with the CPU's; predict_rich and the hub
+     file's yolov5s (torch.hub.load, source='local') on the card;
+  5d. r3.1 int8: yolov5s r3.1 (Hardswish) at full width @640 on the
+     weights of a fabricated r3.1 checkpoint, through phase 5: the qconv
+     kernels with Hardswish at every conv shape, and with LeakyReLU and
+     SiLU at the same shapes, bit-identical and timed; int8 serving,
+     routes, card against CPU end to end and conv by conv;
   6. p6: phase 4 for yolov5s6 at full width @1280 (stride-64 rounding) on
      8x720x1280, 2x1080x1920 and 1x1280x1280 frames, the card paired with
      the CPU on the 1280x1280 request; then yolov5s6 in int8 on its seeded
@@ -97,7 +116,9 @@ Phases, each fatal on failure:
      .fetch_block_sweep: each checks its kernel against the plain version
      and prints its times), each with the launch counts read around it.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels as JSON.  Imports nothing of JAX.
+the kernels as JSON, with each kernel's launches by path (float, int8,
+cpa, decoded, fixed_shape, r31_int8, p6, p6_int8, checkpoint and the two
+entry points).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1096,12 +1117,16 @@ def build_int8(m, device, requests, batch, label: str):
     return qmodel
 
 
-def phase_qconv_kernels(qmodel, m, batch, bsz: int, device, card: str) -> dict:
+def phase_qconv_kernels(qmodel, m, batch, bsz: int, device, card: str,
+                        other_acts: tuple = ()) -> dict:
     """qconv1x1 and qconv_kxk against their plain versions at every distinct
     conv shape of the int8 network ``qmodel`` at batch ``bsz`` on the
     canvas float ``YOLOv5`` ``m`` makes of ``batch``'s frames, on the
-    activations the network itself produces there; each timed beside its
-    plain version."""
+    activations the network itself produces there, with each conv's own
+    activation; each timed beside its plain version.  Each activation of
+    ``other_acts`` is also held bit for bit against the plain version at
+    every shape and timed there (graph replay), its sums kept under
+    ``acts``."""
     import torch
 
     from yolort_tpu_torch.ops.blocks import Conv, Conv2dOnly
@@ -1115,7 +1140,7 @@ def phase_qconv_kernels(qmodel, m, batch, bsz: int, device, card: str) -> dict:
     def hook(mod, inputs, output):
         x = inputs[0]
         shape = tuple((x.q if hasattr(x, "q") else x).shape)
-        act = "silu" if isinstance(mod, Conv) else "none"
+        act = mod.act if isinstance(mod, Conv) else "none"
         key = (mod.k, mod.s, mod.pad, shape[1], mod.wq.shape[0], shape[2], shape[3], act,
                mod.os is None)
         seen.setdefault(key, (mod, x))
@@ -1139,6 +1164,8 @@ def phase_qconv_kernels(qmodel, m, batch, bsz: int, device, card: str) -> dict:
     res["qconv_kxk"].update(library_ms=None, library_call=None,
                             nearest_partial="none timed: core PyTorch has no int8 CUDA conv "
                                             "(torch._int_mm on an im2col matrix is the nearest)")
+    for r in res.values():
+        r["acts"] = {a: dict(graph_ms=0.0, weighted_graph_ms=0.0, shapes=0) for a in other_acts}
     calls = {n: [] for n in res}
     for key, (mod, xin) in sorted(seen.items()):
         k, s, pad, cin, cout, h, w, act, float_out = key
@@ -1179,6 +1206,25 @@ def phase_qconv_kernels(qmodel, m, batch, bsz: int, device, card: str) -> dict:
                     print(f"[times] torch._int_mm refused {tuple(a.shape)} x {tuple(bmat.shape)}: {e}")
                     res["qconv1x1"]["library_ms"] = lib = None
         r = res[name]
+        others = []
+        for other in other_acts:
+            if other == act:
+                continue
+            with torch.inference_mode():
+                run_o = lambda a=args, kw=kw, o=other, n=name, kk=k, ss=s, pp=pad: (  # noqa: E731
+                    qconv1x1(*a, act=o, **kw) if n == "qconv1x1"
+                    else qconv_kxk(*a, k=kk, stride=ss, pad=pp, act=o, **kw))
+                plain_o = (qconv1x1_reference(*args, act=other, **kw) if name == "qconv1x1" else
+                           qconv_kxk_reference(*args, k=k, stride=s, pad=pad, act=other, **kw))
+                if not torch.equal(run_o(), plain_o):
+                    raise AssertionError(f"{name} {k}x{k}/s{s} {cin}->{cout} @{h}x{w} {other}: "
+                                         f"differs from the plain version")
+                g_o = graph_ms(run_o)
+            a_r = r["acts"][other]
+            a_r["graph_ms"] += g_o
+            a_r["weighted_graph_ms"] += per_forward[key] * g_o
+            a_r["shapes"] += 1
+            others.append(f"{other} bit-identical, device {g_o:.4f} ms")
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["ms"] += ms
         r["graph_ms"] += gms
@@ -1207,7 +1253,8 @@ def phase_qconv_kernels(qmodel, m, batch, bsz: int, device, card: str) -> dict:
               f"a forward, tile {plan.bm}x{plan.bn} {'gather' if plan.gather else 'cp.async'}: "
               f"bit-identical; kernel device {gms:.4f} ms (graph replay), events {ms:.4f} ms, "
               f"plain {pms:.4f} ms; bound {bms:.4f} ms ({by}), {100 * bms / gms:.1f}% of bound, "
-              f"{ops / gms / 1e9:.1f} TOP/s | {card}", flush=True)
+              f"{ops / gms / 1e9:.1f} TOP/s{'; ' if others else ''}{'; '.join(others)} | {card}",
+              flush=True)
     for name, r in res.items():
         if not r["shapes"]:
             raise AssertionError(f"{name}: no conv of the int8 network runs on it")
@@ -1230,6 +1277,10 @@ def phase_qconv_kernels(qmodel, m, batch, bsz: int, device, card: str) -> dict:
               f"{r['shapes']} shapes): kernel device {fmt_ms(r['weighted_device_ms'])} (graph "
               f"replay {r['weighted_graph_ms']:.4f} ms), bound {r['weighted_bound_ms']:.4f} ms, "
               f"lost {r['lost_per_forward_ms']:.4f} ms | {card}", flush=True)
+        for other, a_r in r["acts"].items():
+            print(f"[times] {name} {at} with {other} at the same shapes: bit-identical at "
+                  f"{a_r['shapes']} shapes; once each {a_r['graph_ms']:.4f} ms, a forward "
+                  f"{a_r['weighted_graph_ms']:.4f} ms (graph replay) | {card}", flush=True)
     return res
 
 
@@ -1393,8 +1444,13 @@ def exact_epilogue(mod, xq, scale, bias, inv):
     w = mod.wq[:, : k * k * cin].reshape(cout, k, k, cin).permute(0, 3, 1, 2).double()
     y = F.conv2d(xq.double(), w, None, mod.s, mod.pad)
     y = y * scale.double().view(1, -1, 1, 1) + bias.double().view(1, -1, 1, 1)
-    if getattr(mod, "act", "none") == "silu":
+    act = getattr(mod, "act", "none")
+    if act == "silu":
         y = y * torch.sigmoid(y)
+    elif act == "hardswish":
+        y = y * torch.clamp(y + 3.0, 0.0, 6.0) / 6.0
+    elif act == "leaky_relu":
+        y = torch.where(y >= 0, y, 0.1 * y)
     return y if inv is None else y * inv
 
 
@@ -1597,9 +1653,10 @@ CHECKPOINTS = (
 )
 
 
-def fabricate(tmp: str, label: str):
-    """(path, torch oracle) of the CHECKPOINTS entry ``label``, written into
-    ``tmp`` by tests/torch_fixture.make_checkpoint (80 classes, seed 0)."""
+def fabricate(tmp: str, label: str, make_kw=None):
+    """(path, torch oracle) of the CHECKPOINTS entry ``label`` (or of
+    ``make_kw``, the make_checkpoint keywords), written into ``tmp`` by
+    tests/torch_fixture.make_checkpoint (80 classes, seed 0)."""
     import importlib.util
     from pathlib import Path
 
@@ -1609,7 +1666,8 @@ def fabricate(tmp: str, label: str):
         "torch_fixture", Path(__file__).resolve().parent / "tests" / "torch_fixture.py")
     fixture = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fixture)
-    make_kw = next(mk for lab, mk, _, _ in CHECKPOINTS if lab == label)
+    if make_kw is None:
+        make_kw = next(mk for lab, mk, _, _ in CHECKPOINTS if lab == label)
     path = f"{tmp}/{label.replace(' ', '_')}.pt"
     return path, fixture.make_checkpoint(path, nc=80, seed=0, **make_kw)
 
@@ -1695,6 +1753,291 @@ def phase_checkpoints(tmp: str, made: dict, device, card: str) -> dict:
             print(f"[checkpoint] {label} {dt} card vs CPU postprocess: counts equal, "
                   f"{un} unpaired; {time.perf_counter() - t0:.1f} s", flush=True)
         del models, cpu
+    return dict(launches=launches, unpaired=unpaired)
+
+
+# --------------------------------------------------------------------------
+# the serving surface beside the cell path: r3.1 int8, classes_per_anchor,
+# decoded predictions, fixed_shape canvases
+# --------------------------------------------------------------------------
+
+R31 = dict(dm=0.33, wm=0.5, version="r3.1")  # yolov5s r3.1 at full width
+CPA = 4  # classes_per_anchor of the flatten-path phase
+# the kernels of the flatten and decoded paths on each route, a batch: both
+# selections run select_topk_threshold, so bisect_count and the route's
+# fetch kernel twice (stage 1, stage 2), then nms_mask
+FLATTEN_KERNELS = {
+    route: {"bisect_count": 2, "nms_mask": 1, fetch: 2}
+    for route, fetch in zip(ROUTES, ("row_fetch", "lookup_fetch", "select_extract"))
+}
+FIXED_SHAPE = (640, 640)
+
+
+def phase_r31_int8(device, requests, card: str):
+    """yolov5s r3.1 (Hardswish, Focus, BottleneckCSP, SPP) at full width
+    @640 in int8, on the weights of a fabricated r3.1 checkpoint (seeded
+    weights' activations vanish with depth): built by the bench recipe, the
+    qconv kernels at every conv shape at batch 8 with its Hardswish
+    epilogue, and with LeakyReLU (which no network reaches) and SiLU at
+    the same shapes, bit-identical to the plain versions; then phase 5's
+    serving, routes and card-vs-CPU checks (``phase_int8_slice``).
+    Returns (the qconv results, the serving phase's launches)."""
+    from yolort_tpu_torch import YOLOv5
+    from yolort_tpu_torch.ops.blocks import Conv
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path, _ = fabricate(tmp, "s r3.1", R31)
+        fmodel = YOLOv5.load_from_yolov5(path, version="r3.1", device=device)
+    acts = {mod.act for mod in fmodel.model.modules() if isinstance(mod, Conv)}
+    if acts != {"hardswish"}:
+        raise AssertionError(f"r3.1: conv activations {acts}, want hardswish only")
+    batch = frames(23, 8, 640, 640)
+    qmodel = build_int8(fmodel, device, requests, batch, "r3.1 int8")
+    res = phase_qconv_kernels(qmodel, fmodel, batch, B, device, card,
+                              other_acts=("leaky_relu", "silu"))
+    q = phase_int8_slice(qmodel, requests, device, card, "r3.1 int8")
+    del q["models"], qmodel, fmodel
+    return res, q["launches"]
+
+
+def run_path(path: str, m, req, route: str, cfg: dict) -> list:
+    """One request of ``YOLOv5`` ``m`` through a postprocess path, as
+    per-image detection dicts: 'cpa' is ``__call__`` with
+    ``classes_per_anchor`` set (the flatten path), 'decoded' is
+    ``batched_postprocess`` of ``YOLO.decode`` of the request's canvas,
+    scaled back to the frame."""
+    import torch
+
+    from yolort_tpu_torch.models.transform import scale_coords_back
+    from yolort_tpu_torch.ops.nms import batched_postprocess
+
+    yolo = m.model
+    yolo.row_gather = route
+    yolo.score_thresh, yolo.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+    if path == "cpa":
+        yolo.classes_per_anchor = CPA
+        try:
+            return m(req)
+        finally:
+            yolo.classes_per_anchor = None
+    x = torch.from_numpy(np.stack(req)).to(m.device)
+    with torch.inference_mode():
+        canvas, plan = m.canvas(x)
+        det = batched_postprocess(yolo.decode(canvas), num_classes=yolo.num_classes,
+                                  score_thresh=yolo.score_thresh, nms_thresh=yolo.nms_thresh,
+                                  detections_per_img=yolo.detections_per_img,
+                                  pre_nms_topk=yolo.pre_nms_topk, row_gather=route)
+        orig = torch.tensor(x.shape[1:3], dtype=torch.float32, device=x.device)
+        det = det._replace(boxes=scale_coords_back(det.boxes, plan.canvas_hw, orig))
+    out = []
+    for i in range(x.shape[0]):
+        n = int(det.num[i])
+        out.append({"boxes": det.boxes[i, :n].float().cpu().numpy(),
+                    "scores": det.scores[i, :n].float().cpu().numpy(),
+                    "labels": det.labels[i, :n].cpu().numpy().astype(np.int64)})
+    return out
+
+
+def postprocess_path(path: str, yolo, inp, route: str):
+    """The path's Detections, in canvas coordinates, of ``inp``: head
+    outputs ('cpa') or decoded predictions ('decoded'), on their device."""
+    from yolort_tpu_torch.ops.nms import batched_postprocess
+
+    yolo.row_gather = route
+    if path == "cpa":
+        yolo.classes_per_anchor = CPA
+        try:
+            return yolo.postprocess(inp)
+        finally:
+            yolo.classes_per_anchor = None
+    return batched_postprocess(inp, num_classes=yolo.num_classes,
+                               score_thresh=yolo.score_thresh, nms_thresh=yolo.nms_thresh,
+                               detections_per_img=yolo.detections_per_img,
+                               pre_nms_topk=yolo.pre_nms_topk, row_gather=route)
+
+
+def phase_flatten_paths(models, requests, card: str) -> dict:
+    """The flatten path (``classes_per_anchor`` = CPA, through
+    ``YOLOv5.__call__``) and the decoded path (``batched_postprocess`` of
+    ``YOLO.decode``) on the float yolov5s slice's models and requests, in
+    both dtypes and configs, once per route, each route's counts set to 0
+    just before and read just after: exactly FLATTEN_KERNELS a batch (no
+    stage-1 kernel, no other); every image with detections; each route's
+    detections equal to the default route's; then, on the 4x480x640
+    request, the card's postprocess of the card's head outputs (decoded
+    predictions) paired with the CPU's on every route, and each path's
+    postprocess time per route (CUDA events, device)."""
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    runs = [(dt, name, cfg) for dt in models for name, cfg in (("eval", EVAL), ("serving", SERVING))]
+    batches = len(runs) * len(requests)
+    out = {}
+    for path in ("cpa", "decoded"):
+        launches, served = {}, {}
+        for route in ROUTES:
+            reset_launch_counts()
+            for dt, name, cfg in runs:
+                served[(route, dt, name)] = [run_path(path, models[dt], req, route, cfg)
+                                             for req in requests]
+            torch.cuda.synchronize()
+            counts = {fn.__name__: fn.launches for fn in KERNELS}
+            want = {k: FLATTEN_KERNELS[route].get(k, 0) * batches for k in counts}
+            print(f"[{path}] route {route}: launches over {batches} batches {counts}", flush=True)
+            if counts != want:
+                raise AssertionError(f"{path} route {route}: launches {counts}, want {want}")
+            launches[route] = counts
+        for (route, dt, name), res in served.items():
+            counts = check_served(res, f"{path} {route} {dt} {name}")
+            if route == DEFAULT_ROUTE:
+                print(f"[{path}] {str(dt):>14} {name:>7}: detections/img {counts}", flush=True)
+                continue
+            for req, req0 in zip(res, served[(DEFAULT_ROUTE, dt, name)]):
+                for d, d0 in zip(req, req0):
+                    if not all(np.array_equal(d[k], d0[k]) for k in ("boxes", "scores", "labels")):
+                        raise AssertionError(f"{path} {route} {dt} {name}: detections differ "
+                                             f"from the default route's")
+        print(f"[{path}] every route served the default route's detections exactly", flush=True)
+
+        unpaired, times = 0, {}
+        for dt, m in models.items():
+            yolo = m.model
+            x = torch.from_numpy(np.stack(requests[1])).to(m.device)
+            with torch.inference_mode():
+                canvas = m.canvas(x)[0]
+                inp = yolo.head_outputs(canvas) if path == "cpa" else yolo.decode(canvas)
+            inp_cpu = [h.cpu() for h in inp] if path == "cpa" else inp.cpu()
+            for name, cfg in (("eval", EVAL), ("serving", SERVING)):
+                yolo.score_thresh, yolo.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+                line = []
+                for route in ROUTES:
+                    with torch.inference_mode():
+                        det = postprocess_path(path, yolo, inp, route)
+                        det_cpu = postprocess_path(path, yolo, inp_cpu, route)
+                        ev = median_ms(lambda: postprocess_path(path, yolo, inp, route), 5, 3)
+                        dev = device_profile(lambda: postprocess_path(path, yolo, inp, route),
+                                             iters=3)[0]
+                    unpaired += pair_detections(det, det_cpu, f"{path} {route} {dt} {name}")
+                    times[(str(dt), name, route)] = (ev, dev)
+                    line.append(f"{route} {ev:.3f} ms (device {fmt_ms(dev)})")
+                print(f"[{path}] card vs CPU, 4x480x640 {dt} {name}: counts equal on every route; "
+                      f"postprocess by route {'; '.join(line)} | {card}", flush=True)
+            yolo.row_gather = DEFAULT_ROUTE
+        print(f"[{path}] unpaired card vs CPU over every route, dtype and config: {unpaired}",
+              flush=True)
+        totals = {k: sum(launches[r][k] for r in ROUTES) for k in launches[DEFAULT_ROUTE]}
+        out[path] = dict(launches=totals, unpaired=unpaired, times=times)
+    return out
+
+
+def as_detections(d: dict):
+    """A per-image detection dict as a batch-1 Detections."""
+    import torch
+
+    from yolort_tpu_torch.ops.nms import Detections
+
+    n = len(d["scores"])
+    return Detections(torch.from_numpy(d["boxes"])[None], torch.from_numpy(d["scores"])[None],
+                      torch.from_numpy(d["labels"])[None], torch.ones(1, n, dtype=torch.bool),
+                      torch.tensor([n]))
+
+
+def phase_fixed_shape(models, device, card: str, hub_name: str = "yolov5s") -> dict:
+    """A mixed-size request (720x1280, 480x640, 1080x1920 frames) served as
+    one batch on a FIXED_SHAPE canvas by the float yolov5s slice's models
+    (``YOLOv5(fixed_shape=...)``), both dtypes and configs: exactly the
+    default route's kernels, one batch a call; each canvas slice equal to
+    its frame's own canvas bit for bit; the postprocess of the batch's
+    head outputs equal, image by image, to each image's postprocess alone;
+    each image's detections paired with those of the frame served alone;
+    the card's postprocess paired with the CPU's, and the card's canvas
+    beside the CPU's; then ``predict_rich`` and the hub file's factory
+    ``hub_name`` (the models' own) on the card."""
+    import copy
+    from pathlib import Path
+
+    import torch
+
+    from yolort_tpu_torch import YOLOv5
+    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    mixed = [frames(24, 1, 720, 1280)[0], frames(25, 1, 480, 640)[0], frames(26, 1, 1080, 1920)[0]]
+    fixed = {dt: YOLOv5(model=m.model, device=device, dtype=dt, size=FIXED_SHAPE,
+                        fixed_shape=FIXED_SHAPE) for dt, m in models.items()}
+    reset_launch_counts()
+    served = {}
+    for dt, fm in fixed.items():
+        for name, cfg in (("eval", EVAL), ("serving", SERVING)):
+            fm.model.score_thresh, fm.model.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+            served[(dt, name)] = fm(mixed)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    want = {k: DEFAULT_PER_BATCH.get(k, 0) * len(served) for k in launches}
+    print(f"[fixed_shape] {len(served)} mixed-size batches of 3 on a {FIXED_SHAPE} canvas: "
+          f"launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"fixed_shape: launches {launches}, want {want}")
+
+    unpaired = 0
+    for (dt, name), res in served.items():
+        fm = fixed[dt]
+        yolo = fm.model
+        cfg = EVAL if name == "eval" else SERVING
+        yolo.score_thresh, yolo.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+        counts = check_served([res], f"fixed_shape {dt} {name}")
+        raws = [torch.from_numpy(im).to(device) for im in mixed]
+        with torch.inference_mode():
+            canvas = fm.canvas_mixed(raws)
+            for i, r in enumerate(raws):
+                if not torch.equal(canvas[i], fm.canvas(r[None])[0][0]):
+                    raise AssertionError(f"fixed_shape {dt}: canvas slice {i} differs from its "
+                                         f"frame's own canvas")
+            heads = yolo.head_outputs(canvas)
+            det = yolo.postprocess(heads)
+            for i in range(len(raws)):
+                one = yolo.postprocess([h[i:i + 1].contiguous() for h in heads])
+                if not all(torch.equal(a[i:i + 1], b) for a, b in zip(det, one)):
+                    raise AssertionError(f"fixed_shape {dt} {name}: image {i}'s postprocess in "
+                                         f"the batch differs from its own")
+            det_cpu = yolo.postprocess([h.cpu() for h in heads])
+        un = pair_detections(det, det_cpu, f"fixed_shape card vs CPU {dt} {name}")
+        alone_un = sum(pair_detections(as_detections(fm([im])[0]), as_detections(d),
+                                       f"fixed_shape alone {dt} {name} {im.shape[:2]}")
+                       for im, d in zip(mixed, res))
+        unpaired += un + alone_un
+        print(f"[fixed_shape] {str(dt):>14} {name:>7}: detections/img {counts}; canvas slices "
+              f"equal to each frame's own canvas; batch postprocess equal to each image's own; "
+              f"card vs CPU postprocess {un} unpaired; each image against its frame served "
+              f"alone {alone_un} unpaired", flush=True)
+    cpu = YOLOv5(model=copy.deepcopy(models[torch.float32].model).cpu(), device="cpu",
+                 size=FIXED_SHAPE, fixed_shape=FIXED_SHAPE)
+    with torch.inference_mode():
+        c_gpu = fixed[torch.float32].canvas_mixed([torch.from_numpy(im).to(device) for im in mixed])
+        c_cpu = cpu.canvas_mixed([torch.from_numpy(im) for im in mixed])
+    canvas_err = (c_gpu.cpu() - c_cpu).abs().max().item()
+    print(f"[fixed_shape] float32 canvas, card vs CPU: max abs diff {canvas_err:.3e}", flush=True)
+    if canvas_err > 1e-6:
+        raise AssertionError(f"fixed_shape: the card's canvas differs from the CPU's by {canvas_err}")
+
+    fm = fixed[torch.float32]
+    fm.model.score_thresh, fm.model.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+    rich = fm.predict_rich(mixed)
+    base = served[(torch.float32, "serving")]
+    if [len(r) for r in rich.records()] != [len(d["boxes"]) for d in base]:
+        raise AssertionError("fixed_shape: predict_rich's records differ from the served detections")
+    hub = torch.hub.load(str(Path(__file__).resolve().parent / "yolort_tpu_torch"), hub_name,
+                         source="local", device=device, size=FIXED_SHAPE, fixed_shape=FIXED_SHAPE,
+                         seed=0)
+    hub.model.load_state_dict(fm.model.state_dict())
+    hub.model.score_thresh, hub.model.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+    for d, d0 in zip(hub(mixed), base):
+        if not all(np.array_equal(d[k], d0[k]) for k in ("boxes", "scores", "labels")):
+            raise AssertionError("fixed_shape: the hub factory's model serves other detections")
+    print(f"[fixed_shape] predict_rich on the card: records per image "
+          f"{[len(r) for r in rich.records()]}, summary {len(rich.summary())} characters; the hub file's "
+          f"{hub_name} (torch.hub.load, source='local', {hub.device}) served the same detections",
+          flush=True)
     return dict(launches=launches, unpaired=unpaired)
 
 
@@ -1868,6 +2211,14 @@ def main() -> int:
     done("int8 build and qconv kernels")
     q8 = phase_int8_slice(qmodel, sl["requests"], device, card)
     done("int8 slice")
+    flat = phase_flatten_paths(sl["models"], sl["requests"], card)
+    done("classes_per_anchor and decoded paths")
+    fx = phase_fixed_shape(sl["models"], device, card)
+    done("fixed_shape")
+    r31, r31_launches = phase_r31_int8(device, sl["requests"], card)
+    for name, r in r31.items():
+        res[name]["r31"] = r
+    done("r3.1 int8")
     p6 = phase_p6(device, card)
     done("p6 slice")
     phase_p6_int8_seeded(device, p6["requests"])
@@ -1894,8 +2245,10 @@ def main() -> int:
     phase_route_times(sl["models"], card)
     phase_p6_times(p6["models"], card)
     done("times")
-    paths = {"float": sl["launches"], "int8": q8["launches"], "p6": p6["launches"],
-             "p6_int8": q86["launches"], "checkpoint": ck["launches"], **phase_entry_points()}
+    paths = {"float": sl["launches"], "int8": q8["launches"], "cpa": flat["cpa"]["launches"],
+             "decoded": flat["decoded"]["launches"], "fixed_shape": fx["launches"],
+             "r31_int8": r31_launches, "p6": p6["launches"], "p6_int8": q86["launches"],
+             "checkpoint": ck["launches"], **phase_entry_points()}
     done("entry points")
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -656,8 +656,7 @@ def test_qconv_plan_covers_the_p6_shapes(m, cout, k, cin):
     assert plan.slabs * 64 >= k * k * cin
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k,s,pad,n,h,w,c,co,fill", [
+QCONV_CASES = [
     (6, 2, 2, 2, 64, 96, 3, 32, "random"),
     (3, 2, 1, 2, 40, 48, 32, 64, "random"),
     (3, 1, 1, 2, 20, 24, 64, 64, "random"),
@@ -690,7 +689,11 @@ def test_qconv_plan_covers_the_p6_shapes(m, cout, k, cin):
     (1, 1, 0, 4, 20, 20, 512, 384, "random"),
     (3, 2, 1, 2, 80, 80, 512, 768, "random"),
     (1, 1, 0, 2, 40, 40, 768, 768, "random"),
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s,pad,n,h,w,c,co,fill", QCONV_CASES)
 def test_qconv_kernels_match_plain(cuda_device, k, s, pad, n, h, w, c, co, fill):
     args = _qconv_operands(k, n, h, w, c, co, seed=k + c, device=cuda_device,
                            extreme=fill == "extreme")
@@ -705,6 +708,24 @@ def test_qconv_kernels_match_plain(cuda_device, k, s, pad, n, h, w, c, co, fill)
             wantf = qconv_kxk_reference(*args, out_dtype=dt, **kw)
             gotf = qconv(*args, out_dtype=dt, **kw)
             assert gotf.dtype == dt and torch.equal(gotf, wantf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["hardswish", "leaky_relu"])
+@pytest.mark.parametrize("k,s,pad,n,h,w,c,co,fill", QCONV_CASES)
+def test_qconv_kernels_match_plain_hardswish_and_leaky_relu(cuda_device, k, s, pad, n, h, w, c,
+                                                            co, fill, act):
+    """The epilogue's other activations (r3.1's Hardswish, LeakyReLU(0.1))
+    at every shape of the SiLU cases, int8, float32 and bfloat16 out; the
+    bias is shifted so y spans both Hardswish knees and both signs."""
+    xq, wq, scale, bias = _qconv_operands(k, n, h, w, c, co, seed=k + c + 1, device=cuda_device,
+                                          extreme=fill == "extreme")
+    bias = bias * 4.0
+    kw = dict(k=k, stride=s, pad=pad, act=act)
+    for inv, dt in ((6.0, torch.float32), (None, torch.float32), (None, torch.bfloat16)):
+        want = qconv_kxk_reference(xq, wq, scale, bias, inv_out_scale=inv, out_dtype=dt, **kw)
+        got = qconv(xq, wq, scale, bias, inv_out_scale=inv, out_dtype=dt, **kw)
+        assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def test_qconv_split_variants_apply_to_the_kernel_source():

@@ -1,5 +1,6 @@
 // int8 convolution with a fused float epilogue: s8 x s8 -> s32, then
-//   y = f32(acc) * scale[co] + bias[co];  y = act(y);
+//   y = f32(acc) * scale[co] + bias[co];  y = act(y)  (none, SiLU, Hardswish
+//   or LeakyReLU(0.1));
 //   out = clip(round_half_even(y * inv_out_scale), -127, 127) as int8,
 //   or y cast to the float out type when there is no out scale.
 //
@@ -75,7 +76,8 @@ constexpr int kStages = 4;          // depth of the cp.async ring
 constexpr int kChunks = kBK / 16;   // 16-byte chunks per stage row
 constexpr int kOutPad = 16;         // bytes added to each staged output row
 
-enum Act { kActNone = 0, kActSilu = 1 };
+// the activation codes of qconv_kernel.ACTS
+enum Act { kActNone = 0, kActSilu = 1, kActHardswish = 2, kActLeakyRelu = 3 };
 enum OutKind { kOutInt8 = 0, kOutF32 = 1, kOutBf16 = 2 };
 
 struct Shape {
@@ -160,9 +162,26 @@ __device__ __forceinline__ float silu_rn(float y) {
   return __fmul_rn(y, sig);
 }
 
+// y * clip(y + 3, 0, 6) * (1/6), rounded an operation at a time in that
+// order, with 1/6 the float32 constant (the JAX package's hardswish)
+__device__ __forceinline__ float hardswish_rn(float y) {
+  const float c = fminf(fmaxf(__fadd_rn(y, 3.0f), 0.0f), 6.0f);
+  return __fmul_rn(__fmul_rn(y, c), 1.0f / 6.0f);
+}
+
+// where(y >= 0, y, 0.1 * y), 0.1 the float32 constant
+__device__ __forceinline__ float leaky_relu_rn(float y) {
+  return y >= 0.0f ? y : __fmul_rn(0.1f, y);
+}
+
 __device__ __forceinline__ float epilogue_value(int acc, float sc, float bi, int act) {
   float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), sc), bi);
-  return act == kActSilu ? silu_rn(y) : y;
+  switch (act) {
+    case kActSilu: return silu_rn(y);
+    case kActHardswish: return hardswish_rn(y);
+    case kActLeakyRelu: return leaky_relu_rn(y);
+    default: return y;
+  }
 }
 
 __device__ __forceinline__ int8_t requantize(float y, float inv_out_scale) {
@@ -463,7 +482,7 @@ bool aligned(const void* p, uintptr_t n) { return (reinterpret_cast<uintptr_t>(p
 int run(const void* x, const void* w, const void* scale, const void* bias, float inv_out_scale,
         void* out, const Shape& s, int act, int out_kind, int tile, int gather, int smem_bytes,
         void* stream) {
-  if (act != kActNone && act != kActSilu) return (int)cudaErrorInvalidValue;
+  if (act < kActNone || act > kActLeakyRelu) return (int)cudaErrorInvalidValue;
   if (out_kind != kOutInt8 && out_kind != kOutF32 && out_kind != kOutBf16)
     return (int)cudaErrorInvalidValue;
   // the gather loader reads weights as 4-byte words; the cp.async loader

@@ -2,8 +2,9 @@
 
 Port of ``yolort_tpu/models/head.py``: per-level 1x1 convs producing
 A*(5+nc) channels with the prior-probability bias init, the COCO and P6
-anchors, the flat-index anchor arithmetic the postprocess uses, and the
-full decode (``concat_pred_logits``: everything but the NMS).  Head
+anchors, the flat-index anchor arithmetic the postprocess uses (and the
+tables it replaces, ``anchor_tables``), ``flatten_heads``, and the full
+decode (``concat_pred_logits``: everything but the NMS).  Head
 outputs are returned NHWC, (B, H, W, A*(5+nc)), as in the JAX package.
 """
 
@@ -124,6 +125,31 @@ def decode_level(head_logits: torch.Tensor, grid: torch.Tensor, shift: torch.Ten
     xy = (sig[..., 0:2] * 2.0 - 0.5 + grid) * stride
     wh = (sig[..., 2:4] * 2.0) ** 2 * shift
     return torch.cat([xy, wh, sig[..., 4:]], dim=-1)
+
+
+def flatten_heads(head_outputs: Sequence[torch.Tensor], num_anchors: int) -> torch.Tensor:
+    """Per-level logits (B, H, W, A*K) concatenated as (B, total_anchors, K)
+    in the model dtype (no decode, no upcast), anchors in the order of
+    ``anchor_props_from_index``."""
+    return torch.cat([ho.reshape(ho.shape[0], -1, ho.shape[3] // num_anchors)
+                      for ho in head_outputs], dim=1)
+
+
+def anchor_tables(
+    grid_sizes: Sequence[Tuple[int, int]],
+    strides: Sequence[int],
+    anchor_grids: Sequence[Sequence[float]],
+    device="cpu",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-anchor (grid_xy, anchor_wh, stride) tables, (total_anchors, 2),
+    (total_anchors, 2) and (total_anchors,) f32, in ``flatten_heads``
+    order: the values ``anchor_props_from_index`` computes from the
+    index."""
+    grids, shifts = make_grids_and_shifts(grid_sizes, anchor_grids, device)
+    num_anchors = len(anchor_grids[0]) // 2
+    stride = torch.cat([torch.full((h * w * num_anchors,), float(st), device=device)
+                        for (h, w), st in zip(grid_sizes, strides)])
+    return torch.cat(grids), torch.cat(shifts), stride
 
 
 def concat_pred_logits(

@@ -9,6 +9,7 @@ predictions and padded ``Detections``.
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -39,8 +40,10 @@ class YOLO(nn.Module):
     ``version`` the family ('r3.1', 'r4.0', 'r6.0'), ``use_p6`` the fourth
     level (with its strides and anchors unless given), ``use_tan`` the C3TR
     first inner block.  The postprocess thresholds are plain attributes
-    (the defaults are the eval config), and so is its stage-2 route ``row_gather``
-    (``ops.nms.NMSConfig``; any route gives the same detections).  Weights
+    (the defaults are the eval config), and so are ``classes_per_anchor``
+    (None: the cell path; C: each anchor's best C classes, on the flatten
+    path) and the stage-2 route ``row_gather`` (``ops.nms.NMSConfig``; any
+    route gives the same detections).  Weights
     are drawn from ``torch.Generator(seed)`` on the CPU, then the module
     moves to ``device`` (the card unless the caller passes ``"cpu"``) and
     ``dtype``."""
@@ -63,6 +66,7 @@ class YOLO(nn.Module):
         detections_per_img: int = 300,
         pre_nms_topk: int = 4096,
         pre_nms_anchors: Optional[int] = None,
+        classes_per_anchor: Optional[int] = None,
         nms_tile_size: int = 256,
         row_gather: str = "pallas_bisect",
         seed: int = 0,
@@ -79,6 +83,7 @@ class YOLO(nn.Module):
         self.detections_per_img = detections_per_img
         self.pre_nms_topk = pre_nms_topk
         self.pre_nms_anchors = pre_nms_anchors
+        self.classes_per_anchor = classes_per_anchor
         self.nms_tile_size = nms_tile_size
         self.row_gather = row_gather
 
@@ -120,8 +125,20 @@ class YOLO(nn.Module):
             num_classes=self.num_classes, score_thresh=self.score_thresh,
             nms_thresh=self.nms_thresh, detections_per_img=self.detections_per_img,
             pre_nms_topk=self.pre_nms_topk, pre_nms_anchors=self.pre_nms_anchors,
-            nms_tile_size=self.nms_tile_size, row_gather=self.row_gather,
+            classes_per_anchor=self.classes_per_anchor, nms_tile_size=self.nms_tile_size,
+            row_gather=self.row_gather,
         )
+
+    def with_thresholds(self, score_thresh=None, nms_thresh=None, detections_per_img=None,
+                        pre_nms_topk=None) -> "YOLO":
+        """A view of this model with the given postprocess thresholds (those
+        left None keep theirs): a shallow copy sharing every weight."""
+        out = copy.copy(self)
+        for key, v in (("score_thresh", score_thresh), ("nms_thresh", nms_thresh),
+                       ("detections_per_img", detections_per_img), ("pre_nms_topk", pre_nms_topk)):
+            if v is not None:
+                setattr(out, key, v)
+        return out
 
     def forward(self, images: torch.Tensor) -> Detections:
         """images (B, H, W, 3) letterboxed -> padded Detections, canvas coordinates."""

@@ -3,7 +3,13 @@
 Port of ``yolort_tpu/models/yolov5.py``.  ``__call__`` groups images of one
 raw size into a batch (a shape bucket) and runs the whole pipeline on the
 model's device: uint8 frames are normalised there, float images are taken
-as [0, 1].  ``load_from_yolov5`` builds one from an ultralytics checkpoint.
+as [0, 1].  With ``fixed_shape`` every canvas is that size, and a request
+of mixed sizes is served as one batch: each frame is uploaded as it is,
+letterboxed on the device into its slice of one canvas
+(``letterbox_images``) and its boxes scaled back with its own size
+(``_infer_fixed``).  ``predict_rich`` wraps the detections in
+``utils.results.DetectionResults``; ``load_from_yolov5`` builds a model
+from an ultralytics checkpoint.
 """
 
 from __future__ import annotations
@@ -16,7 +22,9 @@ import torch
 
 from yolort_tpu_torch.models._bridge import params_from_jax
 from yolort_tpu_torch.models._checkpoint import load_from_ultralytics
-from yolort_tpu_torch.models.transform import letterbox_batch, make_plan, scale_coords_back
+from yolort_tpu_torch.models.transform import (
+    letterbox_batch, letterbox_images, make_plan, scale_coords_back,
+)
 from yolort_tpu_torch.models.yolo import YOLO, build_yolo, resolve_device
 from yolort_tpu_torch.ops.nms import Detections
 
@@ -34,7 +42,8 @@ def read_image(path: str) -> np.ndarray:
 class YOLOv5:
     """User-facing end-to-end model.  ``size`` is the (min_size, max_size)
     letterbox target, ``size_divisible`` the canvas rounding,
-    ``fill_color`` the pad value; ``device`` (the card unless the caller
+    ``fixed_shape`` pins the canvas (h, w) (then images of mixed sizes
+    share one batch), ``fill_color`` the pad value; ``device`` (the card unless the caller
     passes ``"cpu"``; a CUDA device where there is none raises) and
     ``dtype`` (float32 or bfloat16) place the model.  A ``model`` passed in
     is served where its parameters lie; a ``device`` given beside it must
@@ -49,6 +58,7 @@ class YOLOv5:
         num_classes: int = 80,
         size: Tuple[int, int] = (640, 640),
         size_divisible: int = 32,
+        fixed_shape: Optional[Tuple[int, int]] = None,
         fill_color: int = 114,
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
@@ -73,6 +83,8 @@ class YOLOv5:
         self.num_classes = model.num_classes
         self.size = size
         self.size_divisible = size_divisible
+        self.fixed_shape = None if fixed_shape is None else (int(fixed_shape[0]),
+                                                             int(fixed_shape[1]))
         self.fill_color = fill_color
         self.dtype = dtype
 
@@ -86,6 +98,7 @@ class YOLOv5:
         dtype: torch.dtype = torch.float32,
         size: Tuple[int, int] = (640, 640),
         size_divisible: int = 32,
+        fixed_shape: Optional[Tuple[int, int]] = None,
         fill_color: int = 114,
         score_thresh: float = 0.25,
         nms_thresh: float = 0.45,
@@ -103,18 +116,40 @@ class YOLOv5:
                      strides=info["strides"], anchor_grids=info["anchor_grids"],
                      score_thresh=score_thresh, nms_thresh=nms_thresh, **kwargs)
         params_from_jax(info["params"], model)
-        return cls(model=model, size=size, size_divisible=size_divisible, fill_color=fill_color,
-                   dtype=dtype)
+        return cls(model=model, size=size, size_divisible=size_divisible, fixed_shape=fixed_shape,
+                   fill_color=fill_color, dtype=dtype)
+
+    def _plans(self, sizes) -> list:
+        plans = make_plan(sizes, min_size=self.size[0], max_size=self.size[1],
+                          size_divisible=self.size_divisible, fixed_shape=self.fixed_shape)
+        for p in plans:
+            if p.resized_hw[0] > p.canvas_hw[0] or p.resized_hw[1] > p.canvas_hw[1]:
+                raise ValueError(f"an image resized to {p.resized_hw} (size {self.size}) does not "
+                                 f"fit the fixed_shape canvas {p.canvas_hw}")
+        return plans
+
+    def _to_unit(self, raw: torch.Tensor) -> torch.Tensor:
+        """uint8 frames normalised to [0, 1], float ones taken as they are,
+        in the model dtype."""
+        return raw.to(self.dtype) * (1.0 / 255.0) if raw.dtype == torch.uint8 else raw.to(self.dtype)
 
     def canvas(self, raw: torch.Tensor):
         """(canvas, plan) of raw (B, H, W, 3) uint8 or float in [0, 1], one
         shape bucket: the letterboxed batch the model takes, in its dtype,
-        and the ``LetterboxPlan`` that made it."""
+        and the ``LetterboxPlan`` that made it (onto ``fixed_shape`` where
+        it is set)."""
         _, h, w, _ = raw.shape
-        plan = make_plan([(h, w)], min_size=self.size[0], max_size=self.size[1],
-                         size_divisible=self.size_divisible)[0]
-        x = raw.to(self.dtype) * (1.0 / 255.0) if raw.dtype == torch.uint8 else raw.to(self.dtype)
-        return letterbox_batch(x, plan, self.fill_color / 255.0), plan
+        plan = self._plans([(h, w)])[0]
+        return letterbox_batch(self._to_unit(raw), plan, self.fill_color / 255.0), plan
+
+    def canvas_mixed(self, raws: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The ``fixed_shape`` canvas (B, ch, cw, 3) of frames (H_i, W_i, 3)
+        of any sizes, each letterboxed into its slice on their device; a
+        slice equals ``canvas`` of its frame alone, bit for bit."""
+        if self.fixed_shape is None:
+            raise ValueError("images of mixed sizes share a batch only with fixed_shape set")
+        plans = self._plans([tuple(r.shape[:2]) for r in raws])
+        return letterbox_images([self._to_unit(r) for r in raws], plans, self.fill_color / 255.0)
 
     @torch.inference_mode()
     def _infer(self, raw: torch.Tensor) -> Detections:
@@ -126,9 +161,34 @@ class YOLOv5:
         orig = torch.tensor([h, w], dtype=torch.float32, device=raw.device)
         return det._replace(boxes=scale_coords_back(det.boxes, plan.canvas_hw, orig))
 
+    @torch.inference_mode()
+    def _infer_fixed(self, canvases: torch.Tensor, orig_hw: torch.Tensor) -> Detections:
+        """Inference on letterboxed ``fixed_shape`` canvases (B, ch, cw, 3)
+        of frames of any sizes; each image's boxes scaled back with its own
+        ``orig_hw`` (B, 2) f32 row."""
+        det = self.model(canvases.to(self.dtype))
+        return det._replace(boxes=scale_coords_back(det.boxes, self.fixed_shape,
+                                                    orig_hw[:, None, :]))
+
+    @staticmethod
+    def _unpack(det: Detections, idxs: Sequence[int], results: list) -> None:
+        boxes, scores, labels, num = (
+            det.boxes.float().cpu().numpy(), det.scores.float().cpu().numpy(),
+            det.labels.cpu().numpy(), det.num.cpu().numpy(),
+        )
+        for j, i in enumerate(idxs):
+            n = int(num[j])
+            results[i] = {
+                "boxes": boxes[j, :n],
+                "scores": scores[j, :n],
+                "labels": labels[j, :n].astype(np.int64),
+            }
+
     def __call__(self, inputs: Sequence[np.ndarray]) -> List[Dict[str, np.ndarray]]:
-        """Detect on a list of HWC images (uint8, or float in [0, 1]);
-        same-size images share one batch."""
+        """Detect on a list of HWC images (uint8, or float in [0, 1]).
+        Same-size images of one dtype share a batch; with ``fixed_shape``
+        set, a request of several sizes or dtypes is one batch on the
+        fixed canvas (``canvas_mixed``, ``_infer_fixed``)."""
         images = [np.asarray(x) for x in inputs]
         results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(images)
         groups: Dict[Tuple[Tuple[int, int], np.dtype], List[int]] = {}
@@ -136,27 +196,50 @@ class YOLOv5:
             if im.ndim != 3 or im.shape[-1] != 3:
                 raise ValueError(f"expected an HWC image with 3 channels, got shape {im.shape}")
             dt = np.dtype(np.uint8) if im.dtype == np.uint8 else np.dtype(np.float32)
+            images[i] = im.astype(dt, copy=False)
             groups.setdefault((im.shape[:2], dt), []).append(i)
-        for (_, dt), idxs in groups.items():
-            batch = torch.from_numpy(np.stack([images[i].astype(dt, copy=False) for i in idxs]))
-            det = self._infer(batch.to(self.device))
-            boxes, scores, labels, num = (
-                det.boxes.float().cpu().numpy(), det.scores.float().cpu().numpy(),
-                det.labels.cpu().numpy(), det.num.cpu().numpy(),
-            )
-            for j, i in enumerate(idxs):
-                n = int(num[j])
-                results[i] = {
-                    "boxes": boxes[j, :n],
-                    "scores": scores[j, :n],
-                    "labels": labels[j, :n].astype(np.int64),
-                }
+        if self.fixed_shape is not None and len(groups) > 1:
+            with torch.inference_mode():
+                raws = [torch.from_numpy(np.ascontiguousarray(im)).to(self.device) for im in images]
+                orig = torch.tensor([im.shape[:2] for im in images], dtype=torch.float32,
+                                    device=self.device)
+                det = self._infer_fixed(self.canvas_mixed(raws), orig)
+            self._unpack(det, range(len(images)), results)
+            return results  # type: ignore[return-value]
+        for idxs in groups.values():
+            batch = torch.from_numpy(np.stack([images[i] for i in idxs]))
+            self._unpack(self._infer(batch.to(self.device)), idxs, results)
         return results  # type: ignore[return-value]
 
     def predict(self, x: Any, image_loader: Optional[Callable] = None) -> List[Dict[str, np.ndarray]]:
         """Detect on a path, an HWC array, or a list of either."""
-        loader = image_loader or read_image
-        if isinstance(x, str) or (isinstance(x, np.ndarray) and x.ndim == 3):
-            x = [x]
-        images = [loader(s) if isinstance(s, str) else np.asarray(s) for s in x]
-        return self(images)
+        return self(self.collate_images(x, image_loader or read_image))
+
+    def predict_rich(self, x: Any, image_loader: Optional[Callable] = None):
+        """``predict``, its detections wrapped in a ``DetectionResults`` (print,
+        records, pandas, render, crop, save) with the images and, where
+        given, the file names."""
+        from yolort_tpu_torch.utils.results import DetectionResults
+
+        files = [x] if isinstance(x, str) else (
+            [s for s in x if isinstance(s, str)] if isinstance(x, (list, tuple)) else None)
+        images = self.collate_images(x, image_loader or read_image)
+        return DetectionResults(images, self(images), files=files or None)
+
+    @staticmethod
+    def collate_images(samples: Any, image_loader: Callable) -> List[np.ndarray]:
+        """A path, an HWC array, or a list of either, as a list of HWC
+        arrays: paths read by ``image_loader``, uint8 arrays kept uint8
+        (normalised on the device), any other as float32 in [0, 1]."""
+        if isinstance(samples, str) or (isinstance(samples, np.ndarray) and samples.ndim == 3):
+            samples = [samples]
+        out = []
+        for s in samples:
+            if isinstance(s, str):
+                out.append(image_loader(s))
+                continue
+            arr = np.asarray(s)
+            if arr.ndim != 3:
+                raise ValueError(f"expected an HWC image, got shape {arr.shape}")
+            out.append(arr if arr.dtype == np.uint8 else arr.astype(np.float32, copy=False))
+        return out

@@ -58,7 +58,7 @@ def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, 0.1 * x)
 
 
-ACTS = {"silu": silu, "hardswish": hardswish}
+ACTS = {"silu": silu, "hardswish": hardswish, "leaky_relu": leaky_relu01, "none": lambda x: x}
 
 
 def act_for_version(version: str) -> str:
@@ -214,8 +214,8 @@ class Conv(_Int8Conv, nn.Module):
     init folds the identity BatchNorm of a fresh model into the weight) or
     unfused (``weight`` + the BatchNorm buffers ``gamma``, ``beta``,
     ``mean``, ``var``, applied after the conv as ``y * scale + bias``).
-    The int8 form takes SiLU only, the qconv epilogue's activation: a
-    quantized Hardswish conv raises."""
+    The int8 form applies ``act`` in the qconv kernels' float32 epilogue,
+    which knows every key of ``ACTS``."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
                  g: int = 1, act: str = "silu", *, gen: torch.Generator):

@@ -15,6 +15,8 @@ int8 tensor cores, fed by a ``cp.async`` ring; ``qconv_plan`` picks its
 tile and loader from the conv's shape.  The epilogue, in float32, is
 
     y = f32(acc) * scale[co] + bias[co];  y = act(y)
+    act: none | silu (y * sigmoid(y)) | hardswish (y * clip(y + 3, 0, 6) / 6)
+         | leaky_relu (where(y >= 0, y, 0.1 * y))
     out = clip(round_half_even(y * inv_out_scale), -127, 127) as int8
 
 or ``y`` cast to ``out_dtype`` when ``inv_out_scale`` is None.
@@ -30,7 +32,12 @@ import torch.nn.functional as F
 
 from yolort_tpu_torch.ops.cuda import _build
 
-ACTS = {"none": 0, "silu": 1}
+# the epilogue's activations and their codes in csrc/qconv.cu (the
+# activations of the JAX package's qconv ``_act``)
+ACTS = {"none": 0, "silu": 1, "hardswish": 2, "leaky_relu": 3}
+# the float32 constants of the JAX program's weak-typed 1/6 and 0.1
+ONE_SIXTH = float(np.float32(1.0 / 6.0))
+LEAKY_SLOPE = float(np.float32(0.1))
 _OUT_KINDS = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
 
 # the kernel's geometry (csrc/qconv.cu): K bytes per pipeline stage, ring
@@ -121,6 +128,10 @@ def _epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, act: s
     y = y + bias.view(1, -1, 1, 1)
     if act == "silu":
         y = y * torch.sigmoid(y)
+    elif act == "hardswish":
+        y = (y * torch.clamp(y + 3.0, 0.0, 6.0)) * ONE_SIXTH
+    elif act == "leaky_relu":
+        y = torch.where(y >= 0, y, y * LEAKY_SLOPE)
     if inv_out_scale is not None:
         return quantize_int8(y, inv_out_scale)
     return y.to(out_dtype)

@@ -5,6 +5,8 @@ Port of ``yolort_tpu/ops/select.py`` for the paths the main program runs:
   * ``_bisect_kth_bits`` — the exact k-th value search (16-ary bisection);
   * ``select_topk_indices`` — the stage-1 anchor screen: the k-th value,
     then one int32 selection over ``tier << B | index`` keys;
+  * ``select_topk_indices_compact`` — the same (ok, idx) contract through
+    ``select_topk_threshold(sort=False)``;
   * ``select_topk_threshold`` — the stage-2 pair select, the f32 ``w=128``
     path: the k-th value and per-chunk tier counts from ``bisect_count``,
     exclusive offsets, then one of three ``row_gather`` routes (the JAX
@@ -107,14 +109,17 @@ def select_topk_indices(
 
 
 def select_topk_threshold(
-    flat: torch.Tensor, k: int, score_thresh: float, row_gather: str = "pallas_bisect"
+    flat: torch.Tensor, k: int, score_thresh: float, row_gather: str = "pallas_bisect",
+    sort: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of (B, n) f32 scores > score_thresh, without a sort of
     the domain.  Returns (values (B, k) f32, indices (B, k) int64); empty
-    slots hold -1.0 and index 0.  The slots are in descending value order,
-    ties in index order (the JAX stable sort of ``sort=True``).
-    ``row_gather`` picks the route (module docstring); every route gives
-    the same result."""
+    slots hold -1.0 and index 0.  With ``sort`` the slots are in
+    descending value order, ties in index order (the JAX stable sort);
+    without, the strictly-above entries in index order, then the boundary
+    ties in index order (the JAX ``sort=False`` order).  ``row_gather``
+    picks the route (module docstring); every route gives the same
+    result."""
     if row_gather not in ROW_GATHERS:
         raise ValueError(f"row_gather must be one of {ROW_GATHERS}, got {row_gather!r}")
     bsz, n = flat.shape
@@ -129,7 +134,7 @@ def select_topk_threshold(
     total = off[:, -1] + cnt[:, -1]
     if row_gather == "pallas_lookup":
         rows, phys, p, is_eq = lookup_fetch(table, off.to(torch.int32), k)
-        return _extract_tail(rows, phys, p, is_eq, t, thr_bits, total, k)
+        return _extract_tail(rows, phys, p, is_eq, t, thr_bits, total, k, sort)
     s = torch.arange(k, device=flat.device).expand(bsz, k).contiguous()
     # chunk holding output slot s: the last chunk whose offset <= s
     c_of_s = (torch.searchsorted(off, s, right=True) - 1).clamp(0, 2 * m - 1)
@@ -139,16 +144,29 @@ def select_topk_threshold(
     if row_gather == "pallas_full":
         vals, lane = select_extract(table, phys.to(torch.int32), p.to(torch.int32), is_eq, t,
                                     thr_bits)
-        return _mask_and_sort(vals, phys * CHUNK + lane, total, k)
+        return _mask_and_sort(vals, phys * CHUNK + lane, total, k, sort)
     rows = row_fetch(table, phys.to(torch.int32))
-    return _extract_tail(rows, phys, p, is_eq, t, thr_bits, total, k)
+    return _extract_tail(rows, phys, p, is_eq, t, thr_bits, total, k, sort)
 
 
-def _extract_tail(rows, phys, p, is_eq, t, thr_bits, total, k):
+def select_topk_indices_compact(
+    flat: torch.Tensor, k: int, score_thresh: float = 0.0, row_gather: str = "pallas_bisect"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``select_topk_indices``'s (ok, idx) contract through the stage-2
+    machinery (``select_topk_threshold(sort=False)`` on ``row_gather``'s
+    route): strictly-above entries, then boundary ties, each in index
+    order; ``ok`` marks the occupied slots, whose value exceeds
+    ``score_thresh`` (empty slots hold -1.0 and index 0)."""
+    vals, idx = select_topk_threshold(flat.float(), k, score_thresh, row_gather=row_gather,
+                                      sort=False)
+    return vals > float(np.float32(score_thresh)), idx
+
+
+def _extract_tail(rows, phys, p, is_eq, t, thr_bits, total, k, sort=True):
     """Recompute the slot's tier on its fetched chunk row, take the p-th
-    set lane, mask empty slots, and sort descending."""
+    set lane, mask empty slots, and (``sort``) sort descending."""
     vals, lane = extract_hits(rows, p, is_eq, t, thr_bits)
-    return _mask_and_sort(vals, phys.long() * CHUNK + lane, total, k)
+    return _mask_and_sort(vals, phys.long() * CHUNK + lane, total, k, sort)
 
 
 def _mask_and_sort(vals, idx, total, k, sort: bool = True):
