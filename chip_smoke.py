@@ -115,10 +115,24 @@ Phases, each fatal on failure:
      yolort_tpu_torch.experiments.lookup_kernel_variants and
      .fetch_block_sweep: each checks its kernel against the plain version
      and prints its times), each with the launch counts read around it.
+  9. train (run before 8): yolov5s r6.0 at full width @640, f32, in its
+     train form (YOLO.init_train), on an in-memory synthetic COCO-style
+     set of 32 480x640 frames: (a) one train step on the card against the
+     CPU from the same params on one 2-image batch, TF32 off (loss terms,
+     every gradient leaf and every param after the step within TRAIN_TOL;
+     the worst leaf printed); (b) ten steps on one repeated batch of 8,
+     every loss finite and the last total below the first, steps 3-10
+     timed with CUDA events (step ms, images/s, max_memory_allocated,
+     each beside the card's name and power limit); (c) trainer.fit for one
+     epoch with the EMA and a checkpoint, validated on 8 frames: the
+     evaluation launches exactly DEFAULT_PER_BATCH a batch and nothing
+     else, and the COCO metrics are finite; (d) the train state saved and
+     loaded on the card gives back params, momentum buffers, step and
+     schedule count bit for bit.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, with each kernel's launches by path (float, int8,
-cpa, decoded, fixed_shape, r31_int8, p6, p6_int8, checkpoint and the two
-entry points).  Imports nothing of JAX.
+cpa, decoded, fixed_shape, r31_int8, p6, p6_int8, checkpoint, train_eval
+and the two entry points).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -2180,6 +2194,200 @@ def phase_entry_points() -> dict:
     return launches
 
 
+
+# --------------------------------------------------------------------------
+# phase 9: training
+# --------------------------------------------------------------------------
+
+TRAIN_CFG = dict(lr=0.01, momentum=0.937, weight_decay=5e-4)
+TRAIN_BATCH = 8
+# card against CPU, one train step from the same params (TF32 off):
+# loss terms relative, gradient and param leaves relative to the leaf's
+# largest |value|.  Both run f32 with their own convolution algorithms and
+# reduction orders through ~60 layers; the CPU tests hold the same
+# quantities against JAX at 2e-5 (gradients) and 1e-6 (params).
+TRAIN_TOL = {"loss": 1e-4, "grad": 1e-3, "param": 1e-5}
+
+
+def synthetic_coco(seed: int, n: int, h: int = 480, w: int = 640, num_classes: int = 80):
+    """An in-memory COCO-style set of ``n`` HxW float frames, each with 1-3
+    filled rectangles drawn as ``data._helper.create_synthetic_coco`` draws
+    them (dark noise, a class colour, both corners inclusive), without
+    OpenCV; image i's first box is small, medium or large by i % 3 in the
+    COCO area ranges, so every range holds boxes."""
+    rng = np.random.default_rng(seed)
+    colors = [(255, 64, 64), (64, 255, 64), (64, 64, 255)]
+    sides = ((12, 30), (40, 90), (110, 240))
+    items = []
+    for i in range(n):
+        img = rng.integers(0, 60, (h, w, 3)).astype(np.uint8)
+        boxes, labels = [], []
+        for j in range(int(rng.integers(1, 4))):
+            lo, hi = sides[i % 3] if j == 0 else (12, 240)
+            cls = int(rng.integers(0, num_classes))
+            bw, bh = int(rng.integers(lo, hi)), int(rng.integers(lo, hi))
+            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            img[y:y + bh + 1, x:x + bw + 1] = colors[cls % 3]
+            boxes.append([x, y, x + bw, y + bh])
+            labels.append(cls)
+        items.append((img.astype(np.float32) / 255.0,
+                      {"boxes": np.asarray(boxes, np.float32), "labels": np.asarray(labels),
+                       "iscrowd": np.zeros(len(boxes), np.int64), "orig_size": np.asarray([h, w])}))
+    return items
+
+
+def tree_errors(want: dict, got: dict, path: str = "") -> list:
+    """(error relative to the leaf's largest |want|, path) of every leaf."""
+    if set(want) != set(got):
+        raise AssertionError(f"trees differ at {path}: {sorted(want)} vs {sorted(got)}")
+    out = []
+    for key, a in want.items():
+        if isinstance(a, dict):
+            out += tree_errors(a, got[key], f"{path}/{key}")
+            continue
+        scale = float(np.abs(a).max())
+        err = float(np.abs(a - got[key]).max())
+        out.append((err / scale if scale else err, f"{path}/{key}"))
+    return out
+
+
+def phase_train(device, card: str) -> dict:
+    """yolov5s r6.0 at full width @640, f32, in its train form on the card:
+    (a) one train step on the card against the CPU from the same params on
+    one 2-image batch; (b) ten steps on one repeated batch of 8: every
+    loss finite, the last total below the first, the step timed (and its
+    device time by kernel, from the profiler); (c) fit
+    for one epoch over 32 frames with the EMA and a checkpoint, validated
+    on 8: exactly DEFAULT_PER_BATCH kernel launches per eval batch and
+    finite COCO metrics; (d) the train state saved and loaded on the card
+    gives back params, momentum buffers, step and schedule count bit for
+    bit."""
+    import torch
+
+    from yolort_tpu_torch.data.data_module import DetectionDataModule
+    from yolort_tpu_torch.models._bridge import params_from_jax, params_to_jax
+    from yolort_tpu_torch.models.yolo import build_yolo
+    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+    from yolort_tpu_torch.trainer.checkpoint import load_train_state, save_train_state
+    from yolort_tpu_torch.trainer.fit import evaluate, fit
+    from yolort_tpu_torch.trainer.task import DefaultTask, TrainState
+
+    arch = "yolov5_darknet_pan_s_r60"
+    data = synthetic_coco(30, 32)
+    dm_kw = dict(canvas_hw=(640, 640), min_size=640, max_size=640, max_targets_per_image=8)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    print(f"[train] TF32 matmul {torch.backends.cuda.matmul.allow_tf32} cudnn "
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+
+    # (a) card against CPU, one train step
+    pair = next(DetectionDataModule(data[:2], batch_size=2, **dm_kw).batches())
+    grads, after, losses = {}, {}, {}
+    start = None
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        task = DefaultTask(build_yolo(arch, device=dev), **TRAIN_CFG)
+        if start is None:
+            state = task.init_state(0)
+            start = params_to_jax(task.model)
+        else:
+            params_from_jax(start, task.model).trainable()
+            state = TrainState(task.model, *task.make_optimizer())
+        t0 = time.perf_counter()
+        state, metrics = task.train_step(state, *(torch.from_numpy(pair[k]).to(dev)
+                                                  for k in ("images", "targets", "target_mask")))
+        losses[side] = {k: float(v) for k, v in metrics.items()}
+        print(f"[train] one step of 2 on the {side}: {time.perf_counter() - t0:.2f} s "
+              f"{losses[side]}", flush=True)
+        grads[side] = params_to_jax(task.model, leaf=lambda q: q.grad)
+        after[side] = params_to_jax(task.model)
+    report = {"loss": max((abs(losses["card"][k] - v) / abs(v), k) for k, v in losses["cpu"].items()),
+              "grad": max(tree_errors(grads["cpu"], grads["card"])),
+              "param": max(tree_errors(after["cpu"], after["card"]))}
+    for what, (err, where) in report.items():
+        print(f"[train] card vs CPU {what}: worst {where} at {err:.3g} (tolerance "
+              f"{TRAIN_TOL[what]:g})", flush=True)
+        if not err <= TRAIN_TOL[what]:
+            raise AssertionError(f"train step: card {what} {where} off the CPU's by {err:.3g}")
+    del grads, after, task, state
+
+    # (b) ten steps on one repeated batch; steps 3-10 timed
+    task = DefaultTask(build_yolo(arch, device=device), **TRAIN_CFG)
+    state = task.init_state(1)
+    batch = next(DetectionDataModule(data, batch_size=TRAIN_BATCH, **dm_kw).batches())
+    bi, bt, bm = (torch.from_numpy(batch[k]).to(device) for k in ("images", "targets", "target_mask"))
+    totals = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(10):
+        if i == 2:
+            events[0].record()
+        state, metrics = task.train_step(state, bi, bt, bm)
+        totals.append(metrics["total"])
+    events[1].record()
+    torch.cuda.synchronize()
+    step_ms = events[0].elapsed_time(events[1]) / 8
+    peak = torch.cuda.max_memory_allocated()
+    totals = [float(t) for t in totals]
+    print(f"[train] repeated batch of {TRAIN_BATCH}: totals {[round(t, 5) for t in totals]}",
+          flush=True)
+    if not all(np.isfinite(totals)) or not totals[-1] < totals[0]:
+        raise AssertionError(f"train: loss on a repeated batch {totals}")
+    print(f"[train] step at batch {TRAIN_BATCH} @640 f32: {step_ms:.2f} ms (CUDA events, steps 3-10) "
+          f"| {card}", flush=True)
+    print(f"[train] images/s: {TRAIN_BATCH * 1e3 / step_ms:.1f} | {card}", flush=True)
+    print(f"[train] max_memory_allocated: {peak / 2**30:.3f} GiB | {card}", flush=True)
+    busy, rows = device_profile(lambda: task.train_step(state, bi, bt, bm), iters=3)
+    if busy is not None:
+        print(f"[train] device busy a step (profiler): {busy:.2f} ms, {100 * busy / step_ms:.1f}% of "
+              f"the events' step; top kernels: " + "; ".join(
+                  f"{name[:80]} {ms:.3f}" for name, ms in rows[:10]) + f" | {card}", flush=True)
+    del task, state, bi, bt, bm
+
+    # (c) fit, one epoch with the EMA, validated through the serving kernels
+    steps = len(data) // TRAIN_BATCH
+    task = DefaultTask(build_yolo(arch, device=device), total_steps=2 * steps, warmup_steps=1,
+                       **TRAIN_CFG)
+    train = DetectionDataModule(data, batch_size=TRAIN_BATCH, shuffle=True, seed=0, **dm_kw)
+    val = DetectionDataModule(data[:8], batch_size=TRAIN_BATCH, **dm_kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = fit(task, train, val, max_epochs=1, seed=2, use_ema=True,
+                    checkpoint_path=f"{tmp}/ema.npz", print_freq=1)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        print(f"[train] fit, 1 epoch of {steps} steps + eval: {time.perf_counter() - t0:.2f} s; "
+              f"launches {counts}", flush=True)
+        want = {k: DEFAULT_PER_BATCH.get(k, 0) * len(val) for k in counts}
+        if counts != want:
+            raise AssertionError(f"train eval launches {counts}, want {want}")
+        # fit's model now holds the EMA params its evaluation served
+        results = evaluate(state.model, val, val.canvas_hw)
+        print(f"[train] COCO metrics of the EMA model: {results}", flush=True)
+        if not results or not all(np.isfinite(v) for v in results.values()):
+            raise AssertionError(f"train eval: COCO metrics not finite: {results}")
+        if state.step != steps:
+            raise AssertionError(f"train: {state.step} steps, want {steps}")
+
+        # (d) the train state, saved and loaded on the card
+        save_train_state(f"{tmp}/state.npz", state, {"epoch": 0})
+        back_task = DefaultTask(build_yolo(arch, device=device), total_steps=2 * steps,
+                                warmup_steps=1, **TRAIN_CFG)
+        back, meta = load_train_state(f"{tmp}/state.npz", back_task)
+        same = (back.step == state.step and meta == {"epoch": 0}
+                and back.scheduler.last_epoch == state.scheduler.last_epoch
+                and all(torch.equal(a, b) for a, b in zip(back.model.parameters(),
+                                                          state.model.parameters(), strict=True))
+                and all(torch.equal(back.optimizer.state[a]["momentum_buffer"],
+                                    state.optimizer.state[b]["momentum_buffer"])
+                        for a, b in zip(back.model.parameters(), state.model.parameters())))
+        if not same:
+            raise AssertionError("train state: save and load on the card did not give it back")
+        print(f"[train] train state saved and loaded on the card: params, momentum, step "
+              f"{back.step} and schedule count {back.scheduler.last_epoch} bit for bit", flush=True)
+    return dict(launches=counts, step_ms=step_ms, peak=peak, report=report)
+
+
 def main() -> int:
     import torch
 
@@ -2240,6 +2448,8 @@ def main() -> int:
         done("p6 int8")
         ck = phase_checkpoints(tmp, made, device, card)
         done("checkpoints")
+    tr = phase_train(device, card)
+    done("train")
     phase_throughput(sl["models"], card, "float")
     phase_throughput(q8["models"], card, "int8")
     phase_route_times(sl["models"], card)
@@ -2248,7 +2458,7 @@ def main() -> int:
     paths = {"float": sl["launches"], "int8": q8["launches"], "cpa": flat["cpa"]["launches"],
              "decoded": flat["decoded"]["launches"], "fixed_shape": fx["launches"],
              "r31_int8": r31_launches, "p6": p6["launches"], "p6_int8": q86["launches"],
-             "checkpoint": ck["launches"], **phase_entry_points()}
+             "checkpoint": ck["launches"], "train_eval": tr["launches"], **phase_entry_points()}
     done("entry points")
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

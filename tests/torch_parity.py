@@ -153,3 +153,33 @@ def walk_convs(tree, module, path=()):
     for key, sub in tree.items():
         if isinstance(sub, dict):
             yield from walk_convs(sub, module._modules[key], path + (key,))
+
+
+def leaf_errors(want, got, path=""):
+    """(error relative to the leaf's largest |want|, path) of every leaf of
+    two numpy trees with the same keys; raises on a key or shape mismatch."""
+    assert set(want) == set(got), (path, sorted(want), sorted(got))
+    out = []
+    for key in want:
+        a, b = want[key], got[key]
+        if isinstance(a, dict):
+            out += leaf_errors(a, b, f"{path}/{key}")
+            continue
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, (f"{path}/{key}", a.shape, b.shape)
+        scale = float(np.abs(a).max()) if a.size else 0.0
+        err = float(np.abs(a - b).max()) if a.size else 0.0
+        out.append((err / scale if scale else err, f"{path}/{key}"))
+    return out
+
+
+def random_targets(seed: int, batch: int = 2, t: int = 4, nc: int = 8, valid=(3, 2)):
+    """(targets (B, T, 5) [cls, cx, cy, w, h] normalised, mask (B, T)) as
+    numpy: the first ``valid[i]`` rows of image i are real."""
+    rng = np.random.default_rng(seed)
+    tg = np.zeros((batch, t, 5), np.float32)
+    tg[..., 0] = rng.integers(0, nc, (batch, t))
+    tg[..., 1:3] = rng.uniform(0.1, 0.9, (batch, t, 2))
+    tg[..., 3:5] = rng.uniform(0.05, 0.5, (batch, t, 2))
+    mask = np.arange(t)[None, :] < np.asarray(valid)[:, None]
+    return tg, mask

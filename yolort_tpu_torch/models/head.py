@@ -51,15 +51,21 @@ class YOLOHead(nn.Module):
         super().__init__()
         self.num_anchors = num_anchors
         self.num_classes = num_classes
+        self.strides = tuple(strides)
         no = num_classes + 5
-        for i, (ch, s) in enumerate(zip(in_channels, strides)):
-            conv = Conv2dOnly(ch, no * num_anchors, 1, bias=True, gen=gen)
-            # prior-probability bias: obj log(8 / (640/s)^2), cls log(0.6/(nc-1))
-            with torch.no_grad():
-                b = conv.bias.view(num_anchors, no)
+        for i, ch in enumerate(in_channels):
+            self.add_module(str(i), Conv2dOnly(ch, no * num_anchors, 1, bias=True, gen=gen))
+        self.add_prior_bias()
+
+    def add_prior_bias(self) -> None:
+        """The prior-probability bias on the drawn one: obj log(8 / (640/s)^2),
+        cls log(0.6/(nc-1))."""
+        no = self.num_classes + 5
+        with torch.no_grad():
+            for conv, s in zip(self.children(), self.strides):
+                b = conv.bias.view(self.num_anchors, no)
                 b[:, 4] += math.log(8 / (640 / s) ** 2)
-                b[:, 5:] += math.log(0.6 / (num_classes - 0.999999))
-            self.add_module(str(i), conv)
+                b[:, 5:] += math.log(0.6 / (self.num_classes - 0.999999))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Channels-last NCHW features -> per-level logits, NHWC."""

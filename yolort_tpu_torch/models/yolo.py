@@ -21,6 +21,7 @@ from yolort_tpu_torch.models.head import (
     concat_pred_logits,
 )
 from yolort_tpu_torch.models.pan import PathAggregationNetwork
+from yolort_tpu_torch.ops import blocks
 from yolort_tpu_torch.ops.nms import Detections, batched_postprocess_from_heads
 
 
@@ -46,7 +47,8 @@ class YOLO(nn.Module):
     route gives the same detections).  Weights
     are drawn from ``torch.Generator(seed)`` on the CPU, then the module
     moves to ``device`` (the card unless the caller passes ``"cpu"``) and
-    ``dtype``."""
+    ``dtype``.  The module serves frozen (no parameter requires grad);
+    ``init_train`` / ``trainable`` make it trainable."""
 
     def __init__(
         self,
@@ -101,6 +103,25 @@ class YOLO(nn.Module):
     @property
     def num_anchors(self) -> int:
         return len(self.anchor_grids[0]) // 2
+
+    def init_train(self, seed: int = 0) -> "YOLO":
+        """The train form from ``torch.Generator(seed)``: JAX's ``init``
+        (every Conv unfused, w U(-b, b) with b = 1/sqrt(fan_in), gamma 1,
+        beta 0, mean 0, var 1; the head's prior-probability bias), every
+        leaf a parameter that requires grad.  In place; returns self."""
+        self.trainable()
+        blocks.init_train(self, torch.Generator().manual_seed(seed))
+        self.head.add_prior_bias()
+        return self
+
+    def trainable(self) -> "YOLO":
+        """Every parameter requires grad (the weights as they are: fused
+        convs train their weight and bias, unfused ones their BatchNorm
+        too).  An int8-quantized model raises.  In place; returns self."""
+        for m in self.modules():
+            if isinstance(m, blocks._Int8Conv) and m.quantized:
+                raise ValueError("an int8-quantized model cannot be trained")
+        return self.requires_grad_(True)
 
     def features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """images (B, H, W, 3) letterboxed float -> PAN outputs (channels_last NCHW)."""

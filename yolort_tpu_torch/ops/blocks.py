@@ -21,7 +21,10 @@ shares one scale.
 
 Initialisation draws from a ``torch.Generator`` on the CPU, so one seed
 gives the same weights on every device; the model is moved to its device
-once built.
+once built.  ``init_train`` of a block redraws it in the JAX ``init`` form
+that the trainer starts from: Conv unfused with an identity BatchNorm,
+whose ``gamma``, ``beta``, ``mean`` and ``var`` are parameters like the
+weights, as every leaf of the JAX params tree is trained.
 """
 
 from __future__ import annotations
@@ -80,6 +83,24 @@ def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
 
 def _as_tensor(a, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32), device=like.device).to(like.dtype)
+
+
+def _param(t: torch.Tensor, like: torch.Tensor) -> nn.Parameter:
+    """``t`` as a parameter on ``like``'s device and dtype, requiring grad
+    as ``like`` does."""
+    return nn.Parameter(t.to(device=like.device, dtype=like.dtype),
+                        requires_grad=like.requires_grad)
+
+
+# an identity BatchNorm, JAX's init of the unfused form
+BN_INIT = {"gamma": 1.0, "beta": 0.0, "mean": 0.0, "var": 1.0}
+BN_NAMES = tuple(BN_INIT)
+
+
+def _set_bn(module: nn.Module, values: Dict[str, torch.Tensor], like: torch.Tensor) -> None:
+    """Register ``gamma``, ``beta``, ``mean``, ``var`` as parameters."""
+    for name in BN_NAMES:
+        module.register_parameter(name, _param(values[name], like))
 
 
 # --- int8 compute path --------------------------------------------------
@@ -158,10 +179,8 @@ class _Int8Conv:
         dev = next(t.device for t in (*self._parameters.values(), *self._buffers.values())
                    if t is not None)
         cout = wq.shape[3]
-        for name in ("weight", "bias"):
+        for name in ("weight", "bias", *BN_NAMES):
             self._parameters.pop(name, None)
-        for name in ("gamma", "beta", "mean", "var"):
-            self._buffers.pop(name, None)
         self.register_buffer("wq", pack_weight(np.asarray(wq)).to(dev))
         self.register_buffer("ws_bits", _f32_bits(np.reshape(ws, cout), dev))
         self.register_buffer("b_bits", _f32_bits(np.zeros(cout) if b is None else b, dev))
@@ -199,7 +218,15 @@ class Conv2dOnly(_Int8Conv, nn.Module):
     def set_params(self, p: Dict[str, np.ndarray]) -> None:
         """Load a JAX leaf {'w' HWIO[, 'b']}."""
         self.weight.data = _as_tensor(np.asarray(p["w"]).transpose(3, 2, 0, 1), self.weight)
-        self.bias = nn.Parameter(_as_tensor(p["b"], self.weight)) if "b" in p else None
+        self.bias = _param(_as_tensor(p["b"], self.weight), self.weight) if "b" in p else None
+
+    def init_train(self, gen: torch.Generator) -> None:
+        """JAX's init: weight and bias U(-b, b), b = 1/sqrt(fan_in)."""
+        w = self.weight
+        bound = 1.0 / math.sqrt(w[0].numel())
+        self.weight = _param(_uniform(gen, w.shape, bound), w)
+        if self.bias is not None:
+            self.bias = _param(_uniform(gen, self.bias.shape, bound), w)
 
     def forward(self, x):
         if self.quantized:
@@ -212,8 +239,10 @@ class Conv(_Int8Conv, nn.Module):
 
     Two parameter forms, as in JAX: fused (``weight`` + ``bias``; random
     init folds the identity BatchNorm of a fresh model into the weight) or
-    unfused (``weight`` + the BatchNorm buffers ``gamma``, ``beta``,
-    ``mean``, ``var``, applied after the conv as ``y * scale + bias``).
+    unfused (``weight`` + the BatchNorm parameters ``gamma``, ``beta``,
+    ``mean``, ``var``, applied after the conv as ``y * scale + bias``:
+    the train form, in which ``mean`` and ``var`` are trained by gradient
+    like the rest, as in the JAX package).
     The int8 form applies ``act`` in the qconv kernels' float32 epilogue,
     which knows every key of ``ACTS``."""
 
@@ -229,15 +258,23 @@ class Conv(_Int8Conv, nn.Module):
 
     def set_params(self, p: Dict[str, np.ndarray]) -> None:
         """Load a JAX leaf, fused {'w','b'} or unfused {'w','gamma','beta','mean','var'}."""
-        self.weight.data = _as_tensor(np.asarray(p["w"]).transpose(3, 2, 0, 1), self.weight)
+        w = self.weight
+        w.data = _as_tensor(np.asarray(p["w"]).transpose(3, 2, 0, 1), w)
         if "b" in p:
-            self.bias = nn.Parameter(_as_tensor(p["b"], self.weight))
-            for name in ("gamma", "beta", "mean", "var"):
-                self._buffers.pop(name, None)
+            self.bias = _param(_as_tensor(p["b"], w), w)
+            for name in BN_NAMES:
+                self._parameters.pop(name, None)
         else:
             self.bias = None
-            for name in ("gamma", "beta", "mean", "var"):
-                self.register_buffer(name, _as_tensor(p[name], self.weight))
+            _set_bn(self, {name: _as_tensor(p[name], w) for name in BN_NAMES}, w)
+
+    def init_train(self, gen: torch.Generator) -> None:
+        """JAX's init, the unfused form: weight U(-b, b), b = 1/sqrt(fan_in),
+        and an identity BatchNorm."""
+        w = self.weight
+        self.weight = _param(_uniform(gen, w.shape, 1.0 / math.sqrt(w[0].numel())), w)
+        self.bias = None
+        _set_bn(self, {name: torch.full((w.shape[0],), v) for name, v in BN_INIT.items()}, w)
 
     def forward(self, x):
         if self.quantized:
@@ -259,17 +296,22 @@ def _batch_norm(y, gamma, beta, mean, var):
 
 class BatchNorm(nn.Module):
     """Standalone eval BatchNorm (BottleneckCSP's gate on its concat):
-    buffers ``gamma``, ``beta``, ``mean``, ``var``."""
+    parameters ``gamma``, ``beta``, ``mean``, ``var``, trained like the
+    JAX leaves."""
 
     def __init__(self, c: int):
         super().__init__()
-        for name, v in (("gamma", 1.0), ("beta", 0.0), ("mean", 0.0), ("var", 1.0)):
-            self.register_buffer(name, torch.full((c,), v))
+        for name, v in BN_INIT.items():
+            setattr(self, name, nn.Parameter(torch.full((c,), v)))
 
     def set_params(self, p: Dict[str, np.ndarray]) -> None:
         """Load a JAX leaf {'gamma', 'beta', 'mean', 'var'}."""
-        for name in ("gamma", "beta", "mean", "var"):
-            setattr(self, name, _as_tensor(p[name], self.gamma))
+        _set_bn(self, {name: _as_tensor(p[name], self.gamma) for name in BN_NAMES}, self.gamma)
+
+    def init_train(self, gen: torch.Generator) -> None:
+        """JAX's init: the identity (draws nothing from ``gen``)."""
+        g = self.gamma
+        _set_bn(self, {name: torch.full(g.shape, v) for name, v in BN_INIT.items()}, g)
 
     def forward(self, x):
         return _batch_norm(x, self.gamma, self.beta, self.mean, self.var)
@@ -416,7 +458,15 @@ class Linear(nn.Module):
 
     def set_params(self, p: Dict[str, np.ndarray]) -> None:
         self.weight.data = _as_tensor(np.asarray(p["w"]).T, self.weight)
-        self.bias = nn.Parameter(_as_tensor(p["b"], self.weight)) if "b" in p else None
+        self.bias = _param(_as_tensor(p["b"], self.weight), self.weight) if "b" in p else None
+
+    def init_train(self, gen: torch.Generator) -> None:
+        """JAX's init: weight and bias U(-b, b), b = 1/sqrt(in)."""
+        w = self.weight
+        bound = 1.0 / math.sqrt(w.shape[1])
+        self.weight = _param(_uniform(gen, w.shape, bound), w)
+        if self.bias is not None:
+            self.bias = _param(_uniform(gen, self.bias.shape, bound), w)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -436,12 +486,21 @@ class TransformerLayer(nn.Module):
         self.q = Linear(c, c, bias=False, gen=gen)
         self.k = Linear(c, c, bias=False, gen=gen)
         self.v = Linear(c, c, bias=False, gen=gen)
-        bound = math.sqrt(6.0 / (c + 3 * c))  # xavier_uniform of MultiheadAttention
-        self.in_proj_w = nn.Parameter(_uniform(gen, (3 * c, c), bound))
+        self.in_proj_w = nn.Parameter(torch.empty(3 * c, c))
         self.in_proj_b = nn.Parameter(torch.zeros(3 * c))
+        self.init_train(gen)
         self.out_proj = Linear(c, c, bias=True, gen=gen)
         self.fc1 = Linear(c, c, bias=False, gen=gen)
         self.fc2 = Linear(c, c, bias=False, gen=gen)
+
+    def init_train(self, gen: torch.Generator) -> None:
+        """The attention's input projection as JAX inits it: xavier_uniform
+        weight (as ``nn.MultiheadAttention``), zero bias.  The Linears draw
+        their own."""
+        w = self.in_proj_w
+        c = w.shape[1]
+        self.in_proj_w = _param(_uniform(gen, w.shape, math.sqrt(6.0 / (c + 3 * c))), w)
+        self.in_proj_b = _param(torch.zeros(3 * c), w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         L, N, c = x.shape
@@ -498,3 +557,14 @@ class C3TR(nn.Module):
 
     def forward(self, x):
         return self.cv3(_qconcat([self.m(self.cv1(x)), self.cv2(x)]))
+
+
+TRAIN_BLOCKS = (Conv, Conv2dOnly, BatchNorm, Linear, TransformerLayer)
+
+
+def init_train(module: nn.Module, gen: torch.Generator) -> None:
+    """Redraw every block of ``module`` in JAX's ``init`` form, in module
+    order from ``gen``."""
+    for m in module.modules():
+        if isinstance(m, TRAIN_BLOCKS):
+            m.init_train(gen)

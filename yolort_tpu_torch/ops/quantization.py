@@ -143,7 +143,7 @@ def quantize_compute_params(model: nn.Module) -> nn.Module:
         kh, kw, cin_g, _ = w.shape
         if amax is None or amax <= 0.0 or kh * kw * cin_g < MIN_REDUCE:
             continue
-        if "gamma" in mod._buffers:
+        if "gamma" in mod._parameters:
             w, b = fuse_conv_bn(w, _np(mod.gamma), _np(mod.beta), _np(mod.mean), _np(mod.var))
         else:
             b = None if mod.bias is None else _np(mod.bias)
