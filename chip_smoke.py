@@ -129,10 +129,32 @@ Phases, each fatal on failure:
      else, and the COCO metrics are finite; (d) the train state saved and
      loaded on the card gives back params, momentum buffers, step and
      schedule count bit for bit.
+ 10. zoo (run after 7): (a) yolo_lite (yolov5_mobilenet_v3_small_fpn, 80
+     classes, seeded) and (b) yolov5s assembled from its yaml config
+     (YAMLDetectionModel), each at full width @640 through YOLOv5(model=...)
+     (yolo_lite with stride-64 rounding) as phase 4 serves yolov5s: every
+     route's detections equal to the default's, the default route exactly
+     fused_cells_stage1 1, bisect_count 2, row_fetch 1 and nms_mask 1 a
+     batch (yolo_lite's four levels), the card paired with the CPU on the
+     4x480x640 request, and each one's serving of 8 640x640 frames timed
+     on every route (images/s, device busy, postprocess per route); then
+     the non-standard checkpoint of
+     tests/torch_fixture (an extra C3) through load_yaml_from_ultralytics
+     on the card in both dtypes, its decode against the fixture's torch
+     oracle; (c) Ensemble of yolov5s + yolov5m (50,400 pooled anchors) and
+     tta_inference of yolov5s (55,755) on 8 letterboxed 640x640 canvases,
+     both dtypes and configs, every route: exactly bisect_count 2, the
+     route's fetch kernel 2, nms_mask 1 a batch, each route's Detections
+     equal to the default's, the card paired with the CPU on 2 images,
+     the batch time (CUDA events), device busy and the postprocess per
+     route; phase 3 checks fused_cells_stage1 at yolo_lite's levels and
+     bisect_count at the stage-1 tables (200,128), (394,128) and
+     (436,128) the same way as the P6 shapes.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, with each kernel's launches by path (float, int8,
-cpa, decoded, fixed_shape, r31_int8, p6, p6_int8, checkpoint, train_eval
-and the two entry points).  Imports nothing of JAX.
+cpa, decoded, fixed_shape, r31_int8, p6, p6_int8, checkpoint, train_eval,
+zoo_lite, zoo_yaml, ensemble, tta and the two entry points).  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -760,12 +782,14 @@ P6_1280 = ((160, 160), (80, 80), (40, 40), (20, 20))  # yolov5s6 head levels @12
 P6_768 = ((96, 160), (48, 80), (24, 40), (12, 20))     # @768x1280, a 720p or 1080p frame
 
 
-def phase_p6_kernels(device, card: str) -> dict:
-    """fused_cells_stage1 and bisect_count against their plain versions, bit
-    for bit, at the shapes yolov5s6 gives them @1280: four levels at
-    1280x1280 and on the 768x1280 canvas, and the stage-1 tables (797,128)
-    and (479,128) at k = 4104 (eval) and 520 (serving); timed at batch 8,
-    warm and with the L2 flushed, beside their bounds."""
+def check_stage1_kernels(device, card: str, label: str, level_sets, table_rows) -> tuple:
+    """fused_cells_stage1 at each of ``level_sets`` (head level sizes, 255
+    channels) and bisect_count at each stage-1 table (m,128) of
+    ``table_rows`` at k = 4104 (eval) and 520 (serving), against their
+    plain versions bit for bit, in both dtypes, batch 8 (bisect_count
+    also batch 1); timed at batch 8, warm and with the L2 flushed,
+    beside their bounds.  Returns (cells timings, tables timings, max abs
+    errors)."""
     import torch
 
     from yolort_tpu_torch.ops.cuda import (
@@ -776,7 +800,7 @@ def phase_p6_kernels(device, card: str) -> dict:
     cells, tables = {}, {}
     err = {"fused_cells_stage1": 0.0, "bisect_count": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for sizes in (P6_1280, P6_768):
+        for sizes in level_sets:
             geometry = "+".join(f"{h}x{w}" for h, w in sizes)
             for special in (True, False):
                 levels = logit_levels(50 + special, B, device, dtype, special, sizes)
@@ -785,10 +809,10 @@ def phase_p6_kernels(device, card: str) -> dict:
                 torch.cuda.synchronize()
                 for a, b, what in zip(got, ref, ("cells", "obj_max", "cls_max")):
                     if not same_bits(a, b):
-                        raise AssertionError(f"fused_cells_stage1 P6 {dtype} B={B} {geometry} "
-                                             f"special={special}: {what} differs")
+                        raise AssertionError(f"fused_cells_stage1 {label} {dtype} B={B} "
+                                             f"{geometry} special={special}: {what} differs")
                     err["fused_cells_stage1"] = max(err["fused_cells_stage1"], abs_err(a, b))
-                print(f"[p6 kernels] fused_cells_stage1 {dtype} B={B} {geometry} C=255"
+                print(f"[{label} kernels] fused_cells_stage1 {dtype} B={B} {geometry} C=255"
                       f"{' with NaN/inf/below-floor logits' if special else ''}: equal", flush=True)
                 del got, ref
                 if special:
@@ -803,7 +827,7 @@ def phase_p6_kernels(device, card: str) -> dict:
                 esize = levels[0].element_size()
                 bms, bby = bound(2 * B * n_cells * 255 * esize + 2 * B * n_cells * 3 * esize)
                 share = bms / cold if cold else None
-                print(f"[times] fused_cells_stage1 P6 B={B} {geometry} {dtype}: device "
+                print(f"[times] fused_cells_stage1 {label} B={B} {geometry} {dtype}: device "
                       f"{fmt_ms(dev)}, cold L2 {fmt_ms(cold)} ({fmt_share(share)} of bound), plain "
                       f"device {fmt_ms(pdev)}, torch.cat alone device {fmt_ms(cdev)}, bound "
                       f"{bms:.4f} ms ({bby}) | {card}", flush=True)
@@ -811,7 +835,7 @@ def phase_p6_kernels(device, card: str) -> dict:
                     device_ms=dev, cold_ms=cold, plain_device_ms=pdev, bound_ms=bms, bound_by=bby,
                     device_share_of_bound=share, nearest_partial_device_ms=cdev)
                 del levels, flat
-    for m in (797, 479):
+    for m in table_rows:
         for k in (4104, 520):
             for bsz in (1, B):
                 tab = score_table(60 + m + k + bsz, bsz, m, device)
@@ -819,13 +843,14 @@ def phase_p6_kernels(device, card: str) -> dict:
                 ref = bisect_count_reference(tab, k, 0)
                 for a, b in zip(got, ref):
                     if not torch.equal(a, b):
-                        raise AssertionError(f"bisect_count P6 stage 1 B={bsz} ({m},128) k={k}: "
-                                             f"differs from the plain version")
+                        raise AssertionError(f"bisect_count {label} stage 1 B={bsz} ({m},128) "
+                                             f"k={k}: differs from the plain version")
                     err["bisect_count"] = max(err["bisect_count"],
                                               (a.double() - b.double()).abs().max().item())
                 plan = bisect_plan(bsz, m)
-                print(f"[p6 kernels] bisect_count stage 1 B={bsz} ({m},128) k={k}: equal, cluster "
-                      f"{plan.cluster} {'resident' if plan.resident else 'streamed'}", flush=True)
+                print(f"[{label} kernels] bisect_count stage 1 B={bsz} ({m},128) k={k}: equal, "
+                      f"cluster {plan.cluster} {'resident' if plan.resident else 'streamed'}",
+                      flush=True)
                 if bsz != B:
                     continue
                 run = lambda tab=tab, k=k: bisect_count(tab, k, 0)  # noqa: E731
@@ -834,13 +859,22 @@ def phase_p6_kernels(device, card: str) -> dict:
                 tdev = device_profile(lambda flat=flat, k=k: torch.topk(flat, k, dim=1))[0]
                 bms, bby = bound(B * m * 128 * 4 + B * 4 + 2 * B * m * 4)
                 share = bms / cold if cold else None
-                print(f"[times] bisect_count P6 stage 1 B={B} ({m},128) k={k}: device {fmt_ms(dev)}, "
-                      f"cold L2 {fmt_ms(cold)} ({fmt_share(share)} of bound), torch.topk device "
-                      f"{fmt_ms(tdev)}, bound {bms:.5f} ms ({bby}) | {card}", flush=True)
+                print(f"[times] bisect_count {label} stage 1 B={B} ({m},128) k={k}: device "
+                      f"{fmt_ms(dev)}, cold L2 {fmt_ms(cold)} ({fmt_share(share)} of bound), "
+                      f"torch.topk device {fmt_ms(tdev)}, bound {bms:.5f} ms ({bby}) | {card}",
+                      flush=True)
                 tables[f"({m},128) k={k}"] = dict(
                     device_ms=dev, cold_ms=cold, bound_ms=bms, bound_by=bby,
                     device_share_of_bound=share, topk_device_ms=tdev, cluster=plan.cluster,
                     resident=plan.resident)
+    return cells, tables, err
+
+
+def phase_p6_kernels(device, card: str) -> dict:
+    """``check_stage1_kernels`` at the shapes yolov5s6 gives the kernels
+    @1280: four levels at 1280x1280 and on the 768x1280 canvas, and the
+    stage-1 tables (797,128) and (479,128)."""
+    cells, tables, err = check_stage1_kernels(device, card, "p6", (P6_1280, P6_768), (797, 479))
     return {"fused_cells_stage1": dict(p6=cells, p6_max_abs_err=err["fused_cells_stage1"]),
             "bisect_count": dict(p6_stage1=tables, p6_max_abs_err=err["bisect_count"])}
 
@@ -995,10 +1029,14 @@ def serve_routes(models, requests, label: str) -> dict:
     return dict(launches=totals, per_batch=per_batch)
 
 
-def pair_routes_with_cpu(models, requests, label: str) -> dict:
+def pair_routes_with_cpu(models, requests, label: str, grid: int = 0) -> dict:
     """On the same head outputs, each route's Detections equal the default
     route's on the card, and the card's postprocess agrees with the CPU run
-    of the port (``pair_detections``), in both dtypes and configs."""
+    of the port (``pair_detections``), in both dtypes and configs.  With
+    ``grid`` the head outputs are put on a 1/grid grid first, the same on
+    both sides, as phase 7 does for networks whose best pair scores lie
+    ulps apart (the share of such near-ties is printed): the card's and
+    the CPU's sigmoids, an ulp apart, reorder those."""
     import torch
 
     total_unpaired = {route: 0 for route in ROUTES}
@@ -1010,6 +1048,11 @@ def pair_routes_with_cpu(models, requests, label: str) -> dict:
                 x = torch.from_numpy(np.stack(req)).to(m.device)
                 with torch.inference_mode():
                     heads = yolo.head_outputs(m.canvas(x)[0])
+                    if grid:
+                        print(f"[{label}] {dt} {name}: near-ties among the 4096 best pair scores "
+                              f"{100 * near_tie_share(heads):.1f}% of the gaps; head outputs put "
+                              f"on a 1/{grid} grid", flush=True)
+                        heads = [(torch.round(h * grid) / grid).contiguous() for h in heads]
                 heads_cpu = [h.cpu() for h in heads]
                 base = None
                 for route in ROUTES:
@@ -1667,23 +1710,27 @@ CHECKPOINTS = (
 )
 
 
-def fabricate(tmp: str, label: str, make_kw=None):
-    """(path, torch oracle) of the CHECKPOINTS entry ``label`` (or of
-    ``make_kw``, the make_checkpoint keywords), written into ``tmp`` by
-    tests/torch_fixture.make_checkpoint (80 classes, seed 0)."""
+def torch_fixture():
+    """tests/torch_fixture.py, loaded by path: an installed package named
+    'tests' would shadow the checkout's test directory."""
     import importlib.util
     from pathlib import Path
 
-    # by path: an installed package named 'tests' would shadow the
-    # checkout's test directory
     spec = importlib.util.spec_from_file_location(
         "torch_fixture", Path(__file__).resolve().parent / "tests" / "torch_fixture.py")
     fixture = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(fixture)
+    return fixture
+
+
+def fabricate(tmp: str, label: str, make_kw=None):
+    """(path, torch oracle) of the CHECKPOINTS entry ``label`` (or of
+    ``make_kw``, the make_checkpoint keywords), written into ``tmp`` by
+    tests/torch_fixture.make_checkpoint (80 classes, seed 0)."""
     if make_kw is None:
         make_kw = next(mk for lab, mk, _, _ in CHECKPOINTS if lab == label)
     path = f"{tmp}/{label.replace(' ', '_')}.pt"
-    return path, fixture.make_checkpoint(path, nc=80, seed=0, **make_kw)
+    return path, torch_fixture().make_checkpoint(path, nc=80, seed=0, **make_kw)
 
 
 def phase_checkpoints(tmp: str, made: dict, device, card: str) -> dict:
@@ -2055,13 +2102,13 @@ def phase_fixed_shape(models, device, card: str, hub_name: str = "yolov5s") -> d
     return dict(launches=launches, unpaired=unpaired)
 
 
-def phase_p6_times(models, card: str) -> dict:
-    """yolov5s6 serving, batch 8 @1280x1280 uint8, on each route: images/s
+def serving_times(models, card: str, label: str, batch) -> dict:
+    """``label``'s serving of one uint8 ``batch`` on each route: images/s
     (host clock, median of 5), the device-busy time of one call and its
     share of the wall time (profiler), in both dtypes."""
     import torch
 
-    batch = frames(21, 8, 1280, 1280)
+    n, (h, w) = len(batch), batch[0].shape[:2]
     out = {}
     for dt, m in models.items():
         m.model.score_thresh, m.model.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
@@ -2077,9 +2124,9 @@ def phase_p6_times(models, card: str) -> dict:
             sec = float(np.median(ts))
             busy = device_profile(lambda: m(batch), iters=3)[0]
             share = f"{100 * busy / (sec * 1e3):.1f}%" if busy else "not measured"
-            out[(str(dt), route)] = dict(images_per_s=8 / sec, batch_ms=sec * 1e3, device_busy_ms=busy)
-            print(f"[times] yolov5s6 serving {dt} batch 8 @1280x1280 uint8, route {route}: "
-                  f"{8 / sec:.1f} images/s ({sec * 1e3:.2f} ms/batch, host clock, median of 5); "
+            out[(str(dt), route)] = dict(images_per_s=n / sec, batch_ms=sec * 1e3, device_busy_ms=busy)
+            print(f"[times] {label} serving {dt} batch {n} @{h}x{w} uint8, route {route}: "
+                  f"{n / sec:.1f} images/s ({sec * 1e3:.2f} ms/batch, host clock, median of 5); "
                   f"device busy {fmt_ms(busy)} ({share} of the wall) | {card}", flush=True)
         m.model.row_gather = DEFAULT_ROUTE
     return out
@@ -2135,13 +2182,14 @@ def phase_throughput(models, card: str, label: str) -> None:
               f"qconv kernels {qms:.3f} ms, {share} of device-busy", flush=True)
 
 
-def phase_route_times(models, card: str) -> dict:
-    """The postprocess's time per route at batch 32 @640 on the same head
-    outputs, both configs, both dtypes: CUDA events around back-to-back
-    calls (host gaps included) and the profiler's device time."""
+def phase_route_times(models, card: str, label: str = "yolov5s", batch=None) -> dict:
+    """The postprocess's time per route on the head outputs of ``batch``
+    (default 32 frames @640), both configs, both dtypes: CUDA events
+    around back-to-back calls (host gaps included) and the profiler's
+    device time."""
     import torch
 
-    batch = frames(20, 32, 640, 640)
+    batch = frames(20, 32, 640, 640) if batch is None else batch
     out = {}
     for dt, m in models.items():
         yolo = m.model
@@ -2158,7 +2206,8 @@ def phase_route_times(models, card: str) -> dict:
                     out[(str(dt), name, route)] = (ev, dev)
                     line.append(f"{route} {ev:.3f} ms (device {fmt_ms(dev)})")
                 yolo.row_gather = DEFAULT_ROUTE
-                print(f"[times] postprocess {dt} {name} batch 32 @640 by route: {'; '.join(line)} "
+                print(f"[times] {label} postprocess {dt} {name} batch {len(batch)} "
+                      f"@{batch[0].shape[0]}x{batch[0].shape[1]} by route: {'; '.join(line)} "
                       f"| {card}", flush=True)
         yolo.score_thresh, yolo.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
     return out
@@ -2193,6 +2242,217 @@ def phase_entry_points() -> dict:
     torch.cuda.empty_cache()
     return launches
 
+
+
+# --------------------------------------------------------------------------
+# phase 10: the rest of the model zoo
+# --------------------------------------------------------------------------
+LITE_640 = ((80, 80), (40, 40), (20, 20), (10, 10))  # yolo_lite head levels @640
+# the stage-1 tables (rows of 128 anchors) of the zoo's paths @640:
+# yolo_lite's cell path (25,500 anchors), the Ensemble of yolov5s and
+# yolov5m (50,400) and TTA of yolov5s (55,755)
+ZOO_TABLES = (200, 394, 436)
+
+
+def phase_zoo_kernels(device, card: str) -> dict:
+    """``check_stage1_kernels`` at the zoo's shapes: yolo_lite's four head
+    levels @640 and the three stage-1 tables of ZOO_TABLES."""
+    cells, tables, err = check_stage1_kernels(device, card, "zoo", (LITE_640,), ZOO_TABLES)
+    return {"fused_cells_stage1": dict(zoo=cells, zoo_max_abs_err=err["fused_cells_stage1"]),
+            "bisect_count": dict(zoo_stage1=tables, zoo_max_abs_err=err["bisect_count"])}
+
+
+def lite_v5(*, device, dtype, seed):
+    """yolo_lite, 80 classes, seeded, served with stride-64 rounding."""
+    from yolort_tpu_torch import YOLOv5, yolov5_mobilenet_v3_small_fpn
+
+    return YOLOv5("yolov5_mobilenet_v3_small_fpn", dtype=dtype, size_divisible=64,
+                  model=yolov5_mobilenet_v3_small_fpn(device=device, dtype=dtype, seed=seed))
+
+
+def yaml_v5(*, device, dtype, seed):
+    """yolov5s assembled from its yaml config, seeded."""
+    from yolort_tpu_torch import YOLOv5
+    from yolort_tpu_torch.models.yaml_model import YAMLDetectionModel, build_yaml_config
+
+    return YOLOv5("yaml yolov5s", dtype=dtype,
+                  model=YAMLDetectionModel(build_yaml_config("s"), device=device, dtype=dtype,
+                                           seed=seed))
+
+
+def phase_zoo_served(device, requests, card: str) -> dict:
+    """(a) yolo_lite and (b) yolov5s from its yaml config at full width, as
+    phase 4 serves yolov5s: seeded weights, head biases shifted to phase
+    4's candidate load, the three requests in both dtypes and configs on
+    every route (every route's detections equal to the default's, the
+    default route exactly DEFAULT_PER_BATCH a batch); the card paired
+    with the CPU on the 4x480x640 request (yolo_lite's head outputs on a
+    1/64 grid: its seeded network's best pair scores lie ulps apart);
+    then each one's serving of 8 640x640 frames timed on every route
+    (``serving_times``) and its postprocess per route
+    (``phase_route_times``)."""
+    out = {}
+    for label, factory, grid in (("zoo_lite", lite_v5, 64), ("zoo_yaml", yaml_v5, 0)):
+        models = build_shifted(factory, device, requests, label)
+        served = serve_routes(models, requests, label)
+        out[label] = dict(**served, unpaired=pair_routes_with_cpu(models, requests[1:2], label,
+                                                                  grid))
+        batch = frames(25, B, 640, 640)
+        out[label]["times"] = serving_times(models, card, label, batch)
+        out[label]["postprocess_times"] = phase_route_times(models, card, label, batch)
+        del models
+    return out
+
+
+def phase_zoo_custom(tmp: str, device, card: str) -> dict:
+    """(b) the non-standard checkpoint of tests/torch_fixture (an extra C3
+    at flat index 14; 80 classes, fp16, random BatchNorm statistics)
+    loaded by ``load_yaml_from_ultralytics`` on the card in both dtypes
+    and on the CPU: served through the default route (exactly
+    DEFAULT_PER_BATCH a batch), the card's float32 decode within the JAX
+    test's tolerance of the fixture's torch oracle."""
+    import torch
+
+    from yolort_tpu_torch import YOLOv5
+    from yolort_tpu_torch.models.yaml_model import load_yaml_from_ultralytics
+    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    path = f"{tmp}/custom.pt"
+    oracle = torch_fixture().make_custom_checkpoint(path, nc=80, seed=0)
+    models = {dt: YOLOv5(model=load_yaml_from_ultralytics(path, device=device, dtype=dt,
+                                                          score_thresh=0.25), dtype=dt)
+              for dt in (torch.float32, torch.bfloat16)}
+    cpu = YOLOv5(model=load_yaml_from_ultralytics(path, device="cpu"))
+    req = frames(19, 2, 480, 640)
+    reset_launch_counts()
+    for dt, m in models.items():
+        print(f"[zoo_yaml] custom checkpoint {dt} served: detections/img "
+              f"{check_served([m(req)], f'custom checkpoint {dt}')}", flush=True)
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    want = {k: DEFAULT_PER_BATCH.get(k, 0) * len(models) for k in counts}
+    if counts != want:
+        raise AssertionError(f"custom checkpoint: launches {counts}, want {want}")
+    canvas = cpu.canvas(torch.from_numpy(np.stack(req[:1])))[0]
+    with torch.inference_mode():
+        dec = models[torch.float32].model.decode(canvas.to(device)).cpu().numpy()
+        ref = oracle_hwa(oracle, canvas, cpu.model.head_outputs(canvas), 85)
+    bad = ~np.isclose(dec, ref, rtol=2e-3, atol=2e-2)
+    bad[..., 4:] |= np.abs(dec[..., 4:] - ref[..., 4:]) > 2e-3
+    err = float(np.abs(dec - ref).max())
+    if bad.any():
+        raise AssertionError(f"custom checkpoint: card decode differs from the torch oracle at "
+                             f"{int(bad.sum())} values (max abs {err})")
+    print(f"[zoo_yaml] custom checkpoint {tuple(canvas.shape[1:3])}: card decode vs torch oracle "
+          f"max abs {err:.3e} (rtol 2e-3, atol 2e-2, scores 2e-3) | {card}", flush=True)
+    return counts
+
+
+def check_detections(det, label: str) -> list:
+    """Every image of a Detections batch carries finite detections."""
+    import torch
+
+    num = det.num.cpu()
+    if not (num > 0).all():
+        raise AssertionError(f"{label}: an image has no detections ({num.tolist()})")
+    if not (torch.isfinite(det.boxes).all() and torch.isfinite(det.scores).all()):
+        raise AssertionError(f"{label}: non-finite detections")
+    return num.tolist()
+
+
+def phase_ensemble_tta(models_s, device, card: str) -> dict:
+    """(c) ``Ensemble`` of yolov5s (phase 4's models) and yolov5m (seeded,
+    head biases shifted the same way) at full width, and ``tta_inference``
+    of yolov5s (scales 1, 0.83, 0.67; the middle one flipped), on a batch
+    of 8 letterboxed 640x640 canvases, both dtypes and configs, once per
+    route, each route's counts set to 0 just before and read just after:
+    exactly FLATTEN_KERNELS a batch (the decoded path: bisect_count 2, the
+    route's fetch kernel 2, nms_mask 1), every image with detections,
+    each route's Detections equal to the default route's; the card's
+    postprocess of the pooled predictions paired with the CPU's on a
+    2-image batch; then the batch time (CUDA events), the device-busy time
+    of a call (profiler) and the postprocess's time per route."""
+    import torch
+
+    import yolort_tpu_torch
+    from yolort_tpu_torch.models.ensemble import Ensemble
+    from yolort_tpu_torch.models.tta import tta_decode, tta_inference
+    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    batch = frames(24, B, 640, 640)
+    models_m = build_shifted(yolort_tpu_torch.yolov5m, device, [batch], "ensemble")
+    cases = {}
+    for dt, m5 in models_s.items():
+        s, canvas = m5.model, m5.canvas(torch.from_numpy(np.stack(batch)).to(device))[0]
+        ens = Ensemble([s, models_m[dt].model])
+        cases[("ensemble", dt)] = (s, canvas, ens, ens.decode)
+        cases[("tta", dt)] = (s, canvas, lambda c, s=s: tta_inference(s, c),
+                              lambda c, s=s: tta_decode(s, c))
+    configs = (("eval", EVAL), ("serving", SERVING))
+    out = {}
+    for path in ("ensemble", "tta"):
+        runs = [(dt, name, cfg) for dt in models_s for name, cfg in configs]
+        launches, dets = {}, {}
+        for route in ROUTES:
+            reset_launch_counts()
+            for dt, name, cfg in runs:
+                lead, canvas, run, _ = cases[(path, dt)]
+                lead.row_gather = route
+                lead.score_thresh, lead.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+                with torch.inference_mode():
+                    dets[(route, dt, name)] = run(canvas)
+            torch.cuda.synchronize()
+            counts = {fn.__name__: fn.launches for fn in KERNELS}
+            want = {k: FLATTEN_KERNELS[route].get(k, 0) * len(runs) for k in counts}
+            print(f"[{path}] route {route}: launches over {len(runs)} batches of {B} {counts}",
+                  flush=True)
+            if counts != want:
+                raise AssertionError(f"{path} route {route}: launches {counts}, want {want}")
+            launches[route] = counts
+        for (route, dt, name), det in dets.items():
+            n = check_detections(det, f"{path} {route} {dt} {name}")
+            if route == DEFAULT_ROUTE:
+                print(f"[{path}] {str(dt):>14} {name:>7}: detections/img {n}", flush=True)
+            elif not all(torch.equal(a, b) for a, b in zip(det, dets[(DEFAULT_ROUTE, dt, name)])):
+                raise AssertionError(f"{path} {route} {dt} {name}: Detections differ from the "
+                                     f"default route's")
+        print(f"[{path}] every route gave the default route's Detections exactly", flush=True)
+
+        unpaired, times = 0, {}
+        for dt, name, cfg in runs:
+            lead, canvas, run, decode = cases[(path, dt)]
+            lead.score_thresh, lead.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
+            lead.row_gather = DEFAULT_ROUTE
+            with torch.inference_mode():
+                pooled2 = decode(canvas[:2])
+                un = pair_detections(lead.postprocess_decoded(pooled2),
+                                     lead.postprocess_decoded(pooled2.cpu()),
+                                     f"{path} {dt} {name}")
+                unpaired += un
+                pooled = decode(canvas)
+                batch_ms = median_ms(lambda: run(canvas), 5, 3)
+                busy = device_profile(lambda: run(canvas), iters=3)[0]
+                line = []
+                for route in ROUTES:
+                    lead.row_gather = route
+                    ev = median_ms(lambda: lead.postprocess_decoded(pooled), 5, 3)
+                    dev = device_profile(lambda: lead.postprocess_decoded(pooled), iters=3)[0]
+                    times[(str(dt), name, route)] = (ev, dev)
+                    line.append(f"{route} {ev:.3f} ms (device {fmt_ms(dev)})")
+                lead.row_gather = DEFAULT_ROUTE
+            times[(str(dt), name)] = dict(batch_ms=batch_ms, device_busy_ms=busy,
+                                          anchors=int(pooled.shape[1]))
+            share = f"{100 * busy / batch_ms:.1f}%" if busy else "not measured"
+            print(f"[{path}] {dt} {name} batch {B} @640x640 ({pooled.shape[1]} pooled anchors): "
+                  f"{batch_ms:.2f} ms a batch (CUDA events, median of 5), {B / batch_ms * 1e3:.1f} "
+                  f"images/s, device busy {fmt_ms(busy)} ({share}); card vs CPU on 2 images: "
+                  f"{un} unpaired; postprocess by route {'; '.join(line)} | {card}", flush=True)
+        totals = {k: sum(launches[r][k] for r in ROUTES) for k in launches[DEFAULT_ROUTE]}
+        out[path] = dict(launches=totals, unpaired=unpaired, times=times)
+    for m5 in models_s.values():
+        m5.model.score_thresh, m5.model.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+    del models_m
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2407,7 +2667,8 @@ def main() -> int:
     for name, r in phase_postprocess_kernels(device, card).items():
         res.setdefault(name, {}).update(r)
     res.update(phase_sweep_kernels(device, card))
-    for name, extra in phase_p6_kernels(device, card).items():
+    for name, extra in (*phase_p6_kernels(device, card).items(),
+                        *phase_zoo_kernels(device, card).items()):
         res[name].update(extra)
     done("kernels")
     sl = phase_slice(device, card)
@@ -2448,17 +2709,26 @@ def main() -> int:
         done("p6 int8")
         ck = phase_checkpoints(tmp, made, device, card)
         done("checkpoints")
+        zoo = phase_zoo_served(device, sl["requests"], card)
+        custom = phase_zoo_custom(tmp, device, card)
+        done("zoo: yolo_lite and yaml")
+    ens_tta = phase_ensemble_tta(sl["models"], device, card)
+    done("zoo: ensemble and tta")
     tr = phase_train(device, card)
     done("train")
     phase_throughput(sl["models"], card, "float")
     phase_throughput(q8["models"], card, "int8")
     phase_route_times(sl["models"], card)
-    phase_p6_times(p6["models"], card)
+    serving_times(p6["models"], card, "yolov5s6", frames(21, 8, 1280, 1280))
     done("times")
     paths = {"float": sl["launches"], "int8": q8["launches"], "cpa": flat["cpa"]["launches"],
              "decoded": flat["decoded"]["launches"], "fixed_shape": fx["launches"],
              "r31_int8": r31_launches, "p6": p6["launches"], "p6_int8": q86["launches"],
-             "checkpoint": ck["launches"], "train_eval": tr["launches"], **phase_entry_points()}
+             "checkpoint": ck["launches"], "train_eval": tr["launches"],
+             "zoo_lite": zoo["zoo_lite"]["launches"],
+             "zoo_yaml": {k: n + custom[k] for k, n in zoo["zoo_yaml"]["launches"].items()},
+             "ensemble": ens_tta["ensemble"]["launches"], "tta": ens_tta["tta"]["launches"],
+             **phase_entry_points()}
     done("entry points")
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

@@ -17,10 +17,12 @@ from yolort_tpu_torch.models import (  # noqa: F401
     yolov5n6,
     yolov5s,
     yolov5s6,
+    yolov5_mobilenet_v3_small_fpn,
     yolov5ts,
     yolov5x,
     yolov5x6,
 )
 
 __all__ = ["YOLO", "YOLOv5", "yolov5n", "yolov5s", "yolov5m", "yolov5l", "yolov5x", "yolov5n6",
-           "yolov5s6", "yolov5m6", "yolov5l6", "yolov5x6", "yolov5ts"]
+           "yolov5s6", "yolov5m6", "yolov5l6", "yolov5x6", "yolov5ts",
+           "yolov5_mobilenet_v3_small_fpn"]

@@ -1,11 +1,13 @@
 """Model zoo factories: n/s/m/l/x in r6.0 (r3.1 and r4.0 through
 ``upstream_version`` for s/m/l), the P6 sizes n6..x6 (stride-64 letterbox
-rounding) and the TAN variant ts.  Each builds on the card unless the
-caller passes ``device="cpu"``."""
+rounding), the TAN variant ts and the MobileNetV3 yolo_lite
+(``yolov5_mobilenet_v3_small_fpn``, a ``YOLOLite`` for ``YOLOv5(model=...)``).
+Each builds on the card unless the caller passes ``device="cpu"``."""
 
 from typing import Any
 
-from yolort_tpu_torch.models.yolo import ARCHS, YOLO, build_yolo  # noqa: F401
+from yolort_tpu_torch.models.yolo import ARCHS, YOLO, Detector, build_yolo  # noqa: F401
+from yolort_tpu_torch.models.yolo_lite import YOLOLite, yolov5_mobilenet_v3_small_fpn  # noqa: F401
 from yolort_tpu_torch.models.yolov5 import YOLOv5  # noqa: F401
 
 
@@ -44,5 +46,6 @@ def yolov5ts(*, upstream_version: str = "r4.0", device="cuda", num_classes: int 
                   **kwargs)
 
 
-__all__ = ["YOLO", "YOLOv5", "build_yolo", "yolov5n", "yolov5s", "yolov5m", "yolov5l", "yolov5x",
-           "yolov5n6", "yolov5s6", "yolov5m6", "yolov5l6", "yolov5x6", "yolov5ts"]
+__all__ = ["Detector", "YOLO", "YOLOLite", "YOLOv5", "build_yolo", "yolov5n", "yolov5s", "yolov5m",
+           "yolov5l", "yolov5x", "yolov5n6", "yolov5s6", "yolov5m6", "yolov5l6", "yolov5x6",
+           "yolov5ts", "yolov5_mobilenet_v3_small_fpn"]

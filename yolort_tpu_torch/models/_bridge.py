@@ -4,8 +4,8 @@ The port's modules carry the JAX params keys as child names, so the tree
 is walked key by key; each conv leaf goes to its module's ``set_params``,
 which turns HWIO weights into OIHW and takes any Conv form (fused
 {'w','b'}, unfused BatchNorm, or int8 compute {'wq','ws','xs'[,'os','b']}).
-A BatchNorm leaf {'gamma','beta','mean','var'} and a Linear leaf {'w'
-(in, out)[,'b']} go to theirs.  A bare array under a module is its
+A BatchNorm leaf {'gamma','beta','mean','var'}, a Linear leaf {'w'
+(in, out)[,'b']} and a rectangular conv's {'w','b'} go to theirs.  A bare array under a module is its
 parameter of that name: the attention's flattened ``in_proj_w`` and
 ``in_proj_b`` of a TransformerLayer.  A Bottleneck's ``'as'`` (its
 calibrated post-add scale) becomes ``as_``.  Scales arrive as floats or
@@ -28,6 +28,7 @@ from torch import nn
 from yolort_tpu_torch.ops.blocks import (
     BN_NAMES, BatchNorm, Bottleneck, Conv, Conv2dOnly, Linear, _as_tensor,
 )
+from yolort_tpu_torch.ops.experimental import _RectConv
 
 
 def params_from_jax(params_np: Mapping, model: nn.Module) -> nn.Module:
@@ -41,7 +42,7 @@ def params_from_jax(params_np: Mapping, model: nn.Module) -> nn.Module:
         else:
             model.set_params(p)
         return model
-    if isinstance(model, (BatchNorm, Linear)):
+    if isinstance(model, (BatchNorm, Linear, _RectConv)):
         model.set_params(params_np)
         return model
     for key, sub in params_np.items():
@@ -75,8 +76,8 @@ def params_to_jax(model: nn.Module,
         t = t if layout is None else layout(t)
         return np.array(t.float().cpu().numpy(), order="C")  # a copy: never the tensor's memory
 
-    if isinstance(model, (Conv, Conv2dOnly)):
-        if model.quantized:
+    if isinstance(model, (Conv, Conv2dOnly, _RectConv)):
+        if getattr(model, "quantized", False):
             raise ValueError("params_to_jax takes float models; this conv is int8")
         out = {"w": arr(model.weight, lambda t: t.permute(2, 3, 1, 0))}
         if model.bias is not None:

@@ -2,9 +2,10 @@
 
 Port of ``yolort_tpu/models/yolo.py``: the r3.1, r4.0 and r6.0 families,
 P6 (four levels, strides 8-64) and the TAN variant, and the registry of
-the JAX package's 17 architectures.  The module takes NHWC images, runs
-the network in channels_last NCHW, returns NHWC head outputs, decoded
-predictions and padded ``Detections``.
+the JAX package's 17 architectures.  ``Detector`` is the surface YOLO
+shares with ``YOLOLite`` and ``YAMLDetectionModel``: it takes NHWC
+images, runs the network in channels_last NCHW, returns NHWC head
+outputs, decoded predictions and padded ``Detections``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ from yolort_tpu_torch.models.head import (
 )
 from yolort_tpu_torch.models.pan import PathAggregationNetwork
 from yolort_tpu_torch.ops import blocks
-from yolort_tpu_torch.ops.nms import Detections, batched_postprocess_from_heads
+from yolort_tpu_torch.ops.nms import (
+    Detections, batched_postprocess, batched_postprocess_from_heads,
+)
 
 
 def resolve_device(device) -> torch.device:
@@ -36,33 +39,26 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class YOLO(nn.Module):
-    """YOLOv5.  ``depth_multiple``/``width_multiple`` select the size,
-    ``version`` the family ('r3.1', 'r4.0', 'r6.0'), ``use_p6`` the fourth
-    level (with its strides and anchors unless given), ``use_tan`` the C3TR
-    first inner block.  The postprocess thresholds are plain attributes
-    (the defaults are the eval config), and so are ``classes_per_anchor``
-    (None: the cell path; C: each anchor's best C classes, on the flatten
-    path) and the stage-2 route ``row_gather`` (``ops.nms.NMSConfig``; any
-    route gives the same detections).  Weights
-    are drawn from ``torch.Generator(seed)`` on the CPU, then the module
-    moves to ``device`` (the card unless the caller passes ``"cpu"``) and
-    ``dtype``.  The module serves frozen (no parameter requires grad);
-    ``init_train`` / ``trainable`` make it trainable."""
+class Detector(nn.Module):
+    """What every detection model of the port shares: the anchors, the
+    postprocess configuration and the path from images to ``Detections``.
+    ``YOLO``, ``YOLOLite`` and ``YAMLDetectionModel`` build their networks,
+    a ``head`` (``YOLOHead``) and ``features`` (images -> the head's
+    inputs).
+
+    The postprocess thresholds are plain attributes (the defaults are the
+    eval config), and so are ``classes_per_anchor`` (None: the cell path;
+    C: each anchor's best C classes, on the flatten path) and the stage-2
+    route ``row_gather`` (``ops.nms.NMSConfig``; any route gives the same
+    detections).  A built model serves frozen (no parameter requires
+    grad); ``init_train`` / ``trainable`` make it trainable."""
 
     def __init__(
         self,
-        depth_multiple: float,
-        width_multiple: float,
         *,
-        device="cuda",
-        dtype: torch.dtype = torch.float32,
-        version: str = "r6.0",
-        num_classes: int = 80,
-        use_p6: bool = False,
-        use_tan: bool = False,
-        strides: Optional[Sequence[int]] = None,
-        anchor_grids: Optional[Sequence[Sequence[float]]] = None,
+        num_classes: int,
+        strides: Sequence[int],
+        anchor_grids: Sequence[Sequence[float]],
         score_thresh: float = 0.005,
         nms_thresh: float = 0.45,
         detections_per_img: int = 300,
@@ -71,15 +67,11 @@ class YOLO(nn.Module):
         classes_per_anchor: Optional[int] = None,
         nms_tile_size: int = 256,
         row_gather: str = "pallas_bisect",
-        seed: int = 0,
     ):
         super().__init__()
-        device = resolve_device(device)
         self.num_classes = num_classes
-        self.version = version
-        self.strides = tuple(strides or (P6_STRIDES if use_p6 else DEFAULT_STRIDES))
-        self.anchor_grids = tuple(tuple(a) for a in (
-            anchor_grids or (P6_ANCHOR_GRIDS if use_p6 else DEFAULT_ANCHOR_GRIDS)))
+        self.strides = tuple(strides)
+        self.anchor_grids = tuple(tuple(a) for a in anchor_grids)
         self.score_thresh = score_thresh
         self.nms_thresh = nms_thresh
         self.detections_per_img = detections_per_img
@@ -89,14 +81,9 @@ class YOLO(nn.Module):
         self.nms_tile_size = nms_tile_size
         self.row_gather = row_gather
 
-        gen = torch.Generator().manual_seed(seed)
-        widths = (256, 512, 768, 1024) if use_p6 else (256, 512, 1024)
-        in_channels = tuple(make_divisible(c * width_multiple, 8) for c in widths)
-        self.backbone = DarkNet(depth_multiple, width_multiple, version,
-                                last_channel=768 if use_p6 else 1024, gen=gen)
-        self.pan = PathAggregationNetwork(in_channels, depth_multiple, version, use_p6,
-                                          first_inner="c3tr" if use_tan else "auto", gen=gen)
-        self.head = YOLOHead(in_channels, self.num_anchors, self.strides, num_classes, gen=gen)
+    def place(self, device: torch.device, dtype: torch.dtype) -> None:
+        """Freeze the built network and move it to ``device`` and ``dtype``,
+        channels_last."""
         self.eval().requires_grad_(False)  # inference only: no autograd graph
         self.to(device=device, dtype=dtype, memory_format=torch.channels_last)
 
@@ -104,7 +91,7 @@ class YOLO(nn.Module):
     def num_anchors(self) -> int:
         return len(self.anchor_grids[0]) // 2
 
-    def init_train(self, seed: int = 0) -> "YOLO":
+    def init_train(self, seed: int = 0) -> "Detector":
         """The train form from ``torch.Generator(seed)``: JAX's ``init``
         (every Conv unfused, w U(-b, b) with b = 1/sqrt(fan_in), gamma 1,
         beta 0, mean 0, var 1; the head's prior-probability bias), every
@@ -114,7 +101,7 @@ class YOLO(nn.Module):
         self.head.add_prior_bias()
         return self
 
-    def trainable(self) -> "YOLO":
+    def trainable(self) -> "Detector":
         """Every parameter requires grad (the weights as they are: fused
         convs train their weight and bias, unfused ones their BatchNorm
         too).  An int8-quantized model raises.  In place; returns self."""
@@ -123,10 +110,14 @@ class YOLO(nn.Module):
                 raise ValueError("an int8-quantized model cannot be trained")
         return self.requires_grad_(True)
 
+    @staticmethod
+    def nchw(images: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) images as the network's channels_last (B, 3, H, W)."""
+        return images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
     def features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """images (B, H, W, 3) letterboxed float -> PAN outputs (channels_last NCHW)."""
-        x = images.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-        return self.pan(self.backbone(x))
+        """images (B, H, W, 3) letterboxed float -> the head's inputs."""
+        raise NotImplementedError
 
     def head_outputs(self, images: torch.Tensor) -> List[torch.Tensor]:
         """Per-level raw logits (B, Hl, Wl, A*(5+nc)), NHWC."""
@@ -150,8 +141,19 @@ class YOLO(nn.Module):
             row_gather=self.row_gather,
         )
 
+    def postprocess_decoded(self, pred: torch.Tensor) -> Detections:
+        """Padded detections of decoded predictions (B, Na, 5+nc) (``decode``
+        of this model, or a pool of them: Ensemble, TTA) under this model's
+        thresholds and ``row_gather`` route."""
+        return batched_postprocess(
+            pred, num_classes=self.num_classes, score_thresh=self.score_thresh,
+            nms_thresh=self.nms_thresh, detections_per_img=self.detections_per_img,
+            pre_nms_topk=self.pre_nms_topk, nms_tile_size=self.nms_tile_size,
+            row_gather=self.row_gather,
+        )
+
     def with_thresholds(self, score_thresh=None, nms_thresh=None, detections_per_img=None,
-                        pre_nms_topk=None) -> "YOLO":
+                        pre_nms_topk=None) -> "Detector":
         """A view of this model with the given postprocess thresholds (those
         left None keep theirs): a shallow copy sharing every weight."""
         out = copy.copy(self)
@@ -164,6 +166,54 @@ class YOLO(nn.Module):
     def forward(self, images: torch.Tensor) -> Detections:
         """images (B, H, W, 3) letterboxed -> padded Detections, canvas coordinates."""
         return self.postprocess(self.head_outputs(images))
+
+
+class YOLO(Detector):
+    """YOLOv5: CSPDarknet, PAN and the head.  ``depth_multiple`` /
+    ``width_multiple`` select the size, ``version`` the family ('r3.1',
+    'r4.0', 'r6.0'), ``use_p6`` the fourth level (with its strides and
+    anchors unless given), ``use_tan`` the C3TR first inner block; the
+    other keywords are ``Detector``'s postprocess configuration.  Weights
+    are drawn from ``torch.Generator(seed)`` on the CPU, then the module
+    moves to ``device`` (the card unless the caller passes ``"cpu"``) and
+    ``dtype``."""
+
+    def __init__(
+        self,
+        depth_multiple: float,
+        width_multiple: float,
+        *,
+        device="cuda",
+        dtype: torch.dtype = torch.float32,
+        version: str = "r6.0",
+        num_classes: int = 80,
+        use_p6: bool = False,
+        use_tan: bool = False,
+        strides: Optional[Sequence[int]] = None,
+        anchor_grids: Optional[Sequence[Sequence[float]]] = None,
+        seed: int = 0,
+        **postprocess,
+    ):
+        device = resolve_device(device)
+        super().__init__(
+            num_classes=num_classes,
+            strides=strides or (P6_STRIDES if use_p6 else DEFAULT_STRIDES),
+            anchor_grids=anchor_grids or (P6_ANCHOR_GRIDS if use_p6 else DEFAULT_ANCHOR_GRIDS),
+            **postprocess)
+        self.version = version
+        gen = torch.Generator().manual_seed(seed)
+        widths = (256, 512, 768, 1024) if use_p6 else (256, 512, 1024)
+        in_channels = tuple(make_divisible(c * width_multiple, 8) for c in widths)
+        self.backbone = DarkNet(depth_multiple, width_multiple, version,
+                                last_channel=768 if use_p6 else 1024, gen=gen)
+        self.pan = PathAggregationNetwork(in_channels, depth_multiple, version, use_p6,
+                                          first_inner="c3tr" if use_tan else "auto", gen=gen)
+        self.head = YOLOHead(in_channels, self.num_anchors, self.strides, num_classes, gen=gen)
+        self.place(device, dtype)
+
+    def features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """images (B, H, W, 3) letterboxed float -> PAN outputs (channels_last NCHW)."""
+        return self.pan(self.backbone(self.nchw(images)))
 
 
 _SIZES = {"n": (0.33, 0.25), "s": (0.33, 0.5), "m": (0.67, 0.75), "l": (1.0, 1.0), "x": (1.33, 1.25)}

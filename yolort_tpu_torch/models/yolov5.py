@@ -25,7 +25,7 @@ from yolort_tpu_torch.models._checkpoint import load_from_ultralytics
 from yolort_tpu_torch.models.transform import (
     letterbox_batch, letterbox_images, make_plan, scale_coords_back,
 )
-from yolort_tpu_torch.models.yolo import YOLO, build_yolo, resolve_device
+from yolort_tpu_torch.models.yolo import YOLO, Detector, build_yolo, resolve_device
 from yolort_tpu_torch.ops.nms import Detections
 
 
@@ -46,13 +46,14 @@ class YOLOv5:
     share one batch), ``fill_color`` the pad value; ``device`` (the card unless the caller
     passes ``"cpu"``; a CUDA device where there is none raises) and
     ``dtype`` (float32 or bfloat16) place the model.  A ``model`` passed in
-    is served where its parameters lie; a ``device`` given beside it must
-    be that one."""
+    (any ``Detector``: YOLO, YOLOLite, YAMLDetectionModel; or an
+    ``Ensemble``) is served where its parameters lie; a ``device`` given
+    beside it must be that one."""
 
     def __init__(
         self,
         arch: Optional[str] = None,
-        model: Optional[YOLO] = None,
+        model: Optional[Detector] = None,
         *,
         device=None,
         num_classes: int = 80,

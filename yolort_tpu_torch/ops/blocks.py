@@ -3,7 +3,10 @@
 Port of ``yolort_tpu/ops/blocks.py`` (the activations, ``fuse_conv_bn``,
 Conv, Conv2dOnly, BatchNorm, Bottleneck, C3, BottleneckCSP, SPP/SPPF,
 ``space_to_depth``, Focus, Linear, TransformerLayer, TransformerBlock,
-C3TR, ``max_pool_same``, ``upsample2x``, and the int8-compute glue:
+C3TR, ``max_pool_same``, ``upsample2x``, the Ghost blocks (DWConv,
+GhostConv, GhostBottleneck, C3Ghost), ``contract`` / ``expand``, Classify,
+the MobileNetV3 blocks (SqueezeExcite, InvertedResidual), and the
+int8-compute glue:
 ``QTensor``, ``_as_float``, ``_qconcat``, ``_qadd``; the JAX
 ``_quantize_input`` and ``_requantize`` are ``quantize_int8`` of the qconv
 module, whose kernel epilogue does the requantize).
@@ -30,7 +33,7 @@ weights, as every leaf of the JAX params tree is trained.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,7 +64,18 @@ def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, 0.1 * x)
 
 
-ACTS = {"silu": silu, "hardswish": hardswish, "leaky_relu": leaky_relu01, "none": lambda x: x}
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return F.relu(x)
+
+
+def hardsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """clip(x / 6 + 0.5, 0, 1), as the JAX package computes it (not
+    ``F.hardsigmoid``'s relu6(x + 3) / 6, which rounds differently)."""
+    return torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+ACTS = {"silu": silu, "hardswish": hardswish, "leaky_relu": leaky_relu01, "relu": relu,
+        "none": lambda x: x}
 
 
 def act_for_version(version: str) -> str:
@@ -344,8 +358,11 @@ class C3(nn.Module):
         self.cv1 = Conv(c1, c_, 1, 1, act=act, gen=gen)
         self.cv2 = Conv(c1, c_, 1, 1, act=act, gen=gen)
         self.cv3 = Conv(2 * c_, c2, 1, act=act, gen=gen)
-        self.m = nn.ModuleList(Bottleneck(c_, c_, shortcut, g, e=1.0, act=act, gen=gen)
-                               for _ in range(n))
+        self.m = nn.ModuleList(self.inner(c_, shortcut, g, act, gen) for _ in range(n))
+
+    @staticmethod
+    def inner(c_: int, shortcut: bool, g: int, act: str, gen: torch.Generator) -> nn.Module:
+        return Bottleneck(c_, c_, shortcut, g, e=1.0, act=act, gen=gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y1 = self.cv1(x)
@@ -384,33 +401,47 @@ def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class SPP(nn.Module):
-    """Spatial pyramid pooling with k=(5, 9, 13), computed as a chain of
-    three 5x5 pools (the SPPF identity); same parameters as SPPF."""
+    """Spatial pyramid pooling.  The default k=(5, 9, 13) is computed as a
+    chain of three 5x5 pools (the SPPF identity); other kernel sizes pool
+    the input once each."""
 
-    def __init__(self, c1: int, c2: int, act: str = "silu", *, gen: torch.Generator):
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13), act: str = "silu", *,
+                 gen: torch.Generator):
         super().__init__()
         c_ = c1 // 2
+        self.k = tuple(k)
         self.cv1 = Conv(c1, c_, 1, 1, act=act, gen=gen)
-        self.cv2 = Conv(c_ * 4, c2, 1, 1, act=act, gen=gen)
+        self.cv2 = Conv(c_ * (len(self.k) + 1), c2, 1, 1, act=act, gen=gen)
 
     def forward(self, x):
         x = self.cv1(x)
-        y1 = _pool5(x)
-        y2 = _pool5(y1)
-        y3 = _pool5(y2)
-        return self.cv2(_qconcat([x, y1, y2, y3]))
+        if self.k == (5, 9, 13):
+            y1 = _pool5(x)
+            y2 = _pool5(y1)
+            pooled = [y1, y2, _pool5(y2)]
+        else:
+            pooled = [_pool(x, k) for k in self.k]
+        return self.cv2(_qconcat([x, *pooled]))
 
 
-SPPF = SPP
+def SPPF(c1: int, c2: int, k: int = 5, act: str = "silu", *, gen: torch.Generator) -> SPP:
+    """SPPF: the parameters of SPP with k=(5, 9, 13)."""
+    if k != 5:
+        raise ValueError(f"SPPF takes k=5, got {k}")
+    return SPP(c1, c2, act=act, gen=gen)
 
 
-def _pool5(v):
-    """SPPF's 5x5 pool.  Max commutes with dequantization, so a QTensor
+def _pool(v, k: int):
+    """SPP's k x k pool.  Max commutes with dequantization, so a QTensor
     pools its int8 values under the same scale (in the compute dtype,
     which holds every int8 value exactly)."""
     if isinstance(v, QTensor):
-        return QTensor(max_pool_same(v.q.to(v.dtype), 5).to(torch.int8), v.s, v.dtype)
-    return max_pool_same(v, 5)
+        return QTensor(max_pool_same(v.q.to(v.dtype), k).to(torch.int8), v.s, v.dtype)
+    return max_pool_same(v, k)
+
+
+def _pool5(v):
+    return _pool(v, 5)
 
 
 def upsample2x(x):
@@ -438,6 +469,7 @@ class Focus(nn.Module):
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: Optional[int] = None,
                  g: int = 1, act: str = "silu", *, gen: torch.Generator):
         super().__init__()
+        self.s = s
         self.conv = Conv(c1 * 4, c2, k, s, p, g, act=act, gen=gen)
 
     def forward(self, x):
@@ -559,12 +591,151 @@ class C3TR(nn.Module):
         return self.cv3(_qconcat([self.m(self.cv1(x)), self.cv2(x)]))
 
 
+# --- the Ghost, MobileNetV3 and classification blocks ----------------------
+
+def DWConv(c1: int, c2: int, k: int = 1, s: int = 1, act: str = "silu", *,
+           gen: torch.Generator) -> Conv:
+    """Depth-wise convolution: a Conv with groups = gcd(c1, c2)."""
+    return Conv(c1, c2, k, s, g=math.gcd(c1, c2), act=act, gen=gen)
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: half the channels from a primary conv, half from
+    a cheap 5x5 depth-wise conv on those."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, act: str = "silu", *,
+                 gen: torch.Generator):
+        super().__init__()
+        c_ = c2 // 2
+        self.s = s
+        self.cv1 = Conv(c1, c_, k, s, act=act, gen=gen)
+        self.cv2 = Conv(c_, c_, 5, 1, g=c_, act=act, gen=gen)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return _qconcat([y, self.cv2(y)])
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck: GhostConv, a depth-wise stride-2 conv when s=2,
+    GhostConv; the shortcut is the input, or at s=2 a depth-wise conv and
+    a 1x1 conv of it."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, *, gen: torch.Generator):
+        super().__init__()
+        c_ = c2 // 2
+        self.s = s
+        conv = [GhostConv(c1, c_, 1, 1, gen=gen)]
+        if s == 2:
+            conv.append(DWConv(c_, c_, k, s, act="none", gen=gen))
+        conv.append(GhostConv(c_, c2, 1, 1, act="none", gen=gen))
+        self.conv = nn.ModuleList(conv)
+        self.shortcut = nn.ModuleList([DWConv(c1, c1, k, s, act="none", gen=gen),
+                                       Conv(c1, c2, 1, 1, act="none", gen=gen)]) if s == 2 else None
+
+    def forward(self, x):
+        y = x
+        for m in self.conv:
+            y = m(y)
+        s = x
+        for m in self.shortcut or ():
+            s = m(s)
+        return _qadd(y, s)
+
+
+class C3Ghost(C3):
+    """C3 with GhostBottleneck inner blocks."""
+
+    @staticmethod
+    def inner(c_: int, shortcut: bool, g: int, act: str, gen: torch.Generator) -> nn.Module:
+        return GhostBottleneck(c_, c_, gen=gen)
+
+
+def contract(x, gain: int = 2):
+    """(N, C, H, W) -> (N, C*g*g, H/g, W/g), channels in the JAX package's
+    NHWC order (row offset, column offset, channel); a QTensor keeps its
+    scale."""
+    if isinstance(x, QTensor):
+        return QTensor(contract(x.q, gain), x.s, x.dtype)
+    n, c, h, w = x.shape
+    g = gain
+    y = x.reshape(n, c, h // g, g, w // g, g).permute(0, 3, 5, 1, 2, 4)
+    return y.reshape(n, g * g * c, h // g, w // g).contiguous(memory_format=torch.channels_last)
+
+
+def expand(x, gain: int = 2):
+    """(N, C, H, W) -> (N, C/(g*g), H*g, W*g), the inverse of ``contract``."""
+    if isinstance(x, QTensor):
+        return QTensor(expand(x.q, gain), x.s, x.dtype)
+    n, c, h, w = x.shape
+    g = gain
+    y = x.reshape(n, g, g, c // (g * g), h, w).permute(0, 3, 4, 1, 5, 2)
+    return y.reshape(n, c // (g * g), h * g, w * g).contiguous(memory_format=torch.channels_last)
+
+
+class Classify(nn.Module):
+    """Classification head: global average pool, then a 1x1 conv; (N, c2)."""
+
+    def __init__(self, c1: int, c2: int, *, gen: torch.Generator):
+        super().__init__()
+        self.conv = Conv2dOnly(c1, c2, 1, bias=True, gen=gen)
+
+    def forward(self, x):
+        x = _as_float(x)
+        return self.conv(x.mean((2, 3), keepdim=True)).reshape(x.shape[0], -1)
+
+
+class SqueezeExcite(nn.Module):
+    """Squeeze-and-excitation, MobileNetV3 style: pool, 1x1 conv, relu, 1x1
+    conv, ``hardsigmoid`` gate on the input."""
+
+    def __init__(self, c: int, squeeze: int, *, gen: torch.Generator):
+        super().__init__()
+        self.fc1 = Conv2dOnly(c, squeeze, 1, bias=True, gen=gen)
+        self.fc2 = Conv2dOnly(squeeze, c, 1, bias=True, gen=gen)
+
+    def forward(self, x):
+        x = _as_float(x)
+        s = relu(self.fc1(x.mean((2, 3), keepdim=True)))
+        return x * hardsigmoid(self.fc2(s))
+
+
+class InvertedResidual(nn.Module):
+    """MobileNetV3 inverted residual: ``expand`` 1x1 (when exp != cin),
+    ``dw`` depth-wise kxk, ``se`` (``use_se``), ``project`` 1x1; the
+    residual only when s == 1 and cin == cout."""
+
+    def __init__(self, cin: int, exp: int, cout: int, k: int = 3, s: int = 1, use_se: bool = False,
+                 act: str = "hardswish", *, gen: torch.Generator):
+        super().__init__()
+        self.add = s == 1 and cin == cout
+        if exp != cin:
+            self.expand = Conv(cin, exp, 1, act=act, gen=gen)
+        self.dw = Conv(exp, exp, k, s, g=exp, act=act, gen=gen)
+        if use_se:
+            self.se = SqueezeExcite(exp, _make_div8(exp // 4), gen=gen)
+        self.project = Conv(exp, cout, 1, act="none", gen=gen)
+
+    def forward(self, x):
+        y = x
+        for m in self.children():
+            y = m(y)
+        return _qadd(x, y) if self.add else y
+
+
+def _make_div8(v: int) -> int:
+    nv = max(8, int(v + 4) // 8 * 8)
+    return nv + 8 if nv < 0.9 * v else nv
+
+
 TRAIN_BLOCKS = (Conv, Conv2dOnly, BatchNorm, Linear, TransformerLayer)
 
 
 def init_train(module: nn.Module, gen: torch.Generator) -> None:
     """Redraw every block of ``module`` in JAX's ``init`` form, in module
     order from ``gen``."""
+    from yolort_tpu_torch.ops import experimental  # it imports this module
+
     for m in module.modules():
-        if isinstance(m, TRAIN_BLOCKS):
+        if isinstance(m, TRAIN_BLOCKS + experimental.TRAIN_BLOCKS):
             m.init_train(gen)

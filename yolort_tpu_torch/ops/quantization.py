@@ -120,6 +120,17 @@ def _pop_marks(mod: nn.Module) -> Dict[str, float]:
     return {k: mod.__dict__.pop(k) for k in _MARKS if k in mod.__dict__}
 
 
+def _refuse_int8_gaps(model: nn.Module) -> None:
+    for name, mod in model.named_modules():
+        if not isinstance(mod, (Conv, Conv2dOnly)):
+            continue
+        if mod.g != 1 or getattr(mod, "act", None) == "relu":
+            raise ValueError(
+                f"int8 of grouped and ReLU convs is not ported: conv '{name}' has groups={mod.g}, "
+                f"act={getattr(mod, 'act', 'none')!r} (the qconv kernels take groups=1 and no "
+                f"ReLU epilogue); serve this model in float32 or bfloat16")
+
+
 def quantize_compute_params(model: nn.Module) -> nn.Module:
     """A copy of a calibrated model in the int8-compute form: every conv
     with a recorded input range and a reduction depth kh*kw*cin >=
@@ -127,7 +138,13 @@ def quantize_compute_params(model: nn.Module) -> nn.Module:
     ``xs`` and, with a recorded output range, the output scale ``os`` its
     epilogue requantizes to; unfused BatchNorm is folded first.  Each
     residual Bottleneck with a recorded sum range gets ``as_``.  Markers are
-    dropped from the copy either way; ``model`` is left as it is."""
+    dropped from the copy either way; ``model`` is left as it is.
+
+    A model that holds a grouped conv or a ReLU conv (yolo_lite, the Ghost
+    blocks, DWConv) raises ``ValueError``: the qconv kernels run groups=1
+    and their epilogue has no ReLU, where the JAX package sends such convs
+    to XLA's int8 conv."""
+    _refuse_int8_gaps(model)
     out = copy.deepcopy(model)
     for mod in out.modules():
         marks = _pop_marks(mod)

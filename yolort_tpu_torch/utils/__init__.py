@@ -1,2 +1,3 @@
-"""Host-side helpers of the port: detection results and image drawing.
-numpy only; OpenCV is imported where an image is read, drawn or written."""
+"""Host-side helpers of the port: detection results, image drawing and
+magnitude pruning.  numpy only; OpenCV is imported where an image is
+read, drawn or written."""
