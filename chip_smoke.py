@@ -150,11 +150,30 @@ Phases, each fatal on failure:
      route; phase 3 checks fused_cells_stage1 at yolo_lite's levels and
      bisect_count at the stage-1 tables (200,128), (394,128) and
      (436,128) the same way as the P6 shapes.
+ 11. int8, the rest (run after 10): yolo_lite (80 classes, seeded, head
+     biases shifted) calibrated on the card and quantized under the
+     default recipe (41 convs) and under min_reduce=1 (61: every
+     depth-wise conv on qconv_grouped, the ReLU convs), each finalized;
+     (a) every distinct quantized conv shape of the min_reduce=1 network
+     @640 at batch 8, on its own activations, and DWConv(96, 64, 5) and a
+     C3Ghost's cheap halves on seeded int8: each qconv kernel against its
+     plain version in int8, float32 and bfloat16 out, outputs poisoned,
+     bit for bit, each shape timed beside its bound; (b) both served
+     through YOLOv5(model=..., size_divisible=64) on phase 4's requests in
+     both dtypes and configs on every route (every route equal to the
+     default, the qconv kernels exactly the model's convs a batch, the
+     postprocess as phase 10), paired with the CPU, held against the CPU
+     conv by conv (int8_witness), images/s and device busy; (c) the int8
+     AP harness (utils/quant_probe.py): the nano scene detector trained
+     1000 steps with TF32 off and deterministic algorithms from
+     quant_probe.SCENE_SEED, then int8_ap_report, under the bounds of
+     tests/test_int8_ap_delta.py (float AP >= 0.7, all-int8 AP >= half of
+     it, delta <= 0.05).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, with each kernel's launches by path (float, int8,
 cpa, decoded, fixed_shape, r31_int8, p6, p6_int8, checkpoint, train_eval,
-zoo_lite, zoo_yaml, ensemble, tta and the two entry points).  Imports
-nothing of JAX.
+zoo_lite, zoo_yaml, ensemble, tta, int8_lite, int8_lite_grouped, int8_ap
+and the two entry points).  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -183,6 +202,9 @@ TPU_KERNELS = {
                   "yolort_tpu/ops/pallas/lookup_kernel.py:481"),
     "qconv1x1": ("yolort_tpu_torch/csrc/qconv.cu", "yolort_tpu/ops/pallas/qconv.py:144"),
     "qconv_kxk": ("yolort_tpu_torch/csrc/qconv.cu", "yolort_tpu/ops/pallas/qconv.py:238"),
+    # grouped int8 convs: XLA's s8 conv in the JAX package (ops/blocks.py
+    # _conv_int8), beside the 3x3 Pallas kernel of row 8
+    "qconv_grouped": ("yolort_tpu_torch/csrc/qconv.cu", "yolort_tpu/ops/pallas/qconv.py:238"),
     "fused_cells_stage1": ("yolort_tpu_torch/csrc/cells_stage1.cu",
                            "yolort_tpu/ops/pallas/s1_kernel.py:173"),
     "lookup_fetch": ("yolort_tpu_torch/csrc/lookup_fetch.cu",
@@ -974,17 +996,20 @@ def check_served(res, label: str) -> list:
     return [len(d["boxes"]) for d in dets]
 
 
-def serve_routes(models, requests, label: str) -> dict:
+def serve_routes(models, requests, label: str, convs=None) -> dict:
     """``YOLOv5.__call__`` of each model (by dtype) on the requests in both
     configs, once per route of ROUTES, each route's launch counts set to 0
     just before and read just after: every kernel of a route must launch
     (the default route exactly DEFAULT_PER_BATCH a batch) and no other;
     every image must carry detections; each route must serve the default
-    route's detections exactly."""
+    route's detections exactly.  ``convs`` (an int8 model's qconv kernel ->
+    launches a forward, ``conv_launches``) are launched exactly that many
+    times a batch on every route."""
     import torch
 
     from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 
+    convs = convs or {}
     runs = [(dt, name, cfg) for dt in models for name, cfg in (("eval", EVAL), ("serving", SERVING))]
     batches = len(runs) * len(requests)
     launches, outs = {}, {}
@@ -1001,13 +1026,18 @@ def serve_routes(models, requests, label: str) -> dict:
         launches[route] = counts
         print(f"[{label}] route {route}: launches over {batches} batches {counts}", flush=True)
         for kname, n in counts.items():
-            if kname in ROUTE_KERNELS[route] and n <= 0:
+            on_route = kname in ROUTE_KERNELS[route] or kname in convs
+            if on_route and n <= 0:
                 raise AssertionError(f"{label}: kernel {kname} was not launched on route {route}")
-            if kname not in ROUTE_KERNELS[route] and n:
+            if not on_route and n:
                 raise AssertionError(f"{label}: kernel {kname} launched on route {route}, which "
                                      f"does not run it")
+            if kname in convs and n != convs[kname] * batches:
+                raise AssertionError(f"{label} route {route}: {kname} launched {n} times, want "
+                                     f"{convs[kname]} a batch x {batches}")
         if route == DEFAULT_ROUTE:
-            want = {kname: DEFAULT_PER_BATCH.get(kname, 0) * batches for kname in counts}
+            want = {kname: (DEFAULT_PER_BATCH.get(kname, 0) + convs.get(kname, 0)) * batches
+                    for kname in counts}
             if counts != want:
                 raise AssertionError(f"{label}: default route launches {counts}, want {want}")
     for m in models.values():
@@ -1186,7 +1216,7 @@ def phase_qconv_kernels(qmodel, m, batch, bsz: int, device, card: str,
     ``acts``."""
     import torch
 
-    from yolort_tpu_torch.ops.blocks import Conv, Conv2dOnly
+    from yolort_tpu_torch.ops.blocks import Conv, Conv2dOnly, inv_scale
     from yolort_tpu_torch.ops.cuda import (
         qconv1x1, qconv1x1_reference, qconv_kxk, qconv_kxk_reference,
     )
@@ -1228,7 +1258,7 @@ def phase_qconv_kernels(qmodel, m, batch, bsz: int, device, card: str,
         k, s, pad, cin, cout, h, w, act, float_out = key
         xq, scale, bias, os, ft = mod.qconv_operands(xin)
         args = (xq, mod.wq, scale, bias)
-        kw = dict(inv_out_scale=None if os is None else 1.0 / os, out_dtype=ft)
+        kw = dict(inv_out_scale=None if os is None else inv_scale(os), out_dtype=ft)
         if k == 1 and s == 1 and pad == 0:
             name = "qconv1x1"
             run = lambda a=args, kw=kw, act=act: qconv1x1(*a, act=act, **kw)  # noqa: E731
@@ -1497,9 +1527,9 @@ def exact_epilogue(mod, xq, scale, bias, inv):
     import torch
     import torch.nn.functional as F
 
-    k, cout, cin = mod.k, mod.wq.shape[0], xq.shape[1]
+    k, cout, cin = mod.k, mod.wq.shape[0], xq.shape[1] // mod.g
     w = mod.wq[:, : k * k * cin].reshape(cout, k, k, cin).permute(0, 3, 1, 2).double()
-    y = F.conv2d(xq.double(), w, None, mod.s, mod.pad)
+    y = F.conv2d(xq.double(), w, None, mod.s, mod.pad, 1, mod.g)
     y = y * scale.double().view(1, -1, 1, 1) + bias.double().view(1, -1, 1, 1)
     act = getattr(mod, "act", "none")
     if act == "silu":
@@ -1508,7 +1538,32 @@ def exact_epilogue(mod, xq, scale, bias, inv):
         y = y * torch.clamp(y + 3.0, 0.0, 6.0) / 6.0
     elif act == "leaky_relu":
         y = torch.where(y >= 0, y, 0.1 * y)
+    elif act == "relu":
+        y = y.clamp_min(0.0)
     return y if inv is None else y * inv
+
+
+def plain_qconv(mod, xq, scale, bias, **kw):
+    """The plain version of the qconv kernel that quantized conv ``mod``
+    launches (``qconv_kernel.qconv``'s dispatch)."""
+    from yolort_tpu_torch.ops.cuda import (
+        qconv1x1_reference, qconv_grouped_reference, qconv_kxk_reference,
+    )
+
+    if mod.g > 1:
+        return qconv_grouped_reference(xq, mod.wq, scale, bias, k=mod.k, stride=mod.s,
+                                       pad=mod.pad, groups=mod.g, **kw)
+    if kernel_of(mod, xq.shape[1]) == "qconv1x1":
+        return qconv1x1_reference(xq, mod.wq, scale, bias, **kw)
+    return qconv_kxk_reference(xq, mod.wq, scale, bias, k=mod.k, stride=mod.s, pad=mod.pad, **kw)
+
+
+def kernel_of(mod, cin: int) -> str:
+    """The qconv kernel that quantized conv ``mod`` launches on an input of
+    ``cin`` channels."""
+    if mod.g > 1:
+        return "qconv_grouped"
+    return "qconv1x1" if mod.k == 1 and mod.s == 1 and mod.pad == 0 and cin % 4 == 0 else "qconv_kxk"
 
 
 def int8_witness(qmodel, canvas, label: str, max_ulps: int = 8) -> dict:
@@ -1531,8 +1586,7 @@ def int8_witness(qmodel, canvas, label: str, max_ulps: int = 8) -> dict:
 
     import torch
 
-    from yolort_tpu_torch.ops.blocks import Bottleneck, _qadd
-    from yolort_tpu_torch.ops.cuda.qconv_kernel import qconv1x1_reference, qconv_kxk_reference
+    from yolort_tpu_torch.ops.blocks import Bottleneck, _qadd, inv_scale
 
     cpu_model = copy.deepcopy(qmodel).cpu()
     cpu_mods = dict(cpu_model.named_modules())
@@ -1562,13 +1616,9 @@ def int8_witness(qmodel, canvas, label: str, max_ulps: int = 8) -> dict:
                 continue
             prev[name] = yg
             xq, scale, bias, os, ft = mod.qconv_operands(xg)
-            inv = None if os is None else 1.0 / os
+            inv = None if os is None else inv_scale(os)
             kw = dict(act=getattr(mod, "act", "none"), inv_out_scale=inv, out_dtype=ft)
-            if mod.k == 1 and mod.s == 1 and mod.pad == 0 and xq.shape[1] % 4 == 0:
-                plain = qconv1x1_reference(xq, mod.wq, scale, bias, **kw)
-            else:
-                plain = qconv_kxk_reference(xq, mod.wq, scale, bias, k=mod.k, stride=mod.s,
-                                            pad=mod.pad, **kw)
+            plain = plain_qconv(mod, xq, scale, bias, **kw)
             card_v = _values(yg)
             n_plain = int((card_v != _values(plain)).sum())
             if n_plain:
@@ -2459,6 +2509,353 @@ def phase_ensemble_tta(models_s, device, card: str) -> dict:
 # phase 9: training
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 11: int8, the rest (grouped and ReLU convs, the AP harness)
+# --------------------------------------------------------------------------
+
+# grouped convs beside yolo_lite's, (Cin, Cout, groups, k, stride, input
+# side, act): DWConv(96, 64, 5) and the cheap halves of a C3Ghost(128,
+# 128)'s GhostBottleneck at 80x80
+EXTRA_GROUPED = ((96, 64, 32, 5, 1, 40, "none"), (16, 16, 16, 5, 1, 80, "silu"),
+                 (32, 32, 32, 5, 1, 80, "none"))
+QCONV_NAMES = ("qconv1x1", "qconv_kxk", "qconv_grouped")
+
+
+def poisoned(call, dtype):
+    """``call()`` with every ``torch.empty`` it makes filled first with a
+    value no output takes: int8 -128 (the kernels clamp to -127), float
+    NaN.  An output the kernel skips then differs from the plain version."""
+    import torch
+
+    empty = torch.empty
+
+    def fill(*args, **kwargs):
+        x = empty(*args, **kwargs)
+        x.untyped_storage().fill_(0x80 if dtype == torch.int8 else 0xFF)
+        return x
+
+    torch.empty = fill
+    try:
+        return call()
+    finally:
+        torch.empty = empty
+
+
+def quantized_convs(model):
+    from yolort_tpu_torch.ops.blocks import Conv, Conv2dOnly
+
+    return [m for m in model.modules() if isinstance(m, (Conv, Conv2dOnly)) and m.quantized]
+
+
+def conv_calls(qmodel, canvas) -> dict:
+    """{key: [module, its input, launches a forward]} of every quantized
+    conv of ``qmodel.head_outputs(canvas)``, one entry a distinct shape and
+    activation: key (kernel, k, stride, pad, groups, Cin, Cout, H, W, act,
+    float out)."""
+    import torch
+
+    seen = {}
+
+    def hook(mod, inputs, output):
+        x = inputs[0]
+        _, cin, h, w = (x.q if hasattr(x, "q") else x).shape
+        key = (kernel_of(mod, cin), mod.k, mod.s, mod.pad, mod.g, cin, mod.wq.shape[0], h, w,
+               getattr(mod, "act", "none"), mod.os is None)
+        seen.setdefault(key, [mod, x, 0])[2] += 1
+
+    hooks = [m.register_forward_hook(hook) for m in quantized_convs(qmodel)]
+    try:
+        with torch.inference_mode():
+            qmodel.head_outputs(canvas)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def conv_launches(qmodel, canvas) -> dict:
+    """The qconv kernel launches of one forward, from the convs it calls
+    (every quantized conv exactly once)."""
+    calls = conv_calls(qmodel, canvas)
+    if sum(n for _, _, n in calls.values()) != len(quantized_convs(qmodel)):
+        raise AssertionError("a quantized conv ran other than once a forward")
+    out = {}
+    for key, (_, _, n) in calls.items():
+        out[key[0]] = out.get(key[0], 0) + n
+    return out
+
+
+def check_qconv_shape(label: str, name: str, run, plain, dtypes) -> dict:
+    """Kernel against plain version in each out dtype (outputs poisoned),
+    bit for bit; then the network's own kind (the first) timed."""
+    import torch
+
+    from yolort_tpu_torch.ops import cuda
+
+    fn = getattr(cuda, name)
+    outs = {}
+    with torch.inference_mode():
+        for dt in dtypes:
+            before = fn.launches
+            got = outs[dt] = poisoned(lambda: run(dt), dt)
+            want = plain(dt)
+            torch.cuda.synchronize()
+            if fn.launches != before + 1:
+                raise AssertionError(f"{label}: {name} did not launch")
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"{label} {dt}: {name} differs from its plain version")
+        dt = dtypes[0]
+        gms = graph_ms(lambda: run(dt))
+        ms = median_ms(lambda: run(dt), 10, 3)
+        pms = median_ms(lambda: plain(dt), 2, 3)
+    return dict(graph_ms=gms, ms=ms, plain_ms=pms, out=outs[dt])
+
+
+def phase_lite_int8_kernels(qmodel, canvas, card: str) -> dict:
+    """(a) Every distinct quantized conv shape of yolo_lite @640 at batch 8
+    with ``min_reduce=1`` (the stem, every depth-wise 3x3 / 5x5 at strides
+    1 and 2 on qconv_grouped, the ReLU expand 1x1s), on the network's own
+    activations, and DWConv(96, 64, 5) and a C3Ghost's cheap halves on
+    seeded int8: each kernel against its plain version in int8, float32
+    and bfloat16 out, outputs poisoned first, bit for bit; each shape's
+    device time (CUDA-graph replay) beside its bound (bytes in and out at
+    the card's bandwidth, or int8 operations) and its plain version's."""
+    import torch
+
+    from yolort_tpu_torch.ops.blocks import inv_scale
+    from yolort_tpu_torch.ops.cuda import qconv, qconv_grouped_reference
+    from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight
+
+    at = f"B={canvas.shape[0]} @{canvas.shape[1]}x{canvas.shape[2]}"
+    res = {n: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, graph_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                   ops_ms=0.0, shapes=0, launches_per_forward=0, weighted_graph_ms=0.0,
+                   weighted_bound_ms=0.0, relu_shapes=0) for n in QCONV_NAMES}
+    jobs = []
+    for key, (mod, xin, n_fwd) in sorted(conv_calls(qmodel, canvas).items(), key=str):
+        name, k, s, pad, g, cin, cout, h, w, act, float_out = key
+        xq, scale, bias, os, ft = mod.qconv_operands(xin)
+        inv = None if os is None else inv_scale(os)
+        kinds = (ft,) if float_out else (torch.int8, torch.float32, torch.bfloat16)
+        conv = dict(k=k, stride=s, pad=pad, groups=g, act=act)
+
+        def run(dt, xq=xq, wq=mod.wq, scale=scale, bias=bias, inv=inv, conv=conv):
+            return qconv(xq, wq, scale, bias, inv_out_scale=inv if dt == torch.int8 else None,
+                         out_dtype=torch.float32 if dt == torch.int8 else dt, **conv)
+
+        def plain(dt, mod=mod, xq=xq, scale=scale, bias=bias, inv=inv, act=act):
+            return plain_qconv(mod, xq, scale, bias, act=act,
+                               inv_out_scale=inv if dt == torch.int8 else None,
+                               out_dtype=torch.float32 if dt == torch.int8 else dt)
+
+        jobs.append((name, f"{k}x{k}/s{s} g{g} {cin}->{cout} @{h}x{w} {act}", run, plain, kinds,
+                     xq, mod.wq, n_fwd, k * k * (cin // g)))
+    rng = np.random.default_rng(31)
+    for cin, cout, g, k, s, side, act in EXTRA_GROUPED:
+        b = canvas.shape[0]
+        xq = torch.from_numpy(rng.integers(-127, 128, (b, side, side, cin), dtype=np.int8))
+        xq = xq.to(canvas.device).permute(0, 3, 1, 2)
+        wq = pack_weight(rng.integers(-127, 128, (k, k, cin // g, cout), dtype=np.int8)).to(
+            canvas.device)
+        scale = torch.from_numpy(rng.uniform(1e-5, 1e-4, cout).astype(np.float32)).to(canvas.device)
+        bias = torch.from_numpy(rng.uniform(-2, 2, cout).astype(np.float32)).to(canvas.device)
+        conv = dict(k=k, stride=s, groups=g, act=act)
+
+        def run(dt, xq=xq, wq=wq, scale=scale, bias=bias, conv=conv):
+            return qconv(xq, wq, scale, bias, inv_out_scale=30.0 if dt == torch.int8 else None,
+                         out_dtype=torch.float32 if dt == torch.int8 else dt, **conv)
+
+        def plain(dt, xq=xq, wq=wq, scale=scale, bias=bias, conv=conv):
+            return qconv_grouped_reference(xq, wq, scale, bias,
+                                           inv_out_scale=30.0 if dt == torch.int8 else None,
+                                           out_dtype=torch.float32 if dt == torch.int8 else dt,
+                                           **conv)
+
+        jobs.append(("qconv_grouped", f"{k}x{k}/s{s} g{g} {cin}->{cout} @{side}x{side} {act} "
+                     f"(seeded)", run, plain, (torch.int8, torch.float32, torch.bfloat16), xq, wq,
+                     0, k * k * (cin // g)))
+    for name, what, run, plain, kinds, xq, wq, n_fwd, depth in jobs:
+        t = check_qconv_shape(f"[int8 rest] {what}", name, run, plain, kinds)
+        out = t.pop("out")
+        nbytes = xq.numel() + wq.numel() + 8 * wq.shape[0] + out.numel() * out.element_size()
+        ops = 2.0 * out.numel() * depth
+        bms, by = bound(nbytes, ops, "int8")
+        r = res[name]
+        for key in ("ms", "plain_ms", "graph_ms"):
+            r[key] += t[key]
+        r["bound_ms"] += bms
+        r["bytes_ms"] += bound(nbytes)[0]
+        r["ops_ms"] += ops / PEAK_OPS_PER_S["int8"] * 1e3
+        r["shapes"] += 1
+        r["relu_shapes"] += " relu" in what
+        r["launches_per_forward"] += n_fwd
+        r["weighted_graph_ms"] += n_fwd * t["graph_ms"]
+        r["weighted_bound_ms"] += n_fwd * bms
+        print(f"[int8 rest] {name} {at} {what} -> {out.dtype} x{n_fwd} a forward: bit-identical in "
+              f"{len(kinds)} out kinds, outputs poisoned; kernel device {t['graph_ms']:.4f} ms "
+              f"(graph replay), events {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound "
+              f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB in and out), "
+              f"{100 * bms / t['graph_ms']:.1f}% of bound | {card}", flush=True)
+    for name, r in res.items():
+        if not r["shapes"]:
+            raise AssertionError(f"int8 rest: no conv ran on {name}")
+        r["bound_by"] = "operations" if r.pop("ops_ms") > r.pop("bytes_ms") else "bytes"
+        r["at"] = f"yolo_lite min_reduce=1 {at}, sum over {r['shapes']} distinct shapes"
+        print(f"[int8 rest] {name} yolo_lite {at}: {r['shapes']} shapes ({r['relu_shapes']} ReLU) "
+              f"once each: kernel device {r['graph_ms']:.4f} ms (graph replay), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); a forward "
+              f"({r['launches_per_forward']} launches): {r['weighted_graph_ms']:.4f} ms, bound "
+              f"{r['weighted_bound_ms']:.4f} ms | {card}", flush=True)
+    res["qconv_grouped"].update(library_ms=None, library_call="none (no int8 CUDA conv in core "
+                                                              "PyTorch)")
+    return res
+
+
+def lite_int8(device, requests, card: str) -> tuple:
+    """yolo_lite (80 classes, seeded, head biases shifted to phase 4's
+    candidate load) calibrated on the card on 4 batches of 2 640x640
+    frames, then quantized under the default recipe and under
+    ``min_reduce=1``, each finalized.  Returns ({label: quantized model},
+    the batch-8 canvas)."""
+    import torch
+
+    from yolort_tpu_torch.ops.quantization import (
+        calibrate_activations, finalize_scales, quantize_compute_params,
+    )
+
+    t0 = time.perf_counter()
+    m = lite_v5(device=device, dtype=torch.float32, seed=0)
+    delta = calibrate_candidate_density(m, requests)
+    shift_head_bias(m.model, delta)
+    x = torch.from_numpy(np.stack(frames(26, B, 640, 640))).to(device)
+    with torch.inference_mode():
+        canvas = m.canvas(x)[0]
+    cal = [canvas[i:i + 2] for i in range(0, len(canvas), 2)]
+    calibrate_activations(m.model, cal)
+    out = {}
+    for label, kw in (("int8_lite", {}), ("int8_lite_grouped", dict(min_reduce=1))):
+        q = quantize_compute_params(m.model, **kw)
+        finalize_scales(q, cal[0][:1])
+        convs = quantized_convs(q)
+        print(f"[{label}] yolo_lite head bias shift {delta:.4f}, recipe {kw or 'default'}: "
+              f"{len(convs)} convs quantized, {sum(c.g > 1 for c in convs)} grouped, "
+              f"{sum(getattr(c, 'act', '') == 'relu' for c in convs)} ReLU", flush=True)
+        out[label] = q
+    want = {"int8_lite": (41, 0, 0), "int8_lite_grouped": (61, 11, 5)}
+    for label, q in out.items():
+        convs = quantized_convs(q)
+        got = (len(convs), sum(c.g > 1 for c in convs),
+               sum(getattr(c, "act", "") == "relu" for c in convs))
+        if got != want[label]:
+            raise AssertionError(f"{label}: (quantized, grouped, ReLU) convs {got}, want "
+                                 f"{want[label]} (the JAX recipe's)")
+    print(f"[int8 rest] yolo_lite calibrated, quantized twice and finalized in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out, canvas
+
+
+def lite_card_vs_cpu(qmodel, label: str) -> dict:
+    """The card's int8 yolo_lite against the CPU run of the port on one
+    480x640 frame letterboxed to 640: the head logits' largest difference
+    (printed), then ``int8_witness`` conv by conv (each conv given the
+    card's own input), which holds each kernel to its plain version and
+    the CPU to the card but for one-level flips at a rounding boundary."""
+    import copy
+
+    import torch
+
+    canvas = pair_canvas(64)
+    device = next(qmodel.buffers()).device
+    cpu_model = copy.deepcopy(qmodel).cpu()
+    with torch.inference_mode():
+        heads_gpu = qmodel.head_outputs(canvas.to(device))
+        heads_cpu = cpu_model.head_outputs(canvas)
+    err = max((hg.cpu() - hc).abs().max().item() for hg, hc in zip(heads_gpu, heads_cpu))
+    top = max(hc.abs().max().item() for hc in heads_cpu)
+    print(f"[{label}] card vs CPU, 1x480x640 float32 on a {tuple(canvas.shape[1:3])} canvas: head "
+          f"logits max abs diff {err:.3e} (max |logit| {top:.3f})", flush=True)
+    w = int8_witness(qmodel, canvas.to(device), label)
+    return dict(head_err=err, head_max=top, witness_first=w["first"],
+                witness_parted=sum(f[1] for f in w["forced"]))
+
+
+def phase_lite_int8_served(qmodels: dict, requests, card: str) -> dict:
+    """(b) Each int8 yolo_lite through ``YOLOv5(model=..., size_divisible=64)``
+    on phase 4's requests in float32 and bfloat16 (a bfloat16 copy: the
+    convs left float need bfloat16 weights) under both configs on every
+    route: every route's detections equal to the default's, the qconv
+    kernels exactly as many times a batch as the model has convs on each,
+    the default route's postprocess kernels DEFAULT_PER_BATCH a batch;
+    the card's postprocess paired with the CPU's on the 4x480x640 request
+    (head outputs on a 1/64 grid, as phase 10 pairs yolo_lite); the card's
+    network against the CPU's (``lite_card_vs_cpu``); images/s and device
+    busy."""
+    import copy
+
+    import torch
+
+    from yolort_tpu_torch import YOLOv5
+
+    out = {}
+    for label, q in qmodels.items():
+        models = {dt: YOLOv5(model=q if dt == torch.float32 else copy.deepcopy(q).to(dt),
+                             dtype=dt, size_divisible=64)
+                  for dt in (torch.float32, torch.bfloat16)}
+        canvas = models[torch.float32].canvas(
+            torch.from_numpy(np.stack(requests[0][:1])).to(models[torch.float32].device))[0]
+        convs = conv_launches(q, canvas)
+        print(f"[{label}] qconv launches a forward {convs}", flush=True)
+        served = serve_routes(models, requests, label, convs)
+        out[label] = dict(**served, convs=convs,
+                          unpaired=pair_routes_with_cpu(models, requests[1:2], label, 64),
+                          card_vs_cpu=lite_card_vs_cpu(q, label))
+        out[label]["times"] = serving_times(models, card, label, frames(25, B, 640, 640))
+        del models
+    return out
+
+
+def phase_int8_ap(device, card: str) -> dict:
+    """(c) The int8 AP harness on the card (utils/quant_probe.py): the nano
+    scene detector trained 1000 steps, TF32 off, then ``int8_ap_report``
+    (calibrate, quantize all, scan, skip worst first); the bounds of
+    tests/test_int8_ap_delta.py must hold.  The launch counts are read
+    over the whole harness."""
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+    from yolort_tpu_torch.utils import quant_probe as QP
+
+    images, gts = QP.make_scenes()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    model = QP.train_scene_detector(images, gts, steps=1000, device=device)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = QP.int8_ap_report(model, images, gts, target_delta=0.05)
+    torch.cuda.synchronize()
+    report_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    print(f"[int8_ap] TF32 off while the harness trains, calibrates, scans and evaluates "
+          f"(quant_probe.full_float32), deterministic algorithms while it trains, init seed "
+          f"{QP.SCENE_SEED}; outside it cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    print(f"[int8_ap] scene detector (yolov5n r6.0, 2 classes, 4 scenes {images.shape[1]}px) "
+          f"trained 1000 Adam steps in {train_s:.1f} s ({1e3 * train_s / 1000:.2f} ms/step, host "
+          f"clock); int8_ap_report in {report_s:.1f} s: {rep} | {card}", flush=True)
+    print(f"[int8_ap] launches over the harness {launches}", flush=True)
+    for kname in ("qconv1x1", "qconv_kxk", *DEFAULT_PER_BATCH):
+        if launches[kname] <= 0:
+            raise AssertionError(f"int8_ap: kernel {kname} was not launched")
+    if rep["float_ap"] < 0.7:
+        raise AssertionError(f"int8_ap: the scene detector did not converge: {rep}")
+    if rep["int8_ap_all"] < 0.5 * rep["float_ap"]:
+        raise AssertionError(f"int8_ap: int8 of every conv keeps under half the float AP: {rep}")
+    if rep["delta"] > 0.05:
+        raise AssertionError(f"int8_ap: the recipe's AP delta exceeds 0.05: {rep}")
+    return dict(launches=launches, report=rep, train_s=train_s, report_s=report_s)
+
+
 TRAIN_CFG = dict(lr=0.01, momentum=0.937, weight_decay=5e-4)
 TRAIN_BATCH = 8
 # card against CPU, one train step from the same params (TF32 off):
@@ -2714,6 +3111,20 @@ def main() -> int:
         done("zoo: yolo_lite and yaml")
     ens_tta = phase_ensemble_tta(sl["models"], device, card)
     done("zoo: ensemble and tta")
+    lite_q, lite_canvas = lite_int8(device, sl["requests"], card)
+    for name, r in phase_lite_int8_kernels(lite_q["int8_lite_grouped"], lite_canvas,
+                                           card).items():
+        if name in res:
+            res[name]["lite"] = r
+        else:
+            res[name] = r
+    del lite_canvas
+    done("int8 rest: kernels")
+    lite_served = phase_lite_int8_served(lite_q, sl["requests"], card)
+    del lite_q
+    done("int8 rest: yolo_lite int8 served")
+    int8_ap = phase_int8_ap(device, card)
+    done("int8 rest: AP harness")
     tr = phase_train(device, card)
     done("train")
     phase_throughput(sl["models"], card, "float")
@@ -2728,7 +3139,9 @@ def main() -> int:
              "zoo_lite": zoo["zoo_lite"]["launches"],
              "zoo_yaml": {k: n + custom[k] for k, n in zoo["zoo_yaml"]["launches"].items()},
              "ensemble": ens_tta["ensemble"]["launches"], "tta": ens_tta["tta"]["launches"],
-             **phase_entry_points()}
+             "int8_lite": lite_served["int8_lite"]["launches"],
+             "int8_lite_grouped": lite_served["int8_lite_grouped"]["launches"],
+             "int8_ap": int8_ap["launches"], **phase_entry_points()}
     done("entry points")
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():

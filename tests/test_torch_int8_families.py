@@ -90,11 +90,12 @@ def test_plain_epilogue_matches_jax(act, out):
 
 
 def test_every_activation_has_a_kernel_code_and_unknown_ones_raise():
-    assert sorted(ACTS) == sorted(ACT_NAMES) and sorted(ACTS.values()) == [0, 1, 2, 3]
+    # the JAX kernel's activations, and relu (the JAX blocks' XLA int8 path)
+    assert sorted(ACTS) == sorted((*ACT_NAMES, "relu")) and sorted(ACTS.values()) == [0, 1, 2, 3, 4]
     xq = torch.zeros((1, 16, 4, 4), dtype=torch.int8).contiguous(memory_format=torch.channels_last)
     wq = pack_weight(np.zeros((1, 1, 16, 8), np.int8))
     scale, bias = torch.ones(8), torch.zeros(8)
-    for act in ACT_NAMES:
+    for act in ACTS:
         assert qconv(xq, wq, scale, bias, k=1, act=act).shape == (1, 8, 4, 4)
     with pytest.raises(ValueError, match="act"):
         qconv(xq, wq, scale, bias, k=1, act="relu6")

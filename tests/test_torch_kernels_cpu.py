@@ -21,7 +21,8 @@ from yolort_tpu_torch.ops.cuda import (
     KERNELS, _build, bisect_count, bisect_count_reference, compact_place, compact_place_reference,
     fused_cells_stage1, fused_cells_stage1_reference, lookup_fetch, lookup_fetch_reference,
     lookup_fetch_variant, lookup_fetch_variant_reference, nms_mask, nms_mask_reference, qconv,
-    qconv1x1, qconv1x1_reference, qconv_kxk, qconv_kxk_reference, reset_launch_counts, row_fetch,
+    qconv1x1, qconv1x1_reference, qconv_grouped, qconv_grouped_reference, qconv_kxk,
+    qconv_kxk_reference, reset_launch_counts, row_fetch,
     row_fetch_p, row_fetch_reference, select_extract, select_extract_reference,
 )
 from yolort_tpu_torch.experiments.fetch_block_sweep import GEOMETRIES
@@ -445,7 +446,7 @@ def _poisoned(monkeypatch, call):
 
     def poisoned_empty(*args, **kwargs):
         x = empty(*args, **kwargs)
-        x.view(torch.uint8).fill_(255)
+        x.untyped_storage().fill_(255)  # any layout, channels_last too
         return x
 
     with monkeypatch.context() as mp:
@@ -575,13 +576,13 @@ def test_compact_place_kernel_matches_plain(cuda_device, monkeypatch, name, bsz)
         assert _same_bits(a, b)
 
 
-def _qconv_operands(k, n, h, w, c, co, seed, device="cpu", extreme=False):
+def _qconv_operands(k, n, h, w, c, co, seed, device="cpu", extreme=False, groups=1):
     """Seeded int8 activations (channels_last), packed int8 weights, f32
     scale and bias.  ``extreme``: activations +127 and weights +127 or -127
     by output channel, so |acc| reaches K * 127^2 inside the image."""
     rng = np.random.default_rng(seed)
     xq = torch.from_numpy(rng.integers(-127, 128, (n, h, w, c), dtype=np.int8))
-    wq = rng.integers(-10, 11, (k, k, c, co), dtype=np.int8)
+    wq = rng.integers(-10, 11, (k, k, c // groups, co), dtype=np.int8)
     if extreme:
         xq.fill_(127)
         wq[...] = 127
@@ -612,14 +613,22 @@ def test_qconv_cpu_tensors_take_the_plain_versions():
         w = wq[:, :16].contiguous() if fn is qconv1x1 else wq
         got = fn(xq, w, scale, bias, inv_out_scale=4.0, **kw)
         assert torch.equal(got, ref(xq, w, scale, bias, inv_out_scale=4.0, **kw))
+    args = _qconv_operands(5, 1, 8, 10, 16, 32, seed=3, groups=16)
+    got = qconv_grouped(*args, k=5, stride=2, groups=16, act="relu", inv_out_scale=4.0)
+    assert torch.equal(got, qconv_grouped_reference(*args, k=5, stride=2, groups=16, act="relu",
+                                                    inv_out_scale=4.0))
     assert [fn.launches for fn in KERNELS] == [0] * len(KERNELS)
     assert not _build._loaded
 
 
 def test_qconv_wrappers_check_their_inputs_and_refuse_groups():
+    """Each wrapper raises on what its kernel does not take; a grouped conv
+    needs weights packed for its groups and groups dividing both widths."""
     xq, wq, scale, bias = _qconv_operands(3, 1, 8, 10, 16, 32, seed=2)
     with pytest.raises(ValueError, match="groups"):
         qconv(xq, wq, scale, bias, k=3, groups=2)
+    with pytest.raises(ValueError, match="groups=3 must divide"):
+        qconv_grouped(xq, wq, scale, bias, k=3, groups=3)
     with pytest.raises(ValueError, match="wq"):
         qconv_kxk(xq, wq[:, :-4], scale, bias, k=3)
     with pytest.raises(ValueError, match="int8"):
@@ -627,7 +636,7 @@ def test_qconv_wrappers_check_their_inputs_and_refuse_groups():
     with pytest.raises(ValueError, match="scale"):
         qconv_kxk(xq, wq, scale.double(), bias, k=3)
     with pytest.raises(ValueError, match="act"):
-        qconv_kxk(xq, wq, scale, bias, k=3, act="relu")
+        qconv_kxk(xq, wq, scale, bias, k=3, act="gelu")
     with pytest.raises(ValueError, match="out_dtype"):
         qconv_kxk(xq, wq, scale, bias, k=3, out_dtype=torch.float16)
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -726,6 +735,62 @@ def test_qconv_kernels_match_plain_hardswish_and_leaky_relu(cuda_device, k, s, p
         want = qconv_kxk_reference(xq, wq, scale, bias, inv_out_scale=inv, out_dtype=dt, **kw)
         got = qconv(xq, wq, scale, bias, inv_out_scale=inv, out_dtype=dt, **kw)
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s,pad,n,h,w,c,co", [
+    (1, 1, 0, 8, 20, 20, 16, 72),     # yolo_lite's ReLU expand convs
+    (1, 1, 0, 8, 40, 40, 24, 88),
+    (3, 1, 1, 2, 12, 10, 36, 64),     # the gather loader
+    (3, 2, 1, 2, 40, 48, 32, 64),
+])
+def test_qconv_kernels_match_plain_relu(cuda_device, k, s, pad, n, h, w, c, co):
+    """The ReLU epilogue on the tensor-core kernel, int8, float32 and
+    bfloat16 out, the bias spread across zero."""
+    xq, wq, scale, bias = _qconv_operands(k, n, h, w, c, co, seed=k + c + 2, device=cuda_device)
+    bias = bias * 3.0
+    for inv, dt in ((6.0, torch.float32), (None, torch.float32), (None, torch.bfloat16)):
+        kw = dict(k=k, stride=s, pad=pad, act="relu", inv_out_scale=inv, out_dtype=dt)
+        want = qconv_kxk_reference(xq, wq, scale, bias, **kw)
+        got = qconv(xq, wq, scale, bias, **kw)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert (want == 0).any() and (want > 0).any()
+
+
+GROUPED_CASES = [
+    # yolo_lite's depth-wise convs @640 (channels, input side, k, stride)
+    (16, 16, 16, 2, 320, 320, 3, 2),
+    (72, 72, 72, 2, 160, 160, 3, 2),
+    (88, 88, 88, 2, 80, 80, 3, 1),
+    (96, 96, 96, 2, 80, 80, 5, 2),
+    (240, 240, 240, 2, 40, 40, 5, 1),
+    (576, 576, 576, 2, 20, 20, 5, 1),
+    # DWConv(96, 64, 5): G 32, C/G 3, Cout/G 2; C/G 4 and 8 (__dp4a)
+    (96, 64, 32, 2, 20, 24, 5, 1),
+    (16, 24, 4, 2, 13, 11, 3, 2),
+    (32, 16, 4, 2, 9, 12, 5, 1),
+    # a C3Ghost's cheap halves (C/G 1), a ragged Cout and one channel
+    (8, 8, 8, 2, 40, 40, 5, 1),
+    (6, 6, 6, 1, 9, 7, 3, 1),
+    (12, 6, 3, 1, 7, 9, 3, 2),
+    (1, 1, 1, 1, 5, 5, 3, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,co,g,n,h,w,k,s", GROUPED_CASES)
+def test_qconv_grouped_kernel_matches_plain(cuda_device, monkeypatch, c, co, g, n, h, w, k, s):
+    """qconv_grouped against its plain version, every activation, int8,
+    float32 and bfloat16 out, outputs poisoned first."""
+    xq, wq, scale, bias = _qconv_operands(k, n, h, w, c, co, seed=c + g + k, device=cuda_device,
+                                          groups=g)
+    bias = bias * 3.0
+    for act in ("relu", "hardswish", "silu", "leaky_relu", "none"):
+        for inv, dt in ((6.0, torch.float32), (None, torch.float32), (None, torch.bfloat16)):
+            kw = dict(k=k, stride=s, groups=g, act=act, inv_out_scale=inv, out_dtype=dt)
+            want = qconv_grouped_reference(xq, wq, scale, bias, **kw)
+            got = _poisoned(monkeypatch, lambda: qconv(xq, wq, scale, bias, **kw))
+            assert got.dtype == want.dtype and torch.equal(got, want), (act, inv, dt)
 
 
 def test_qconv_split_variants_apply_to_the_kernel_source():
@@ -1075,6 +1140,8 @@ def test_every_kernel_counts_its_launches(cuda_device):
         row_fetch: lambda: row_fetch(table, idx),
         qconv1x1: lambda: qconv1x1(xq, wq[:, :16].contiguous(), scale, bias, inv_out_scale=4.0),
         qconv_kxk: lambda: qconv_kxk(xq, wq, scale, bias, k=3, inv_out_scale=4.0),
+        qconv_grouped: lambda: qconv_grouped(xq, wq[:, :36].contiguous(), scale, bias, k=3,
+                                             groups=4, inv_out_scale=4.0),
     }
     for fn, (run, _) in zip((fused_cells_stage1, lookup_fetch, select_extract, compact_place),
                             _postprocess_calls(cuda_device)):

@@ -14,7 +14,10 @@ Classify, SPP at other kernel sizes and ``ops/experimental.py``
   permuted channel order keeps every shape), and their round trip.
 - ``blocks.init_train`` gives each block JAX's ``init`` tree: the same
   keys and shapes, Sum's weights and the rectangular convs' zero biases.
-- The int8 recipe refuses a model holding a grouped or ReLU conv.
+- The int8 recipe on the grouped and ReLU convs (GhostConv, DWConv, a ReLU
+  Conv, C3Ghost, a ReLU InvertedResidual), unfinalized, at the default
+  ``min_reduce`` and at 1: the same quantized convs and the same int8
+  output as JAX's.
 """
 
 import jax
@@ -23,9 +26,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import nhwc_to_port, port_to_nhwc, randomize_convs, to_numpy
+from torch_parity import (
+    copy_marks, nhwc_to_port, port_to_nhwc, randomize_convs, to_numpy, walk_convs_paths,
+)
 from yolort_tpu.ops import blocks as JB
 from yolort_tpu.ops import experimental as JE
+from yolort_tpu.ops import quantization as JQ
 from yolort_tpu_torch.models._bridge import params_from_jax, params_to_jax
 from yolort_tpu_torch.ops import blocks as TB
 from yolort_tpu_torch.ops import experimental as TE
@@ -174,14 +180,58 @@ def test_init_train_is_the_jax_init_tree(name):
     np.testing.assert_array_equal(s.w.detach().numpy(), np.asarray(JE.Sum(4, True).init(None)["w"]))
 
 
-@pytest.mark.parametrize("block", ["ghostconv", "dwconv", "relu_conv"])
-def test_int8_recipe_refuses_grouped_and_relu_convs(block):
-    model = {"ghostconv": lambda: TB.GhostConv(16, 32, gen=gen()),
-             "dwconv": lambda: TB.DWConv(32, 64, 5, gen=gen()),
-             "relu_conv": lambda: TB.Conv(16, 32, 3, act="relu", gen=gen())}[block]()
-    for m in model.modules():
-        if isinstance(m, TB.Conv):
-            m._absmax = m._out_absmax = 1.0  # as calibrate_activations marks them
-    with pytest.raises(ValueError, match="int8 of grouped and ReLU convs is not ported"):
-        TQ.quantize_compute_params(model)
-    assert not any(isinstance(m, TB.Conv) and m.quantized for m in model.modules())
+# name: (JAX block, port block factory, input channels, input (H, W)) of
+# the int8 cases: grouped convs (C/G = 1 with Cout/G = 2, depth-wise) and
+# ReLU convs, with their concats and residual adds
+INT8_CASES = {
+    "ghostconv": (JB.GhostConv(16, 32), lambda: TB.GhostConv(16, 32, gen=gen()), 16, (8, 12)),
+    "dwconv": (JB.DWConv(32, 64, 5), lambda: TB.DWConv(32, 64, 5, gen=gen()), 32, (9, 12)),
+    "relu_conv": (JB.Conv(16, 32, 3, act="relu"),
+                  lambda: TB.Conv(16, 32, 3, act="relu", gen=gen()), 16, (8, 12)),
+    "c3ghost": (JB.C3Ghost(16, 32, 2), lambda: TB.C3Ghost(16, 32, 2, gen=gen()), 16, (8, 12)),
+    "inverted_residual_relu": (JB.InvertedResidual(16, 48, 16, 3, 1, act="relu"),
+                               lambda: TB.InvertedResidual(16, 48, 16, 3, 1, act="relu",
+                                                           gen=gen()), 16, (8, 12)),
+}
+
+
+def _same_output(got, want):
+    """A QTensor bit-equal to JAX's (int8 and scale), or a float output
+    within 1e-5 of the largest |value|."""
+    if isinstance(want, JB.QTensor):
+        assert isinstance(got, TB.QTensor) and isinstance(got.s, TB.ScaleLeaf)
+        assert got.s == float(want.s)
+        np.testing.assert_array_equal(port_to_nhwc(got.q), np.asarray(want.q))
+        return
+    assert not isinstance(got, TB.QTensor)
+    want = np.asarray(want)
+    np.testing.assert_allclose(port_to_nhwc(got), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("min_reduce", [32, 1])
+@pytest.mark.parametrize("block", sorted(INT8_CASES))
+def test_int8_zoo_block_matches_jax(block, min_reduce):
+    """The int8 recipe on grouped and ReLU convs against JAX's, float32:
+    the JAX block calibrated on a seeded input, its marks copied to the
+    port, both quantized with ``min_reduce`` (1: every conv, the
+    depth-wise ones on ``qconv_grouped``'s plain version), both run
+    unfinalized (runtime scales): the same quantized convs, the same int8
+    output and scale."""
+    jblock, make, c, (h, w) = INT8_CASES[block]
+    seed = sorted(INT8_CASES).index(block)
+    params = randomize_convs(numpy_params(jblock.init, seed), seed)
+    x = np.random.default_rng(seed).standard_normal((2, h, w, c)).astype(np.float32)
+    pc = JQ.calibrate_activations(jblock, params, [jnp.asarray(x)])
+    port = params_from_jax(params, make())
+    copy_marks(pc, port)
+    jq = JQ.quantize_compute_params(pc, min_reduce=min_reduce)
+    tq = TQ.quantize_compute_params(port, min_reduce=min_reduce)
+    quantized = [p for p, m in TQ.conv_paths(tq) if m.quantized]
+    assert quantized == [p for p, node, _ in walk_convs_paths(jq) if "wq" in node]
+    if min_reduce == 1:
+        assert len(quantized) == sum(1 for _ in TQ.conv_paths(tq))
+        assert any(m.g > 1 for _, m in TQ.conv_paths(tq)) or block == "relu_conv"
+    want = jblock(jq, jnp.asarray(x))
+    with torch.no_grad():
+        got = tq(nhwc_to_port(x).contiguous(memory_format=torch.channels_last))
+    _same_output(got, want)

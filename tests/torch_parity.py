@@ -155,6 +155,19 @@ def walk_convs(tree, module, path=()):
             yield from walk_convs(sub, module._modules[key], path + (key,))
 
 
+def walk_convs_paths(tree, path=()):
+    """('/'-joined path, node, None) of every conv leaf of a JAX tree (a dict
+    with a 4-d 'w', a weight-only quantized 'w' {'q', 'scale'} or a 'wq'),
+    in the tree's own key order."""
+    w = tree.get("w")
+    if "wq" in tree or (isinstance(w, dict) and "q" in w) or np.ndim(w) == 4:
+        yield "/".join(path), tree, None
+        return
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            yield from walk_convs_paths(sub, path + (key,))
+
+
 def leaf_errors(want, got, path=""):
     """(error relative to the leaf's largest |want|, path) of every leaf of
     two numpy trees with the same keys; raises on a key or shape mismatch."""

@@ -1,6 +1,6 @@
 // int8 convolution with a fused float epilogue: s8 x s8 -> s32, then
-//   y = f32(acc) * scale[co] + bias[co];  y = act(y)  (none, SiLU, Hardswish
-//   or LeakyReLU(0.1));
+//   y = f32(acc) * scale[co] + bias[co];  y = act(y)  (none, SiLU, Hardswish,
+//   LeakyReLU(0.1) or ReLU);
 //   out = clip(round_half_even(y * inv_out_scale), -127, 127) as int8,
 //   or y cast to the float out type when there is no out scale.
 //
@@ -59,6 +59,18 @@
 // kxk A tile) and wgmma gives; a persistent grid of this same kernel and
 // a higher register cap for more resident blocks measured no gain.
 //
+// Grouped convs (yt_qconv_grouped: the depth-wise 3x3 / 5x5 convs of
+// MobileNetV3, DWConv, GhostConv's cheap half) replace no Pallas kernel:
+// the JAX package runs them through XLA's int8 conv (ops/blocks.py
+// _conv_int8).  Their reduction is short (k*k*C/G = 9 or 25 bytes for a
+// depth-wise conv), so a 64-byte K slab of the tensor-core mainloop would
+// be mostly zeros; they are bound by bytes, and run as a direct conv: a
+// thread computes four consecutive output channels of one output pixel in
+// s32 (one 4-byte load a tap for the four channels of a depth-wise conv,
+// __dp4a where C/G % 4 == 0), then the same epilogue.  Neighbouring
+// threads take neighbouring channels, so the NHWC loads and stores of a
+// warp are contiguous.
+//
 // Epilogue rounding follows the plain version operation by operation:
 // __fmul_rn then __fadd_rn (no FMA: the library is built with -fmad=false,
 // and the JAX package's eager int8 conv rounds the product too), SiLU as
@@ -77,7 +89,7 @@ constexpr int kChunks = kBK / 16;   // 16-byte chunks per stage row
 constexpr int kOutPad = 16;         // bytes added to each staged output row
 
 // the activation codes of qconv_kernel.ACTS
-enum Act { kActNone = 0, kActSilu = 1, kActHardswish = 2, kActLeakyRelu = 3 };
+enum Act { kActNone = 0, kActSilu = 1, kActHardswish = 2, kActLeakyRelu = 3, kActRelu = 4 };
 enum OutKind { kOutInt8 = 0, kOutF32 = 1, kOutBf16 = 2 };
 
 struct Shape {
@@ -180,6 +192,7 @@ __device__ __forceinline__ float epilogue_value(int acc, float sc, float bi, int
     case kActSilu: return silu_rn(y);
     case kActHardswish: return hardswish_rn(y);
     case kActLeakyRelu: return leaky_relu_rn(y);
+    case kActRelu: return fmaxf(y, 0.0f);  // max(y, 0) after the rounded multiply-add
     default: return y;
   }
 }
@@ -479,12 +492,119 @@ cudaError_t launch(int tile, bool gather, const int8_t* x, const int8_t* w, cons
 
 bool aligned(const void* p, uintptr_t n) { return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0; }
 
+bool valid_kinds(int act, int out_kind) {
+  return act >= kActNone && act <= kActRelu &&
+         (out_kind == kOutInt8 || out_kind == kOutF32 || out_kind == kOutBf16);
+}
+
+// --- grouped convs: a direct conv, four output channels a thread ---------
+
+struct GroupShape {
+  int N, H, W, C;  // input, NHWC
+  int Ho, Wo, Cout;
+  int k, stride, pad;
+  int Cg, Coutg;  // channels of a group, in and out
+  int Kpad;       // bytes per packed weight row: round_up(k * k * Cg, 4)
+  int quads;      // ceil(Cout / 4): threads per output pixel
+};
+
+// how the s32 sums read their operands
+enum GroupLoad { kBytes = 0, kDepthwiseWord = 1, kDp4a = 2 };
+
+template <int kLoad>
+__global__ void __launch_bounds__(256)
+    qconv_grouped_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, Epilogue e,
+                         void* __restrict__ out, GroupShape s, long long total) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long pix = i / s.quads;  // (n * Ho + oy) * Wo + ox
+  const int co0 = (int)(i - pix * s.quads) * 4;
+  const int ox = (int)(pix % s.Wo);
+  const long long row = pix / s.Wo;
+  const int oy = (int)(row % s.Ho);
+  const int n = (int)(row / s.Ho);
+  const int8_t* img = x + (size_t)n * s.H * s.W * s.C;
+  const int iy0 = oy * s.stride - s.pad;
+  const int ix0 = ox * s.stride - s.pad;
+  const int nco = min(4, s.Cout - co0);
+
+  int acc[4] = {0, 0, 0, 0};
+  if constexpr (kLoad == kDepthwiseWord) {
+    // C == Cout == G, C % 4 == 0: the four channels' inputs are one word
+    for (int ky = 0; ky < s.k; ++ky) {
+      const int iy = iy0 + ky;
+      if ((unsigned)iy >= (unsigned)s.H) continue;
+      for (int kx = 0; kx < s.k; ++kx) {
+        const int ix = ix0 + kx;
+        if ((unsigned)ix >= (unsigned)s.W) continue;
+        const int v = *reinterpret_cast<const int*>(img + ((size_t)iy * s.W + ix) * s.C + co0);
+        const int tap = ky * s.k + kx;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[j] += (int)(int8_t)(v >> (8 * j)) * (int)w[(size_t)(co0 + j) * s.Kpad + tap];
+      }
+    }
+  } else {
+    for (int j = 0; j < nco; ++j) {
+      const int co = co0 + j;
+      const int8_t* xg = img + (co / s.Coutg) * s.Cg;  // the channels of co's group
+      const int8_t* wrow = w + (size_t)co * s.Kpad;
+      int a = 0;
+      for (int ky = 0; ky < s.k; ++ky) {
+        const int iy = iy0 + ky;
+        if ((unsigned)iy >= (unsigned)s.H) continue;
+        for (int kx = 0; kx < s.k; ++kx) {
+          const int ix = ix0 + kx;
+          if ((unsigned)ix >= (unsigned)s.W) continue;
+          const int8_t* xp = xg + ((size_t)iy * s.W + ix) * s.C;
+          const int8_t* wp = wrow + (ky * s.k + kx) * s.Cg;
+          if constexpr (kLoad == kDp4a) {
+            for (int ci = 0; ci < s.Cg; ci += 4)
+              a = __dp4a(*reinterpret_cast<const int*>(xp + ci),
+                         *reinterpret_cast<const int*>(wp + ci), a);
+          } else {
+            for (int ci = 0; ci < s.Cg; ++ci) a += (int)xp[ci] * (int)wp[ci];
+          }
+        }
+      }
+      acc[j] = a;
+    }
+  }
+
+  // epilogue and store: NHWC, the four channels together where whole
+  const size_t o = (size_t)pix * s.Cout + co0;
+  float y[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    y[j] = j < nco ? epilogue_value(acc[j], e.scale[co0 + j], e.bias[co0 + j], e.act) : 0.0f;
+  const bool whole = nco == 4 && s.Cout % 4 == 0;
+  if (e.out_kind == kOutInt8) {
+    int8_t* dst = static_cast<int8_t*>(out) + o;
+    if (whole) {
+      uint32_t packed = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        packed |= (uint32_t)(uint8_t)requantize(y[j], e.inv_out_scale) << (8 * j);
+      *reinterpret_cast<uint32_t*>(dst) = packed;
+    } else {
+      for (int j = 0; j < nco; ++j) dst[j] = requantize(y[j], e.inv_out_scale);
+    }
+  } else if (e.out_kind == kOutF32) {
+    float* dst = static_cast<float*>(out) + o;
+    if (whole)
+      *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+    else
+      for (int j = 0; j < nco; ++j) dst[j] = y[j];
+  } else {
+    __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(out) + o;
+    for (int j = 0; j < nco; ++j) dst[j] = __float2bfloat16_rn(y[j]);
+  }
+}
+
 int run(const void* x, const void* w, const void* scale, const void* bias, float inv_out_scale,
         void* out, const Shape& s, int act, int out_kind, int tile, int gather, int smem_bytes,
         void* stream) {
-  if (act < kActNone || act > kActLeakyRelu) return (int)cudaErrorInvalidValue;
-  if (out_kind != kOutInt8 && out_kind != kOutF32 && out_kind != kOutBf16)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_kinds(act, out_kind)) return (int)cudaErrorInvalidValue;
   // the gather loader reads weights as 4-byte words; the cp.async loader
   // needs whole 16-byte chunks inside one tap and 16-byte aligned rows
   if (s.Kpad % 4 || !aligned(w, 4)) return (int)cudaErrorInvalidValue;
@@ -512,6 +632,40 @@ extern "C" int yt_qconv1x1(const void* x, const void* w, const void* scale, cons
   const Shape s{N, H, W, C, H, W, Cout, 1, 1, 0, C, C, N * H * W};
   return run(x, w, scale, bias, inv_out_scale, out, s, act, out_kind, tile, gather, smem_bytes,
              stream);
+}
+
+// x (N, H, W, C) int8 in G groups of C/G channels; w (Cout, Kpad) int8 with
+// Kpad = round_up(k*k*C/G, 4), K in (ky, kx, ci-within-group) order; output
+// channel co reads the channels of group co / (Cout/G).  out (N, Ho, Wo,
+// Cout).  Needs x and w 4-byte aligned, out 16-byte aligned.
+extern "C" int yt_qconv_grouped(const void* x, const void* w, const void* scale,
+                                const void* bias, float inv_out_scale, void* out, int N, int H,
+                                int W, int C, int Cout, int k, int stride, int pad, int Ho, int Wo,
+                                int groups, int act, int out_kind, void* stream) {
+  if (N <= 0 || Ho <= 0 || Wo <= 0 || Cout <= 0) return 0;
+  if (C <= 0 || k <= 0 || stride <= 0 || pad < 0 || groups <= 0 || C % groups ||
+      Cout % groups)
+    return (int)cudaErrorInvalidValue;
+  if (!valid_kinds(act, out_kind)) return (int)cudaErrorInvalidValue;
+  if (!aligned(x, 4) || !aligned(w, 4) || !aligned(out, 16)) return (int)cudaErrorInvalidValue;
+  if ((long long)H * W * C >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int Cg = C / groups;
+  const GroupShape s{N, H, W, C, Ho, Wo, Cout, k, stride, pad, Cg, Cout / groups,
+                     (k * k * Cg + 3) / 4 * 4, (Cout + 3) / 4};
+  const Epilogue e{static_cast<const float*>(scale), static_cast<const float*>(bias),
+                   inv_out_scale, act, out_kind};
+  const long long total = (long long)N * Ho * Wo * s.quads;
+  const unsigned blocks = (unsigned)((total + 255) / 256);
+  const auto xs = static_cast<const int8_t*>(x);
+  const auto ws = static_cast<const int8_t*>(w);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (Cg == 1 && s.Coutg == 1 && C % 4 == 0)
+    qconv_grouped_kernel<kDepthwiseWord><<<blocks, 256, 0, st>>>(xs, ws, e, out, s, total);
+  else if (Cg % 4 == 0)
+    qconv_grouped_kernel<kDp4a><<<blocks, 256, 0, st>>>(xs, ws, e, out, s, total);
+  else
+    qconv_grouped_kernel<kBytes><<<blocks, 256, 0, st>>>(xs, ws, e, out, s, total);
+  return (int)cudaGetLastError();
 }
 
 // x (N, H, W, C) int8; w (Cout, Kpad) int8 with Kpad = round_up(k*k*C, 4),

@@ -18,9 +18,12 @@ int8 compute: a quantized Conv / Conv2dOnly (``set_int8``, made by
 ``ops/quantization.py`` or the bridge) runs its conv through the
 ``qconv`` kernels, and a Conv with an output scale ``os`` hands the next
 block a ``QTensor``, so the activations between convs stay int8.  Scales
-are Python floats, the port's form of the JAX ``StaticScale``: after
-``finalize_scales`` they are fixed constants, and every concat group
-shares one scale.
+are Python floats in two kinds, as in the JAX package.  Before
+``finalize_scales`` they are ``ScaleLeaf``s, the port's form of the JAX
+tree's runtime float32 scale arrays: the int8 glue computes with them in
+float32 (``_qconcat``, ``_qadd``, ``inv_scale``), as JAX's runtime
+branches do.  Afterwards they are plain floats, the JAX ``StaticScale``:
+fixed constants, every concat group sharing one scale.
 
 Initialisation draws from a ``torch.Generator`` on the CPU, so one seed
 gives the same weights on every device; the model is moved to its device
@@ -95,8 +98,16 @@ def _uniform(gen: torch.Generator, shape, bound: float) -> torch.Tensor:
     return (torch.rand(shape, generator=gen, dtype=torch.float32) * 2.0 - 1.0) * bound
 
 
+def host_f32(a) -> np.ndarray:
+    """A leaf of a JAX-layout params tree (numpy, or a torch tensor of any
+    float dtype on any device) as a float32 numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
 def _as_tensor(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, np.float32), device=like.device).to(like.dtype)
+    return torch.tensor(host_f32(a), device=like.device).to(like.dtype)
 
 
 def _param(t: torch.Tensor, like: torch.Tensor) -> nn.Parameter:
@@ -124,6 +135,27 @@ def _set_bn(module: nn.Module, values: Dict[str, torch.Tensor], like: torch.Tens
 _UNIFY: Optional[List[list]] = None
 
 
+class ScaleLeaf(float):
+    """A runtime activation scale (before ``finalize_scales``): a float32
+    value whose object identity names the leaf it came from, as a scale
+    array does in the JAX tree.  The int8 glue computes with it in float32,
+    as JAX's runtime branches do; ``finalize_scales`` matches concat parts
+    to leaves by identity and replaces every leaf with a plain float."""
+
+    __slots__ = ()
+
+
+def _runtime(*scales) -> bool:
+    return any(isinstance(s, ScaleLeaf) for s in scales)
+
+
+def inv_scale(s: float) -> float:
+    """1 / s as the JAX package computes it: a float32 division for a
+    runtime scale (``1.0 / s`` of an f32 array), a Python float's
+    otherwise (``1.0 / s.v`` of a ``StaticScale``)."""
+    return float(np.float32(1.0) / np.float32(s)) if isinstance(s, ScaleLeaf) else 1.0 / s
+
+
 class QTensor(NamedTuple):
     """int8 activation flowing between quantized convs: ``q`` int8 NCHW in
     channels_last memory, value = q * s; ``s`` the per-tensor scale (a
@@ -145,14 +177,24 @@ def _qconcat(parts, dim: int = 1):
     """Channel concat that stays int8 when every part is a QTensor: parts
     whose scale is below the largest are rescaled to it in the int8
     domain (none are once ``finalize_scales`` has unified the group);
-    a float concat otherwise."""
+    a float concat otherwise.  Runtime scales: parts that share one scale
+    object concatenate as they are, else every part is rescaled by its
+    float32 ratio to the float32 max, which is the result's new scale."""
     if all(isinstance(p, QTensor) for p in parts):
         if _UNIFY is not None:
             _UNIFY.append([p.s for p in parts])
         ft = parts[0].dtype
-        common = max(p.s for p in parts)
-        qs = [p.q if p.s == common else quantize_int8(p.q.to(ft), p.s / common) for p in parts]
-        return QTensor(torch.cat(qs, dim=dim), float(common), ft)
+        if not _runtime(*(p.s for p in parts)):
+            common = max(p.s for p in parts)
+            qs = [p.q if p.s == common else quantize_int8(p.q.to(ft), p.s / common)
+                  for p in parts]
+            return QTensor(torch.cat(qs, dim=dim), float(common), ft)
+        if all(p.s is parts[0].s for p in parts[1:]):
+            return QTensor(torch.cat([p.q for p in parts], dim=dim), parts[0].s, ft)
+        ss = [np.float32(p.s) for p in parts]
+        common = max(ss)
+        qs = [quantize_int8(p.q.to(ft), float(s / common)) for p, s in zip(parts, ss)]
+        return QTensor(torch.cat(qs, dim=dim), ScaleLeaf(common), ft)
     return torch.cat([_as_float(p) for p in parts], dim=dim)
 
 
@@ -160,9 +202,18 @@ def _qadd(a, b, out_scale=None):
     """Residual add.  Both QTensor: an int8-domain add requantized to the
     calibrated post-add scale ``out_scale`` (else to the upper bound
     sa + sb); a float add otherwise.  ``out_scale`` is carried by
-    reference: scale-group discovery matches scales by identity."""
+    reference: scale-group discovery matches scales by identity.  With a
+    runtime scale among the three, as JAX's runtime branch: sa + sb and
+    both ratios in float32, both parts multiplied."""
     if isinstance(a, QTensor) and isinstance(b, QTensor):
         ft = a.dtype
+        if _runtime(a.s, b.s, out_scale):
+            sa, sb = np.float32(a.s), np.float32(b.s)
+            s = (ScaleLeaf(sa + sb) if out_scale is None else
+                 out_scale if isinstance(out_scale, ScaleLeaf) else ScaleLeaf(out_scale))
+            sv = np.float32(s)
+            y = a.q.to(ft) * float(sa / sv) + b.q.to(ft) * float(sb / sv)
+            return QTensor(torch.round(y).clamp_(-127.0, 127.0).to(torch.int8), s, ft)
         sval = a.s + b.s if out_scale is None else out_scale
         ta = a.q.to(ft) if a.s == sval else a.q.to(ft) * (a.s / sval)
         tb = b.q.to(ft) if b.s == sval else b.q.to(ft) * (b.s / sval)
@@ -207,14 +258,14 @@ class _Int8Conv:
         if isinstance(x, QTensor):
             xq, in_s, ft = x.q, x.s, x.dtype
         else:
-            xq, in_s, ft = quantize_int8(x, 1.0 / self.xs), self.xs, x.dtype
+            xq, in_s, ft = quantize_int8(x, inv_scale(self.xs)), self.xs, x.dtype
         scale = self.ws_bits.view(torch.float32) * float(in_s)
         return xq, scale, self.b_bits.view(torch.float32), self.os, ft
 
     def _forward_int8(self, x, act: str):
         xq, scale, bias, os, ft = self.qconv_operands(x)
         y = qconv(xq, self.wq, scale, bias, k=self.k, stride=self.s, pad=self.pad, groups=self.g,
-                  act=act, inv_out_scale=None if os is None else 1.0 / os, out_dtype=ft)
+                  act=act, inv_out_scale=None if os is None else inv_scale(os), out_dtype=ft)
         return y if os is None else QTensor(y, os, ft)
 
 
@@ -231,7 +282,7 @@ class Conv2dOnly(_Int8Conv, nn.Module):
 
     def set_params(self, p: Dict[str, np.ndarray]) -> None:
         """Load a JAX leaf {'w' HWIO[, 'b']}."""
-        self.weight.data = _as_tensor(np.asarray(p["w"]).transpose(3, 2, 0, 1), self.weight)
+        self.weight.data = _as_tensor(host_f32(p["w"]).transpose(3, 2, 0, 1), self.weight)
         self.bias = _param(_as_tensor(p["b"], self.weight), self.weight) if "b" in p else None
 
     def init_train(self, gen: torch.Generator) -> None:
@@ -273,7 +324,7 @@ class Conv(_Int8Conv, nn.Module):
     def set_params(self, p: Dict[str, np.ndarray]) -> None:
         """Load a JAX leaf, fused {'w','b'} or unfused {'w','gamma','beta','mean','var'}."""
         w = self.weight
-        w.data = _as_tensor(np.asarray(p["w"]).transpose(3, 2, 0, 1), w)
+        w.data = _as_tensor(host_f32(p["w"]).transpose(3, 2, 0, 1), w)
         if "b" in p:
             self.bias = _param(_as_tensor(p["b"], w), w)
             for name in BN_NAMES:
@@ -489,7 +540,7 @@ class Linear(nn.Module):
         self.bias = nn.Parameter(_uniform(gen, (cout,), bound)) if bias else None
 
     def set_params(self, p: Dict[str, np.ndarray]) -> None:
-        self.weight.data = _as_tensor(np.asarray(p["w"]).T, self.weight)
+        self.weight.data = _as_tensor(host_f32(p["w"]).T, self.weight)
         self.bias = _param(_as_tensor(p["b"], self.weight), self.weight) if "b" in p else None
 
     def init_train(self, gen: torch.Generator) -> None:
@@ -673,6 +724,12 @@ def expand(x, gain: int = 2):
     return y.reshape(n, c // (g * g), h * g, w * g).contiguous(memory_format=torch.channels_last)
 
 
+def _pooled(x: torch.Tensor) -> torch.Tensor:
+    """The (N, C, 1, 1) spatial mean, laid out channels_last (a 1x1 map's
+    strides allow either layout; an int8 conv of it needs NHWC bytes)."""
+    return x.mean((2, 3), keepdim=True).contiguous(memory_format=torch.channels_last)
+
+
 class Classify(nn.Module):
     """Classification head: global average pool, then a 1x1 conv; (N, c2)."""
 
@@ -682,7 +739,7 @@ class Classify(nn.Module):
 
     def forward(self, x):
         x = _as_float(x)
-        return self.conv(x.mean((2, 3), keepdim=True)).reshape(x.shape[0], -1)
+        return self.conv(_pooled(x)).reshape(x.shape[0], -1)
 
 
 class SqueezeExcite(nn.Module):
@@ -696,8 +753,9 @@ class SqueezeExcite(nn.Module):
 
     def forward(self, x):
         x = _as_float(x)
-        s = relu(self.fc1(x.mean((2, 3), keepdim=True)))
+        s = relu(self.fc1(_pooled(x)))
         return x * hardsigmoid(self.fc2(s))
+
 
 
 class InvertedResidual(nn.Module):

@@ -24,6 +24,8 @@ from yolort_tpu_torch.ops.cuda.qconv_kernel import (  # noqa: F401
     qconv,
     qconv1x1,
     qconv1x1_reference,
+    qconv_grouped,
+    qconv_grouped_reference,
     qconv_kxk,
     qconv_kxk_reference,
 )
@@ -32,8 +34,9 @@ from yolort_tpu_torch.ops.cuda.stage1_kernel import (  # noqa: F401
     fused_cells_stage1_reference,
 )
 
-KERNELS = (nms_mask, bisect_count, row_fetch, qconv1x1, qconv_kxk, fused_cells_stage1,
-           lookup_fetch, select_extract, compact_place, lookup_fetch_variant, row_fetch_p)
+KERNELS = (nms_mask, bisect_count, row_fetch, qconv1x1, qconv_kxk, qconv_grouped,
+           fused_cells_stage1, lookup_fetch, select_extract, compact_place, lookup_fetch_variant,
+           row_fetch_p)
 
 
 def reset_launch_counts() -> None:

@@ -1,22 +1,26 @@
-"""int8 convolution kernels: ``qconv1x1`` and ``qconv_kxk``
-(``csrc/qconv.cu``), each with its plain PyTorch version.
+"""int8 convolution kernels: ``qconv1x1``, ``qconv_kxk`` and
+``qconv_grouped`` (``csrc/qconv.cu``), each with its plain PyTorch version.
 
 Replace ``yolort_tpu/ops/pallas/qconv.py``: ``qconv1x1`` and ``qconv3x3``
 with their shared ``_epilogue``.  On the TPU the Pallas kernels are an
 opt-in beside XLA's s8 conv; core PyTorch has no int8 CUDA convolution, so
-here they are the int8 conv itself, and ``qconv_kxk`` also runs the
-strided 3x3 downsamples and the 6x6/s2/p2 stem.
+here they are the int8 conv itself: ``qconv_kxk`` also runs the strided
+3x3 downsamples and the 6x6/s2/p2 stem, and ``qconv_grouped`` the grouped
+convs (depth-wise, DWConv, GhostConv's cheap half), which the JAX package
+sends to XLA's s8 conv.
 
 Activations are int8 NCHW in ``channels_last`` memory (NHWC bytes).
 Weights are packed once, at quantization, to (Cout, Kpad) int8 with
-K = k*k*Cin in (ky, kx, ci) order and zero-padded to a multiple of 4
-(``pack_weight``).  On the card both run one implicit-GEMM kernel on the
-int8 tensor cores, fed by a ``cp.async`` ring; ``qconv_plan`` picks its
-tile and loader from the conv's shape.  The epilogue, in float32, is
+K = k*k*Cin/G in (ky, kx, ci-within-group) order and zero-padded to a
+multiple of 4 (``pack_weight``).  On the card the ungrouped convs run one
+implicit-GEMM kernel on the int8 tensor cores, fed by a ``cp.async``
+ring; ``qconv_plan`` picks its tile and loader from the conv's shape.
+The grouped ones run a direct conv, four output channels a thread.  The
+epilogue, in float32, is
 
     y = f32(acc) * scale[co] + bias[co];  y = act(y)
     act: none | silu (y * sigmoid(y)) | hardswish (y * clip(y + 3, 0, 6) / 6)
-         | leaky_relu (where(y >= 0, y, 0.1 * y))
+         | leaky_relu (where(y >= 0, y, 0.1 * y)) | relu (max(y, 0))
     out = clip(round_half_even(y * inv_out_scale), -127, 127) as int8
 
 or ``y`` cast to ``out_dtype`` when ``inv_out_scale`` is None.
@@ -33,8 +37,8 @@ import torch.nn.functional as F
 from yolort_tpu_torch.ops.cuda import _build
 
 # the epilogue's activations and their codes in csrc/qconv.cu (the
-# activations of the JAX package's qconv ``_act``)
-ACTS = {"none": 0, "silu": 1, "hardswish": 2, "leaky_relu": 3}
+# activations of the JAX package's qconv ``_act``, and its blocks' relu)
+ACTS = {"none": 0, "silu": 1, "hardswish": 2, "leaky_relu": 3, "relu": 4}
 # the float32 constants of the JAX program's weak-typed 1/6 and 0.1
 ONE_SIXTH = float(np.float32(1.0 / 6.0))
 LEAKY_SLOPE = float(np.float32(0.1))
@@ -104,8 +108,10 @@ def padded_depth(k: int, cin: int) -> int:
 
 
 def pack_weight(w_hwio: np.ndarray) -> torch.Tensor:
-    """HWIO int8 weights (k, k, cin, cout) -> (cout, Kpad) int8, K in
-    (ky, kx, ci) order, zero-padded."""
+    """HWIO int8 weights (k, k, cin/G, cout) -> (cout, Kpad) int8, K =
+    k*k*cin/G in (ky, kx, ci-within-group) order, zero-padded to a
+    multiple of 4 (a grouped conv's HWIO already holds one group's
+    channels)."""
     kh, kw, cin, cout = w_hwio.shape
     if kh != kw:
         raise ValueError(f"square kernels only, got {kh}x{kw}")
@@ -132,19 +138,23 @@ def _epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, act: s
         y = (y * torch.clamp(y + 3.0, 0.0, 6.0)) * ONE_SIXTH
     elif act == "leaky_relu":
         y = torch.where(y >= 0, y, y * LEAKY_SLOPE)
+    elif act == "relu":
+        y = torch.clamp_min(y, 0.0)
     if inv_out_scale is not None:
         return quantize_int8(y, inv_out_scale)
     return y.to(out_dtype)
 
 
-def _check(xq, wq, scale, bias, k, act, inv_out_scale, out_dtype, name):
+def _check(xq, wq, scale, bias, k, act, inv_out_scale, out_dtype, name, groups=1):
     if xq.dim() != 4 or xq.dtype != torch.int8:
         raise ValueError(f"{name}: xq must be (N, C, H, W) int8, got {tuple(xq.shape)} {xq.dtype}")
-    cin = xq.shape[1]
     cout = scale.shape[0] if scale.dim() == 1 else -1
+    if groups < 1 or xq.shape[1] % groups or cout % groups:
+        raise ValueError(f"{name}: groups={groups} must divide Cin={xq.shape[1]} and Cout={cout}")
+    cin = xq.shape[1] // groups  # the reduction's channels: one group's
     if wq.dtype != torch.int8 or tuple(wq.shape) != (cout, padded_depth(k, cin)):
         raise ValueError(f"{name}: wq must be ({cout}, {padded_depth(k, cin)}) int8 for k={k}, "
-                         f"cin={cin}, got {tuple(wq.shape)} {wq.dtype}")
+                         f"cin/groups={cin}, got {tuple(wq.shape)} {wq.dtype}")
     for t, what in ((scale, "scale"), (bias, "bias")):
         if t.dtype != torch.float32 or tuple(t.shape) != (cout,):
             raise ValueError(f"{name}: {what} must be ({cout},) float32, got {tuple(t.shape)} {t.dtype}")
@@ -176,12 +186,20 @@ def qconv1x1_reference(xq, wq, scale, bias, *, act="silu", inv_out_scale=None,
 
 def qconv_kxk_reference(xq, wq, scale, bias, *, k, stride=1, pad=None, act="silu",
                         inv_out_scale=None, out_dtype=torch.float32):
-    """Plain version of ``qconv_kxk``: the exact s32 accumulator as a
-    float64 ``F.conv2d`` of the int8 values, then the epilogue."""
+    """Plain version of ``qconv_kxk``: ``qconv_grouped_reference`` in one
+    group."""
+    return qconv_grouped_reference(xq, wq, scale, bias, k=k, stride=stride, pad=pad, groups=1,
+                                   act=act, inv_out_scale=inv_out_scale, out_dtype=out_dtype)
+
+
+def qconv_grouped_reference(xq, wq, scale, bias, *, k, stride=1, pad=None, groups,
+                            act="silu", inv_out_scale=None, out_dtype=torch.float32):
+    """Plain version of ``qconv_grouped``: the exact s32 accumulator as a
+    float64 grouped ``F.conv2d`` of the int8 values, then the epilogue."""
     pad = k // 2 if pad is None else pad
-    cout, cin = wq.shape[0], xq.shape[1]
-    w = wq[:, : k * k * cin].reshape(cout, k, k, cin).permute(0, 3, 1, 2).double()
-    acc = F.conv2d(xq.double(), w, None, stride, pad).to(torch.int32)
+    cout, cin_g = wq.shape[0], xq.shape[1] // groups
+    w = wq[:, : k * k * cin_g].reshape(cout, k, k, cin_g).permute(0, 3, 1, 2).double()
+    acc = F.conv2d(xq.double(), w, None, stride, pad, 1, groups).to(torch.int32)
     return _epilogue(acc, scale, bias, act, inv_out_scale, out_dtype).contiguous(
         memory_format=torch.channels_last)
 
@@ -278,14 +296,58 @@ def qconv_kxk(xq, wq, scale, bias, *, k, stride=1, pad=None, act="silu", inv_out
 qconv_kxk.launches = 0
 
 
+def qconv_grouped(xq, wq, scale, bias, *, k, stride=1, pad=None, groups, act="silu",
+                  inv_out_scale=None, out_dtype=torch.float32):
+    """k x k int8 conv in ``groups`` groups (any stride and zero padding)
+    with the fused epilogue, as a direct conv.
+
+    xq (N, Cin, H, W) int8 channels_last; group g reads channels [g*Cin/G,
+    (g+1)*Cin/G) and writes output channels [g*Cout/G, (g+1)*Cout/G); wq
+    (Cout, Kpad) int8 packed by ``pack_weight`` from the (k, k, Cin/G,
+    Cout) HWIO weights; scale, bias (Cout,) float32.  Returns (N, Cout, Ho,
+    Wo) channels_last, int8 or ``out_dtype``.  CUDA tensors launch the
+    kernel; CPU tensors take ``qconv_grouped_reference``."""
+    pad = k // 2 if pad is None else pad
+    out_t = _check(xq, wq, scale, bias, k, act, inv_out_scale, out_dtype, "qconv_grouped",
+                   groups)
+    if stride < 1 or pad < 0:
+        raise ValueError(f"qconv_grouped: stride must be >= 1 and pad >= 0, got {stride}, {pad}")
+    if xq.device.type == "cpu":
+        return qconv_grouped_reference(xq, wq, scale, bias, k=k, stride=stride, pad=pad,
+                                       groups=groups, act=act, inv_out_scale=inv_out_scale,
+                                       out_dtype=out_dtype)
+    _launch_setup(xq, wq, scale, bias, "qconv_grouped")
+    n, c, h, w = xq.shape
+    ho = (h + 2 * pad - k) // stride + 1
+    wo = (w + 2 * pad - k) // stride + 1
+    cout = wq.shape[0]
+    out = torch.empty((n, cout, ho, wo), dtype=out_t, device=xq.device,
+                      memory_format=torch.channels_last)
+    lib = _build.library()
+    with torch.cuda.device(xq.device):
+        rc = lib.yt_qconv_grouped(
+            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, k, stride, pad,
+            ho, wo, groups, ACTS[act], _OUT_KINDS[out_t], _build.stream_of(xq),
+        )
+    _build.check(rc, "qconv_grouped")
+    qconv_grouped.launches += 1
+    return out
+
+
+qconv_grouped.launches = 0
+
+
 def qconv(xq, wq, scale, bias, *, k, stride=1, pad=None, groups=1, act="silu",
           inv_out_scale=None, out_dtype=torch.float32):
-    """The int8 conv of a quantized Conv: 1x1 stride-1 unpadded convs go to
-    ``qconv1x1``, every other shape to ``qconv_kxk``.  Grouped convs raise."""
-    if groups != 1:
-        raise ValueError(f"qconv supports groups=1 only, got groups={groups}")
+    """The int8 conv of a quantized Conv: grouped convs go to
+    ``qconv_grouped``, 1x1 stride-1 unpadded ones to ``qconv1x1``, every
+    other shape to ``qconv_kxk``."""
     pad = k // 2 if pad is None else pad
     kw = dict(act=act, inv_out_scale=inv_out_scale, out_dtype=out_dtype)
+    if groups != 1:
+        return qconv_grouped(xq, wq, scale, bias, k=k, stride=stride, pad=pad, groups=groups,
+                             **kw)
     if k == 1 and stride == 1 and pad == 0 and xq.shape[1] % 4 == 0:
         return qconv1x1(xq, wq, scale, bias, **kw)
     return qconv_kxk(xq, wq, scale, bias, k=k, stride=stride, pad=pad, **kw)

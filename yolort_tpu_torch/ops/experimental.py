@@ -15,7 +15,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from yolort_tpu_torch.ops.blocks import Conv, _as_float, _as_tensor, _param, _qconcat, _uniform
+from yolort_tpu_torch.ops.blocks import (
+    Conv, _as_float, _as_tensor, _param, _qconcat, _uniform, host_f32,
+)
 
 
 class _RectConv(nn.Module):
@@ -33,7 +35,7 @@ class _RectConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c2))
 
     def set_params(self, p: Dict[str, np.ndarray]) -> None:
-        self.weight.data = _as_tensor(np.asarray(p["w"]).transpose(3, 2, 0, 1), self.weight)
+        self.weight.data = _as_tensor(host_f32(p["w"]).transpose(3, 2, 0, 1), self.weight)
         self.bias.data = _as_tensor(p["b"], self.bias)
 
     def init_train(self, gen: torch.Generator) -> None:

@@ -1,44 +1,47 @@
-"""Post-training quantization for int8 compute.
+"""Post-training quantization: int8 compute and weight-only int8.
 
-Port of the int8-compute recipe of ``yolort_tpu/ops/quantization.py``:
+Port of ``yolort_tpu/ops/quantization.py``.  The int8-compute recipe:
 ``quantize_tensor_per_channel``, ``calibrate_activations``,
-``quantize_compute_params``, ``finalize_scales`` and ``strip_calibration``.
-The JAX functions take ``(apply_fn, params)``; these take the model (an
-``nn.Module`` whose ``head_outputs`` is the apply function) and keep the
-JAX names.  The recipe, as the bench runs it:
+``quantize_compute_params`` (with ``skip``, ``min_reduce``, ``predicate``
+and ``chain``), ``finalize_scales``, ``strip_calibration``,
+``quant_groups`` and ``sensitivity_scan``.  The JAX functions take
+``(apply_fn, params)``; these take the model (an ``nn.Module`` whose
+``head_outputs`` is the apply function) and keep the JAX names.  A conv's
+path is its JAX params path, '/'-joined (``backbone/body/5/expand``): the
+port's module names are the JAX keys.  The recipe, as the bench runs it:
 
     calibrate_activations(model, batches)        # marks ranges in place
     qmodel = quantize_compute_params(model)      # a quantized copy
     finalize_scales(qmodel, example)             # fixes and unifies scales
 
 after which ``YOLOv5(model=qmodel, ...)`` serves it in float32 or bfloat16.
+Before ``finalize_scales`` the scales are runtime ``ScaleLeaf``s, on which
+``sensitivity_scan`` and ``utils/quant_probe.py`` run, as JAX's do.
+
+Weight-only PTQ (``quantize_params``, ``dequantize_params``,
+``dequantize_tensor``, ``quantization_error``) works on the bridge's
+nested JAX-layout dict (``models/_bridge.py``), and
+``CalibrationObserver`` keeps moving abs-max ranges for export.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from yolort_tpu_torch.ops import blocks
-from yolort_tpu_torch.ops.blocks import Bottleneck, Conv, Conv2dOnly, fuse_conv_bn
+from yolort_tpu_torch.ops.blocks import (
+    Bottleneck, Conv, Conv2dOnly, ScaleLeaf, fuse_conv_bn, host_f32,
+)
 
 _MARKS = ("_absmax", "_out_absmax", "_add_absmax")
-# convs with a shallower reduction (kh*kw*cin) stay float: int8 buys
-# little there and costs the most accuracy (the JAX recipe's default)
+# convs with a shallower reduction (kh*kw*cin/groups) stay float: int8
+# buys little there and costs the most accuracy (the JAX recipe's default)
 MIN_REDUCE = 32
-
-
-class ScaleLeaf(float):
-    """A calibrated activation scale before ``finalize_scales``: a float
-    whose object identity names the leaf it came from, as a scale array
-    does in the JAX tree.  ``finalize_scales`` matches concat parts to
-    leaves by identity and replaces every leaf with a plain float."""
-
-    __slots__ = ()
 
 
 def quantize_tensor_per_channel(w: np.ndarray, axis: int = -1) -> Tuple[np.ndarray, np.ndarray]:
@@ -49,6 +52,73 @@ def quantize_tensor_per_channel(w: np.ndarray, axis: int = -1) -> Tuple[np.ndarr
     scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
     q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
     return q, np.squeeze(scale)
+
+
+def dequantize_tensor(q: torch.Tensor, scale: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse of ``quantize_tensor_per_channel`` (scale broadcast on the
+    last axis), in ``dtype``."""
+    return torch.as_tensor(q).to(dtype) * torch.as_tensor(scale).to(dtype)
+
+
+def quantize_params(params: Dict, min_size: int = 512) -> Dict:
+    """Quantize the conv / Linear weights of a JAX-layout params tree
+    ('w' leaves of >= ``min_size`` elements) to {'q': int8, 'scale': f32}
+    torch tensors, per output channel (the last axis); other leaves pass
+    through."""
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            if k == "w" and not isinstance(v, dict) and np.size(host_f32(v)) >= min_size:
+                q, scale = quantize_tensor_per_channel(host_f32(v))
+                out["w"] = {"q": torch.from_numpy(q), "scale": torch.from_numpy(scale)}
+            else:
+                out[k] = walk(v)
+        return out
+
+    return walk(params)
+
+
+def dequantize_params(params: Dict, dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """A quantized tree with every {'q', 'scale'} back to dense weights in
+    ``dtype`` (``params_from_jax`` loads the result into a model)."""
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        if set(node) == {"q", "scale"}:
+            return dequantize_tensor(node["q"], node["scale"], dtype)
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(params)
+
+
+def _leaves(node) -> Iterator:
+    """The leaves of a tree in the JAX package's order (keys sorted)."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            yield from _leaves(node[k])
+    else:
+        yield node
+
+
+def quantization_error(params: Dict, qparams: Dict) -> Dict[str, float]:
+    """Max relative weight error of weight-only PTQ, per top-level group:
+    max |w - dequant(q)| / (max |w| + 1e-12) over the group's leaves of
+    equal shape, in float32."""
+    deq = dequantize_params(qparams, torch.float32)
+    out = {}
+    for key in params:
+        errs = []
+        for a, b in zip(_leaves(params[key]), _leaves(deq[key])):
+            a, b = host_f32(a), host_f32(b)
+            if a.shape == b.shape:
+                errs.append(float(np.abs(a - b).max() / (np.abs(a).max() + np.float32(1e-12))))
+        out[key] = max(errs) if errs else 0.0
+    return out
 
 
 def _observe(module: nn.Module, key: str, t: torch.Tensor) -> None:
@@ -120,45 +190,60 @@ def _pop_marks(mod: nn.Module) -> Dict[str, float]:
     return {k: mod.__dict__.pop(k) for k in _MARKS if k in mod.__dict__}
 
 
-def _refuse_int8_gaps(model: nn.Module) -> None:
-    for name, mod in model.named_modules():
-        if not isinstance(mod, (Conv, Conv2dOnly)):
-            continue
-        if mod.g != 1 or getattr(mod, "act", None) == "relu":
-            raise ValueError(
-                f"int8 of grouped and ReLU convs is not ported: conv '{name}' has groups={mod.g}, "
-                f"act={getattr(mod, 'act', 'none')!r} (the qconv kernels take groups=1 and no "
-                f"ReLU epilogue); serve this model in float32 or bfloat16")
+def conv_paths(model: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
+    """(JAX params path, module) of every Conv / Conv2dOnly, in the order of
+    the JAX package's calibrated tree: children by name, sorted as strings
+    at every level (a ``jax.tree_util`` round trip sorts dict keys)."""
+
+    def walk(mod: nn.Module, path: Tuple[str, ...]):
+        if isinstance(mod, (Conv, Conv2dOnly)):
+            yield "/".join(path), mod
+            return
+        for name in sorted(mod._modules):
+            child = mod._modules[name]
+            if child is not None:
+                yield from walk(child, path + (name,))
+
+    yield from walk(model, ())
 
 
-def quantize_compute_params(model: nn.Module) -> nn.Module:
-    """A copy of a calibrated model in the int8-compute form: every conv
-    with a recorded input range and a reduction depth kh*kw*cin >=
-    ``MIN_REDUCE`` gets int8 weights (per output channel), its input scale
-    ``xs`` and, with a recorded output range, the output scale ``os`` its
-    epilogue requantizes to; unfused BatchNorm is folded first.  Each
-    residual Bottleneck with a recorded sum range gets ``as_``.  Markers are
-    dropped from the copy either way; ``model`` is left as it is.
+def quantize_compute_params(
+    model: nn.Module,
+    skip: Sequence[str] = (),
+    min_reduce: int = MIN_REDUCE,
+    predicate: Optional[Callable[[str, tuple], bool]] = None,
+    chain: bool = True,
+) -> nn.Module:
+    """A copy of a calibrated model in the int8-compute form.
 
-    A model that holds a grouped conv or a ReLU conv (yolo_lite, the Ghost
-    blocks, DWConv) raises ``ValueError``: the qconv kernels run groups=1
-    and their epilogue has no ReLU, where the JAX package sends such convs
-    to XLA's int8 conv."""
-    _refuse_int8_gaps(model)
+    A conv is quantized when (a) calibration recorded an input range, (b)
+    its reduction depth kh*kw*cin/groups is >= ``min_reduce`` (depth-wise
+    convs stay float by default: int8 buys little there and costs the most
+    accuracy), (c) its path (``conv_paths``) starts with no entry of
+    ``skip`` and (d) ``predicate(path, hwio_shape)``, when given, is true.
+    It gets int8 weights (per output channel), its input scale ``xs`` and,
+    with ``chain`` and a recorded output range, the output scale ``os`` its
+    epilogue requantizes to; unfused BatchNorm is folded first.  With
+    ``chain``, each residual Bottleneck with a recorded sum range gets
+    ``as_``.  Scales are runtime ``ScaleLeaf``s until ``finalize_scales``.
+    Markers are dropped from the copy either way; ``model`` is left as it
+    is."""
     out = copy.deepcopy(model)
     for mod in out.modules():
-        marks = _pop_marks(mod)
         if isinstance(mod, Bottleneck):
-            add = marks.get("_add_absmax")
-            if add is not None and add > 0.0:
+            add = _pop_marks(mod).get("_add_absmax")
+            if chain and add is not None and add > 0.0:
                 mod.as_ = ScaleLeaf(np.float32(add / 127.0))
-            continue
-        if not isinstance(mod, (Conv, Conv2dOnly)) or mod.quantized:
+    for path, mod in conv_paths(out):
+        marks = _pop_marks(mod)
+        if mod.quantized:
             continue
         amax, out_amax = marks.get("_absmax"), marks.get("_out_absmax")
         w = _hwio(mod.weight)
         kh, kw, cin_g, _ = w.shape
-        if amax is None or amax <= 0.0 or kh * kw * cin_g < MIN_REDUCE:
+        if (amax is None or amax <= 0.0 or kh * kw * cin_g < min_reduce
+                or any(path.startswith(p) for p in skip)
+                or (predicate is not None and not predicate(path, w.shape))):
             continue
         if "gamma" in mod._parameters:
             w, b = fuse_conv_bn(w, _np(mod.gamma), _np(mod.beta), _np(mod.mean), _np(mod.var))
@@ -166,7 +251,7 @@ def quantize_compute_params(model: nn.Module) -> nn.Module:
             b = None if mod.bias is None else _np(mod.bias)
         wq, ws = quantize_tensor_per_channel(w, axis=-1)
         os: Optional[float] = None
-        if out_amax is not None and out_amax > 0.0:
+        if chain and out_amax is not None and out_amax > 0.0:
             os = ScaleLeaf(np.float32(out_amax / 127.0))
         mod.set_int8(wq, np.atleast_1d(ws), ScaleLeaf(np.float32(amax / 127.0)), os, b)
     return out
@@ -242,3 +327,60 @@ def strip_calibration(model: nn.Module) -> nn.Module:
     for mod in model.modules():
         _pop_marks(mod)
     return model
+
+
+def quant_groups(model: nn.Module, depth: int = 2) -> Tuple[str, ...]:
+    """The path prefixes of ``depth`` components holding calibrated convs,
+    in the JAX tree's order: the unit ``sensitivity_scan`` quantizes alone
+    and ``quantize_compute_params(skip=...)`` leaves out."""
+    groups: list = []
+    for path, mod in conv_paths(model):
+        g = "/".join(path.split("/")[:depth])
+        if "_absmax" in mod.__dict__ and g not in groups:
+            groups.append(g)
+    return tuple(groups)
+
+
+def _flat(out) -> torch.Tensor:
+    if isinstance(out, torch.Tensor):
+        return out.reshape(-1).float()
+    return torch.cat([_flat(o) for o in out])
+
+
+def sensitivity_scan(apply_fn, model: nn.Module, batch, depth: int = 2,
+                     norm: Optional[float] = None) -> list:
+    """Per-group PTQ sensitivity of a calibrated model: for each group of
+    ``quant_groups(model, depth)``, quantize only that group and take the
+    mean |delta| of ``apply_fn``'s flattened outputs against the float
+    model's on ``batch`` (divided by ``norm`` when given).  ``apply_fn(m,
+    x)`` returns a tensor or a tuple of them (``lambda m, x: m.decode(x)``).
+    Returns [(group, delta)], worst first.  The recipe: quantize
+    everything, measure the end metric; where it regresses, skip the
+    first groups of this list (``quantize_compute_params(skip=...)``)."""
+    with torch.inference_mode():
+        baseline = _flat(apply_fn(strip_calibration(copy.deepcopy(model)), batch))
+        results = []
+        for g in quant_groups(model, depth):
+            only = quantize_compute_params(model, predicate=lambda p, _s, g=g: p.startswith(g))
+            d = float((_flat(apply_fn(only, batch)) - baseline).abs().mean())
+            results.append((g, d if norm is None else d / norm))
+    return sorted(results, key=lambda t: -t[1])
+
+
+class CalibrationObserver:
+    """Activation ranges for export to int8-native runtimes: a moving
+    abs-max per name over batches."""
+
+    def __init__(self, momentum: float = 0.9):
+        self.momentum = momentum
+        self.ranges: Dict[str, float] = {}
+
+    def observe(self, name: str, x) -> None:
+        amax = float(torch.as_tensor(x).detach().abs().max())
+        if name in self.ranges:
+            self.ranges[name] = self.momentum * self.ranges[name] + (1 - self.momentum) * amax
+        else:
+            self.ranges[name] = amax
+
+    def scales(self) -> Dict[str, float]:
+        return {k: v / 127.0 for k, v in self.ranges.items()}
