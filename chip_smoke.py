@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. device: needs CUDA; prints the card's name and power limit; TF32 off;
   2. build: compiles the CUDA kernels from yolort_tpu_torch/csrc/ (one
-     nvcc per source, in parallel);
+     nvcc per source, in parallel), then starts the g++ compiles of the
+     C++ op library and driver of phase 12 in the background;
   3. kernels: nms_mask, bisect_count, row_fetch, fused_cells_stage1,
      lookup_fetch, select_extract, compact_place and the five variants of
      lookup_fetch_variant against their plain PyTorch versions on the
@@ -169,11 +170,28 @@ Phases, each fatal on failure:
      quant_probe.SCENE_SEED, then int8_ap_report, under the bounds of
      tests/test_int8_ap_delta.py (float AP >= 0.7, all-int8 AP >= half of
      it, delta <= 0.05).
+ 12. runtime and export (run after 9): (a) export_aot of phase 4's
+     yolov5s models, serving config, batch 8 @640, both dtypes, every
+     route, reloaded with load_aot: detections identical to the live
+     pipeline, launches exactly the route's kernels (bisect_count 2, the
+     others 1), the graph calling each yolort_tpu op that often; (b) an
+     AOTInductor package of the float32 model (default route), loaded in
+     Python: launches exact, paired with the eager card run, a batch timed
+     beside the exported program and the eager pipeline; (c) the C++
+     driver gate deployment/libtorch/smoke.py (its g++ compiles started
+     right after phase 2, in the background): readback bit-identical to
+     the package in Python, the C++ launch plans equal to the Python ones;
+     (d) StreamingPipeline at batch 32 on 8 batches and a tail of 5, both
+     dtypes: every frame equal to YOLOv5.__call__ on its padded batch,
+     images/s, device busy and the pinned HtoD copy beside __call__'s
+     pageable one; (e) cost_analysis and the GraphVisualizer dot of the
+     pipeline @640 batch 1.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, with each kernel's launches by path (float, int8,
 cpa, decoded, fixed_shape, r31_int8, p6, p6_int8, checkpoint, train_eval,
-zoo_lite, zoo_yaml, ensemble, tta, int8_lite, int8_lite_grouped, int8_ap
-and the two entry points).  Imports nothing of JAX.
+zoo_lite, zoo_yaml, ensemble, tta, int8_lite, int8_lite_grouped, int8_ap,
+export, aoti, streaming and the two entry points); before them, the total
+seconds.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1763,14 +1781,18 @@ CHECKPOINTS = (
 def torch_fixture():
     """tests/torch_fixture.py, loaded by path: an installed package named
     'tests' would shadow the checkout's test directory."""
+    return load_checkout_module("tests/torch_fixture.py", "torch_fixture")
+
+
+def load_checkout_module(rel: str, name: str):
+    """A file of the checkout, ``rel`` from its root, loaded by path."""
     import importlib.util
     from pathlib import Path
 
-    spec = importlib.util.spec_from_file_location(
-        "torch_fixture", Path(__file__).resolve().parent / "tests" / "torch_fixture.py")
-    fixture = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fixture)
-    return fixture
+    spec = importlib.util.spec_from_file_location(name, Path(__file__).resolve().parent / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def fabricate(tmp: str, label: str, make_kw=None):
@@ -3045,6 +3067,292 @@ def phase_train(device, card: str) -> dict:
     return dict(launches=counts, step_ms=step_ms, peak=peak, report=report)
 
 
+# --------------------------------------------------------------------------
+# phase 12: runtime and export
+# --------------------------------------------------------------------------
+
+RUNTIME_HW = (640, 640)
+RUNTIME_BATCH = 8
+STREAM_BATCH = 32
+STREAM_FRAMES = 8 * STREAM_BATCH + 5  # eight batches and a tail of 5
+
+
+def start_cpp_compile():
+    """The op library's and the C++ driver's g++ compiles, started in the
+    background so that they run beside phases 3-11; phase 12 waits for
+    them."""
+    return load_checkout_module("deployment/libtorch/build.py", "libtorch_build").start_compile()
+
+
+def launch_counts() -> dict:
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import KERNELS
+
+    torch.cuda.synchronize()
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def graph_ops(ep) -> dict:
+    """The yolort_tpu op calls of an exported program's graph, by op name."""
+    out = {}
+    for node in ep.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and name.startswith("yolort_tpu."):
+            out[name.split(".")[1]] = out.get(name.split(".")[1], 0) + 1
+    return out
+
+
+def as_dets(outs):
+    """(boxes, scores, labels, num) as a ``Detections``-like tuple."""
+    from yolort_tpu_torch.ops.nms import Detections
+
+    boxes, scores, labels, num = outs
+    return Detections(boxes, scores, labels, None, num)
+
+
+def phase_export(models, req, card: str) -> dict:
+    """(a) ``export_aot`` of phase 4's shifted yolov5s models (both dtypes)
+    in the serving config on every route, batch 8 @640, reloaded with
+    ``load_aot``: the reloaded program's detections on the request equal
+    the live ``_pipeline_fn``'s, its launches are exactly the route's
+    kernels once each (bisect_count twice), and its graph calls each
+    ``yolort_tpu`` op that many times (no kernel traced through)."""
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+    from yolort_tpu_torch.runtime.aot import _pipeline_fn, export_aot, load_aot, plan_for
+
+    x = torch.from_numpy(req).cuda()
+    total = {}
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dt, m in models.items():
+            yolo = m.model
+            yolo.score_thresh, yolo.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+            for route in ROUTES:
+                yolo.row_gather = route
+                t0 = time.perf_counter()
+                path = export_aot(yolo, f"{tmp}/{route}.ytpt", batch_size=RUNTIME_BATCH,
+                                  input_hw=RUNTIME_HW, dtype=dt)
+                t1 = time.perf_counter()
+                pred = load_aot(path)
+                t2 = time.perf_counter()
+                reset_launch_counts()
+                got = pred(req)
+                counts = launch_counts()
+                want = {k: (2 if k == "bisect_count" else 1) if k in ROUTE_KERNELS[route] else 0
+                        for k in counts}
+                if counts != want:
+                    raise AssertionError(f"export {dt} {route}: launches {counts}, want {want}")
+                in_graph = graph_ops(pred.exported)
+                if in_graph != {k: n for k, n in want.items() if n}:
+                    raise AssertionError(f"export {dt} {route}: graph ops {in_graph}")
+                with torch.no_grad():
+                    live = _pipeline_fn(yolo, plan_for(RUNTIME_HW), dt)(x)
+                if not all(torch.equal(a, b) for a, b in zip(got, live)):
+                    raise AssertionError(f"export {dt} {route}: the reloaded program's detections "
+                                         f"differ from the live pipeline's")
+                if int(got[3].min()) <= 0:
+                    raise AssertionError(f"export {dt} {route}: an image has no detections")
+                for k, n in counts.items():
+                    total[k] = total.get(k, 0) + n
+                times[f"{dt} {route}"] = (t1 - t0, t2 - t1)
+                print(f"[export] yolov5s {dt} {route} batch {RUNTIME_BATCH} @640: exported in "
+                      f"{t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s; detections identical to the "
+                      f"live pipeline ({got[3].tolist()} a frame); launches "
+                      f"{ {k: n for k, n in counts.items() if n} }; graph ops {in_graph}",
+                      flush=True)
+            yolo.row_gather = DEFAULT_ROUTE
+    return dict(launches=total, seconds=times)
+
+
+def phase_aoti(models, req, card: str) -> dict:
+    """(b) ``export_aoti_package`` of the float32 model, default route,
+    serving config, batch 8 @640, loaded in Python: its launches exactly
+    the default route's, its detections paired with the eager card run
+    (``pair_detections``: Inductor fuses the network's elementwise work,
+    so no bit equality), and one batch timed (CUDA events) beside the
+    exported program and the eager pipeline."""
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+    from yolort_tpu_torch.runtime.aot import _pipeline_fn, export_aoti_package, export_program, plan_for
+
+    m = models[torch.float32]
+    yolo = m.model
+    yolo.score_thresh, yolo.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+    x = torch.from_numpy(req).cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pkg = export_aoti_package(yolo, f"{tmp}/yolov5s_b8.pt2", batch_size=RUNTIME_BATCH,
+                                  input_hw=RUNTIME_HW)
+        compile_s = time.perf_counter() - t0
+        runner = torch._inductor.aoti_load_package(pkg)
+    reset_launch_counts()
+    with torch.no_grad():
+        got = runner(x)
+    counts = launch_counts()
+    want = {k: DEFAULT_PER_BATCH.get(k, 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"aoti: launches {counts}, want {want}")
+    live_fn = _pipeline_fn(yolo, plan_for(RUNTIME_HW), torch.float32)
+    with torch.no_grad():
+        live = live_fn(x)
+    un = pair_detections(as_dets(got), as_dets([t.cpu() for t in live]), "aoti vs eager")
+    program = export_program(yolo, batch_size=RUNTIME_BATCH, input_hw=RUNTIME_HW)[1].module()
+    with torch.no_grad():
+        ms = {"aoti": median_ms(lambda: runner(x), 5, 3),
+              "exported": median_ms(lambda: program(x), 5, 3),
+              "eager": median_ms(lambda: live_fn(x), 5, 3)}
+    print(f"[aoti] yolov5s f32 batch {RUNTIME_BATCH} @640 AOTInductor package compiled in "
+          f"{compile_s:.1f} s; launches {DEFAULT_PER_BATCH} exactly; paired with the eager card "
+          f"run, {un} unpaired; a batch (CUDA events, median of 3 x 5): AOTInductor "
+          f"{ms['aoti']:.2f} ms, exported program {ms['exported']:.2f} ms, eager pipeline "
+          f"{ms['eager']:.2f} ms | {card}", flush=True)
+    reset_launch_counts()
+    return dict(launches=counts, compile_s=compile_s, ms=ms, unpaired=un)
+
+
+def phase_driver(compiled, card: str) -> dict:
+    """(c) the C++ driver gate, ``deployment/libtorch/smoke.py``: its package
+    built, the op library and driver linked (their g++ compiles started
+    with the smoke), readback bit-identical to the package in Python, the
+    C++ launch plans printed beside the Python ones."""
+    smoke = load_checkout_module("deployment/libtorch/smoke.py", "libtorch_smoke")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = smoke.main(tmp, compiled=compiled)
+    print(f"[driver] C++ driver gate passed: g++ compile {out['compile_s']:.1f} s (in the "
+          f"background since the smoke's start), op library link {out['ops_link_s']:.1f} s, "
+          f"driver link {out['driver_link_s']:.1f} s, package {out['aoti_s']:.1f} s; "
+          f"{out['detections']} detections bit-identical | {card}", flush=True)
+    return out
+
+
+def stream_times(pipe, fr, runs: int = 5) -> float:
+    """Median host seconds of streaming ``fr`` through ``pipe`` to the last
+    result."""
+    import torch
+
+    ts = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in pipe.run(fr):
+            pass
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
+
+
+def htod_ms(rows, kind: str) -> float:
+    return sum(ms for name, ms in rows if name.startswith("Memcpy HtoD") and kind in name)
+
+
+def phase_streaming(models, card: str) -> dict:
+    """(d) ``StreamingPipeline`` of yolov5s @640, batch 32, both dtypes, on
+    eight batches and a tail of 5: each frame's detections equal
+    ``YOLOv5.__call__`` on the same padded batch; images/s (host clock,
+    median of 5), device busy and the pinned HtoD copy a batch (profiler),
+    beside ``YOLOv5.__call__``'s pageable copy and images/s on one batch."""
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+    from yolort_tpu_torch.runtime.streaming import StreamingPipeline
+
+    fr = frames(41, STREAM_FRAMES, *RUNTIME_HW)
+    batches = -(-STREAM_FRAMES // STREAM_BATCH)
+    out, launches = {}, {}
+    for dt, m in models.items():
+        m.model.score_thresh, m.model.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+        pipe = StreamingPipeline(m.model, batch_size=STREAM_BATCH, input_hw=RUNTIME_HW, dtype=dt)
+        pipe.warmup(1)
+        reset_launch_counts()
+        res = list(pipe.run(fr))
+        counts = launch_counts()
+        want = {k: n * batches for k, n in DEFAULT_PER_BATCH.items()}
+        if {k: n for k, n in counts.items() if n} != want or len(res) != STREAM_FRAMES:
+            raise AssertionError(f"streaming {dt}: {len(res)} results, launches {counts}")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        for start in range(0, STREAM_FRAMES, STREAM_BATCH):
+            chunk = fr[start:start + STREAM_BATCH]
+            want_d = m(chunk + [chunk[-1]] * (STREAM_BATCH - len(chunk)))
+            for i, (got, w) in enumerate(zip(res[start:start + STREAM_BATCH], want_d)):
+                if not all(np.array_equal(got[k], w[k]) for k in ("boxes", "scores", "labels")):
+                    raise AssertionError(f"streaming {dt}: frame {start + i} differs from "
+                                         f"YOLOv5.__call__ on its batch")
+        sec = stream_times(pipe, fr)
+        busy, rows = device_profile(lambda: list(pipe.run(fr)), iters=1)
+        pinned = htod_ms(rows, "Pinned") / batches
+        call_batch = fr[:STREAM_BATCH]
+        m(call_batch)
+        ts = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m(call_batch)
+            ts.append(time.perf_counter() - t0)
+        call_sec = float(np.median(ts))
+        call_busy, call_rows = device_profile(lambda: m(call_batch), iters=3)
+        pageable = htod_ms(call_rows, "Pageable")
+        reset_launch_counts()
+        r = dict(images_s=STREAM_FRAMES / sec, busy_ms_batch=(busy or 0.0) / batches,
+                 busy_share=(busy or 0.0) / 1e3 / sec, htod_pinned_ms=pinned,
+                 call_images_s=STREAM_BATCH / call_sec, call_busy_ms=call_busy,
+                 htod_pageable_ms=pageable)
+        out[str(dt)] = r
+        print(f"[stream] yolov5s {dt} serving batch {STREAM_BATCH} @640, {STREAM_FRAMES} frames "
+              f"({batches} batches, tail {STREAM_FRAMES % STREAM_BATCH}): every frame equal to "
+              f"YOLOv5.__call__ on its batch; {r['images_s']:.1f} images/s (host clock, median of "
+              f"5), device busy {r['busy_ms_batch']:.2f} ms a batch ({100 * r['busy_share']:.1f}% "
+              f"of the wall), HtoD pinned {pinned:.3f} ms a batch; YOLOv5.__call__ on one batch: "
+              f"{r['call_images_s']:.1f} images/s, HtoD pageable {pageable:.3f} ms, device busy "
+              f"{fmt_ms(call_busy)} | {card}", flush=True)
+    out["launches"] = launches
+    return out
+
+
+def phase_ir(models, card: str) -> dict:
+    """(e) ``relay.get_trace_module`` and ``utils.ir_visualizer`` on the card:
+    ``cost_analysis`` of yolov5s's pipeline @640 batch 1 and the node count
+    of its ``GraphVisualizer`` dot."""
+    import torch
+
+    from yolort_tpu_torch.relay import get_trace_module
+    from yolort_tpu_torch.utils.ir_visualizer import GraphVisualizer, cost_analysis
+
+    yolo = models[torch.float32].model
+    module, ep = get_trace_module(yolo, batch_size=1, input_hw=RUNTIME_HW)
+    if graph_ops(ep) != {k: n for k, n in DEFAULT_PER_BATCH.items()}:
+        raise AssertionError(f"trace module: graph ops {graph_ops(ep)}")
+    raw = torch.zeros(1, *RUNTIME_HW, 3, dtype=torch.uint8, device="cuda")
+    costs = cost_analysis(module, raw)
+    dot = GraphVisualizer(module, raw).to_dot(max_nodes=10_000)
+    nodes = sum(1 for line in dot.splitlines() if "[label=" in line)
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+
+    reset_launch_counts()
+    print(f"[ir] yolov5s pipeline @640 batch 1: cost_analysis {costs['flops'] / 1e9:.2f} GFLOP, "
+          f"{costs['bytes accessed'] / 1e6:.1f} MB accessed; dot of the exported graph {nodes} "
+          f"nodes; graph ops {graph_ops(ep)} | {card}", flush=True)
+    return dict(costs, dot_nodes=nodes)
+
+
+def phase_runtime(models, compiled, card: str) -> dict:
+    """Phase 12: export and reload, AOTInductor, the C++ driver, streaming,
+    relay and the IR tools, each path's launch counts set to 0 just before
+    it and read just after."""
+    req = np.stack(frames(40, RUNTIME_BATCH, *RUNTIME_HW))
+    out = dict(export=phase_export(models, req, card))
+    out["aoti"] = phase_aoti(models, req, card)
+    out["driver"] = phase_driver(compiled, card)
+    out["streaming"] = phase_streaming(models, card)
+    out["ir"] = phase_ir(models, card)
+    for m in models.values():
+        m.model.score_thresh, m.model.pre_nms_topk = EVAL["score_thresh"], EVAL["pre_nms_topk"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3059,7 +3367,8 @@ def main() -> int:
         print(f"[wall] {phase} done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase_build()
-    done("build")
+    cpp_compile = start_cpp_compile()
+    done("build (the C++ compiles go on in the background)")
     res = phase_kernels(device, card)
     for name, r in phase_postprocess_kernels(device, card).items():
         res.setdefault(name, {}).update(r)
@@ -3127,6 +3436,8 @@ def main() -> int:
     done("int8 rest: AP harness")
     tr = phase_train(device, card)
     done("train")
+    rt = phase_runtime(sl["models"], cpp_compile, card)
+    done("runtime and export")
     phase_throughput(sl["models"], card, "float")
     phase_throughput(q8["models"], card, "int8")
     phase_route_times(sl["models"], card)
@@ -3141,7 +3452,9 @@ def main() -> int:
              "ensemble": ens_tta["ensemble"]["launches"], "tta": ens_tta["tta"]["launches"],
              "int8_lite": lite_served["int8_lite"]["launches"],
              "int8_lite_grouped": lite_served["int8_lite_grouped"]["launches"],
-             "int8_ap": int8_ap["launches"], **phase_entry_points()}
+             "int8_ap": int8_ap["launches"], "export": rt["export"]["launches"],
+             "aoti": rt["aoti"]["launches"], "streaming": rt["streaming"]["launches"],
+             **phase_entry_points()}
     done("entry points")
     kernels = []
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -3151,6 +3464,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=sum(by_path.values()), launches_by_path=by_path,
                             launches_per_batch_by_route=per_batch, **r))
+    print(f"[wall] total {time.perf_counter() - t0:.1f} s from the build's start", flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

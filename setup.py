@@ -11,8 +11,9 @@ setup(
     packages=find_packages(
         include=["yolort_tpu", "yolort_tpu.*", "yolort_tpu_torch", "yolort_tpu_torch.*"]
     ),
-    # the port's CUDA sources, compiled with nvcc at first kernel launch
-    package_data={"yolort_tpu_torch": ["csrc/*.cu"]},
+    # the port's CUDA sources, compiled with nvcc at first kernel launch, and
+    # the C++ op library of its driver (deployment/libtorch), built with g++
+    package_data={"yolort_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/*.cpp"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from yolort_tpu.models.yolo import YOLO as JaxYOLO
+from yolort_tpu.ops import nms as JN
 from yolort_tpu.ops.blocks import StaticScale, fuse_conv_bn
 from yolort_tpu_torch.models._bridge import params_from_jax
 from yolort_tpu_torch.models.yolo import YOLO
@@ -196,3 +197,42 @@ def random_targets(seed: int, batch: int = 2, t: int = 4, nc: int = 8, valid=(3,
     tg[..., 3:5] = rng.uniform(0.05, 0.5, (batch, t, 2))
     mask = np.arange(t)[None, :] < np.asarray(valid)[:, None]
     return tg, mask
+
+
+class JaxCellModel:
+    """The JAX model with its postprocess on the cell path with bisect
+    selection (``flatten_pad='cell'``, ``topk_impl='bisect'``), the program
+    the port's postprocess ports; called as the JAX runtime calls a model."""
+
+    def __init__(self, jm):
+        self.jm = jm
+
+    def __call__(self, params, images):
+        jm = self.jm
+        return JN.batched_postprocess_from_heads(
+            jm.head_outputs(params, images), jm.strides, jm.anchor_grids,
+            num_classes=jm.num_classes, score_thresh=jm.score_thresh, nms_thresh=jm.nms_thresh,
+            detections_per_img=jm.detections_per_img, pre_nms_topk=jm.pre_nms_topk,
+            flatten_pad="cell", topk_impl="bisect", row_gather="pallas_bisect", nms_impl="xla",
+        )
+
+
+def assert_detections_match(got: dict, want: dict, label: str, box_tol=None,
+                            score_tol=None) -> None:
+    """Every detection of ``want`` has its own counterpart in ``got``: the
+    same label, box and score within the tolerances (near-equal scores may
+    take each other's places).  The default tolerances are the JAX runtime
+    tests' (tests/test_runtime_aot.py: boxes rtol 1e-3 / atol 1e-4, scores
+    rtol 1e-3 / atol 1e-5)."""
+    box_tol = box_tol or dict(rtol=1e-3, atol=1e-4)
+    score_tol = score_tol or dict(rtol=1e-3, atol=1e-5)
+    n = len(want["scores"])
+    assert n > 0, f"{label}: no detections"
+    assert len(got["scores"]) == n, (label, len(got["scores"]), n)
+    used = np.zeros(n, bool)
+    for box, score, lab in zip(want["boxes"], want["scores"], want["labels"]):
+        ok = ((got["labels"] == lab) & ~used
+              & np.isclose(got["scores"], score, **score_tol)
+              & np.isclose(got["boxes"], box[None], **box_tol).all(-1))
+        assert ok.any(), f"{label}: no counterpart for {lab} {score} {box}"
+        used[np.flatnonzero(ok)[0]] = True

@@ -68,8 +68,12 @@ class YOLOHead(nn.Module):
                 b[:, 5:] += math.log(0.6 / (self.num_classes - 0.999999))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """Channels-last NCHW features -> per-level logits, NHWC."""
-        return [conv(x).permute(0, 2, 3, 1) for conv, x in zip(self.children(), feats)]
+        """Channels-last NCHW features -> per-level logits, NHWC contiguous:
+        a channels_last conv output seen as NHWC already is, so
+        ``contiguous`` copies nothing when the model runs; where
+        ``torch.export`` traces the conv on the card its fake output is not
+        channels_last, and the traced program copies here."""
+        return [conv(x).permute(0, 2, 3, 1).contiguous() for conv, x in zip(self.children(), feats)]
 
 
 def anchor_props_from_index(

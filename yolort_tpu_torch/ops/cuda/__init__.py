@@ -43,3 +43,7 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for fn in KERNELS:
         fn.launches = 0
+
+
+# the dispatcher ops the wrappers call (imported last: it reads the modules above)
+from yolort_tpu_torch.ops import library  # noqa: E402,F401

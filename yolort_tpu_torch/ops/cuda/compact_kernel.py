@@ -13,7 +13,7 @@ import torch
 
 from yolort_tpu_torch.ops.cuda import _build
 from yolort_tpu_torch.ops.cuda.lookup_kernel import (
-    CHUNK, NO_VALID_BITS, _check_cuda, _check_table,
+    CHUNK, NO_VALID_BITS, _check_aligned, _check_cuda, _check_table,
 )
 
 
@@ -66,6 +66,7 @@ def compact_place(table: torch.Tensor, cnt: torch.Tensor, off: torch.Tensor, t: 
     if table.device.type == "cpu":
         return compact_place_reference(table, cnt, off, t, thr_bits, k)
     _check_cuda("compact_place", table, cnt, off, t)
+    _check_aligned("compact_place", table)
     # the kernel writes every slot, the empty tail too: one launch a call
     vals = torch.empty(bsz, k, dtype=torch.float32, device=table.device)
     idx = torch.empty(bsz, k, dtype=torch.int32, device=table.device)

@@ -103,7 +103,8 @@ def bisect_count(table: torch.Tensor, k: int, thr_bits: int):
 
     table (B, m, 128) f32 scores in [0, 2), k >= 1, thr_bits the f32 bits
     of a threshold >= 0.  Returns (t (B,) i32, cnt_gt (B, m) i32,
-    cnt_eq (B, m) i32).  CUDA tensors launch the kernel on the current
+    cnt_eq (B, m) i32).  Calls the op ``yolort_tpu::bisect_count``
+    (``ops/library.py``): CUDA tensors launch the kernel on the current
     stream, at ``bisect_plan``'s cluster size and mode; CPU tensors take
     ``bisect_count_reference``."""
     if table.dim() != 3 or table.shape[-1] != 128 or table.dtype != torch.float32:
@@ -112,17 +113,11 @@ def bisect_count(table: torch.Tensor, k: int, thr_bits: int):
         raise ValueError(f"k must be >= 1, got {k}")
     if not 0 <= thr_bits < NO_VALID_BITS:
         raise ValueError(f"thr_bits must be the bits of a threshold in [0, 2), got {thr_bits:#x}")
-    if table.device.type == "cpu":
-        return bisect_count_reference(table, k, thr_bits)
-    if table.device.type != "cuda":
+    if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"bisect_count runs on cuda or cpu tensors, not {table.device}")
-    if not table.is_contiguous():
+    if table.device.type == "cuda" and not table.is_contiguous():
         raise ValueError("bisect_count needs a contiguous table")
-    if table.data_ptr() % 16:
-        raise ValueError("bisect_count needs a 16-byte aligned table (the kernel loads int4)")
-    out = _launch_bisect(table, k, thr_bits, bisect_plan(table.shape[0], table.shape[1]))
-    bisect_count.launches += 1
-    return out
+    return torch.ops.yolort_tpu.bisect_count(table, int(k), int(thr_bits))
 
 
 bisect_count.launches = 0
@@ -198,15 +193,12 @@ def _launch_rows(table: torch.Tensor, idx: torch.Tensor, warps_per_block: int,
 
 def row_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Bit-exact row gather, (B, m, w) f32|bf16 + (B, k) int32 -> (B, k, w),
-    indices clamped to [0, m-1].  CUDA tensors launch the kernel on the
-    current stream, at ``row_fetch_geometry``'s launch; CPU tensors take
+    indices clamped to [0, m-1].  Calls the op ``yolort_tpu::row_fetch``
+    (``ops/library.py``): CUDA tensors launch the kernel on the current
+    stream, at ``row_fetch_geometry``'s launch; CPU tensors take
     ``row_fetch_reference``."""
-    if _check_rows("row_fetch", table, idx):
-        return row_fetch_reference(table, idx)
-    out = _launch_rows(table, idx, *row_fetch_geometry(table.shape[2] * table.element_size(),
-                                                      *idx.shape))
-    row_fetch.launches += 1
-    return out
+    _check_rows("row_fetch", table, idx)
+    return torch.ops.yolort_tpu.row_fetch(table, idx)
 
 
 row_fetch.launches = 0
@@ -246,6 +238,10 @@ def _check_cuda(name: str, table: torch.Tensor, *others: torch.Tensor) -> None:
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {table.device}")
     if not (table.is_contiguous() and all(x.is_contiguous() for x in others)):
         raise ValueError(f"{name} needs contiguous inputs")
+
+
+def _check_aligned(name: str, table: torch.Tensor) -> None:
+    """The address check a launch makes (a fake tensor has no address)."""
     if table.data_ptr() % 16:
         raise ValueError(f"{name} needs a 16-byte aligned table (the kernel loads int4)")
 
@@ -322,13 +318,12 @@ def lookup_fetch(table: torch.Tensor, off: torch.Tensor, k: int):
     slot s: c = (number of offsets <= s) - 1 clipped to [0, 2m-1],
     is_eq = c >= m, phys = c - m*is_eq, p = s - off[c].  Returns (rows
     (B, k, 128) f32 with the bits of table[b, phys], phys (B, k) i32,
-    p (B, k) i32, is_eq (B, k) bool).  CUDA tensors launch the kernel on
-    the current stream; CPU tensors take ``lookup_fetch_reference``."""
-    if _check_lookup("lookup_fetch", table, off, k):
-        return lookup_fetch_reference(table, off, k)
-    out = _launch_lookup(table, off, k, "full")
-    lookup_fetch.launches += 1
-    return out
+    p (B, k) i32, is_eq (B, k) bool).  Calls the op
+    ``yolort_tpu::lookup_fetch`` (``ops/library.py``): CUDA tensors launch
+    the kernel on the current stream; CPU tensors take
+    ``lookup_fetch_reference``."""
+    _check_lookup("lookup_fetch", table, off, k)
+    return torch.ops.yolort_tpu.lookup_fetch(table, off, int(k))
 
 
 lookup_fetch.launches = 0
@@ -388,6 +383,7 @@ def lookup_fetch_variant(table: torch.Tensor, off: torch.Tensor, k: int, variant
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if _check_lookup("lookup_fetch_variant", table, off, k):
         return lookup_fetch_variant_reference(table, off, k, variant)
+    _check_aligned("lookup_fetch_variant", table)
     out = _launch_lookup(table, off, k, variant)
     lookup_fetch_variant.launches += 1
     return out
@@ -409,8 +405,9 @@ def select_extract(table: torch.Tensor, phys: torch.Tensor, p: torch.Tensor,
     table (B, m, 128) f32; phys, p (B, k) i32; is_eq (B, k) bool; t (B,)
     i32 k-th value bits; thr_bits the f32 bits of a threshold >= 0.
     Returns (vals (B, k) f32, lane (B, k) i32), (0.0, 0) for a slot with
-    no hit.  CUDA tensors launch the kernel on the current stream; CPU
-    tensors take ``select_extract_reference``."""
+    no hit.  Calls the op ``yolort_tpu::select_extract``
+    (``ops/library.py``): CUDA tensors launch the kernel on the current
+    stream; CPU tensors take ``select_extract_reference``."""
     _check_table(table, "select_extract")
     bsz, m, _ = table.shape
     if not (phys.dim() == 2 and phys.shape[0] == bsz and p.shape == is_eq.shape == phys.shape):
@@ -422,23 +419,15 @@ def select_extract(table: torch.Tensor, phys: torch.Tensor, p: torch.Tensor,
         raise ValueError(f"select_extract: t must be ({bsz},) on the table's device, got {tuple(t.shape)}")
     if not 0 <= thr_bits < NO_VALID_BITS:
         raise ValueError(f"thr_bits must be the bits of a threshold in [0, 2), got {thr_bits:#x}")
-    if table.device.type == "cpu":
-        return select_extract_reference(table, phys, p, is_eq, t, thr_bits)
-    if (phys.dtype, p.dtype, is_eq.dtype, t.dtype) != (torch.int32, torch.int32, torch.bool, torch.int32):
-        raise ValueError("select_extract: phys, p and t must be int32 and is_eq bool on cuda")
-    _check_cuda("select_extract", table, phys, p, is_eq, t)
-    k = phys.shape[1]
-    vals = torch.empty(bsz, k, dtype=torch.float32, device=table.device)
-    lane = torch.empty(bsz, k, dtype=torch.int32, device=table.device)
-    lib = _build.library()
-    with torch.cuda.device(table.device):
-        rc = lib.yt_select_extract(
-            table.data_ptr(), phys.data_ptr(), p.data_ptr(), is_eq.data_ptr(), t.data_ptr(),
-            int(thr_bits), bsz, m, k, vals.data_ptr(), lane.data_ptr(), _build.stream_of(table),
-        )
-    _build.check(rc, "select_extract")
-    select_extract.launches += 1
-    return vals, lane
+    if table.device.type == "cuda":
+        if (phys.dtype, p.dtype, is_eq.dtype, t.dtype) != (torch.int32, torch.int32, torch.bool,
+                                                            torch.int32):
+            raise ValueError("select_extract: phys, p and t must be int32 and is_eq bool on cuda")
+        if not all(x.is_contiguous() for x in (table, phys, p, is_eq, t)):
+            raise ValueError("select_extract needs contiguous inputs")
+    elif table.device.type != "cpu":
+        raise ValueError(f"select_extract runs on cuda or cpu tensors, not {table.device}")
+    return torch.ops.yolort_tpu.select_extract(table, phys, p, is_eq, t, int(thr_bits))
 
 
 select_extract.launches = 0

@@ -17,7 +17,6 @@ from __future__ import annotations
 import torch
 
 from yolort_tpu_torch.ops.boxes import box_iou_matrix
-from yolort_tpu_torch.ops.cuda import _build
 
 
 def nms_mask_reference(
@@ -62,7 +61,7 @@ def nms_mask_reference(
         tile_alive = torch.where(active[:, None], a, alive[:, start:start + t])
         alive[:, start:start + t] = tile_alive
         kept += tile_alive.sum(-1)
-    return alive[:, :k]
+    return alive[:, :k].contiguous()  # the kernel's layout
 
 
 def nms_mask(
@@ -71,7 +70,8 @@ def nms_mask(
 ) -> torch.Tensor:
     """Greedy NMS keep mask, (B, K, 4) f32 + (B, K) bool -> (B, K) bool.
 
-    CUDA tensors launch ``csrc/nms_mask.cu`` on the current stream (no
+    Calls the op ``yolort_tpu::nms_mask`` (``ops/library.py``): CUDA
+    tensors launch ``csrc/nms_mask.cu`` on the current stream (no
     synchronisation); CPU tensors take ``nms_mask_reference``.  Any other
     device, or input the kernel does not take, raises."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
@@ -82,30 +82,12 @@ def nms_mask(
         raise ValueError("boxes and valid must be on one device")
     if tile_size <= 0:
         raise ValueError(f"tile_size must be positive, got {tile_size}")
-    if boxes.device.type == "cpu":
-        return nms_mask_reference(boxes, valid, iou_thresh, tile_size, stop_after)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms_mask runs on cuda or cpu tensors, not {boxes.device}")
-    if not (boxes.is_contiguous() and valid.is_contiguous()):
+    if boxes.device.type == "cuda" and not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("nms_mask needs contiguous boxes and valid")
-    if boxes.data_ptr() % 16:
-        raise ValueError("nms_mask needs 16-byte aligned boxes (the kernel loads float4)")
-    bsz, k, _ = boxes.shape
-    tile = min(tile_size, k)
-    stop = min(stop_after, k + 1) if stop_after > 0 else k + 1  # k + 1: no early exit
-    keep = torch.empty_like(valid)
-    lib = _build.library()
-    # the kept-box list: as many rows an image as the kernel says it can keep
-    rows = lib.yt_nms_scratch_rows(k, tile, stop)
-    scratch = torch.empty(bsz, rows, 4, dtype=torch.float32, device=boxes.device)
-    with torch.cuda.device(boxes.device):
-        rc = lib.yt_nms_mask(
-            boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), scratch.data_ptr(), bsz, k,
-            float(iou_thresh), tile, stop, _build.stream_of(boxes),
-        )
-    _build.check(rc, "nms_mask")
-    nms_mask.launches += 1
-    return keep
+    return torch.ops.yolort_tpu.nms_mask(boxes, valid, float(iou_thresh), int(tile_size),
+                                         int(stop_after))
 
 
 nms_mask.launches = 0

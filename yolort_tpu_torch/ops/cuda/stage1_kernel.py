@@ -69,10 +69,11 @@ def fused_cells_stage1(levels: Sequence[torch.Tensor], num_anchors: int, kw: int
     levels: 1-4 head outputs (B, H, W, C) or (B, R, C), C = A*kw, one dtype
     (float32 or bfloat16).  Returns (cells (B, sum R_l, C), obj (B, sum R_l,
     A), cls (B, sum R_l, A)) in that dtype, equal to
-    ``fused_cells_stage1_reference``.  CUDA tensors launch the kernel on
-    the current stream and must be contiguous (a strided level raises
-    rather than being copied); any base address and row count is taken.
-    CPU tensors take the plain version."""
+    ``fused_cells_stage1_reference``.  Calls the op
+    ``yolort_tpu::fused_cells_stage1`` (``ops/library.py``): CUDA tensors
+    launch the kernel on the current stream and must be contiguous (a
+    strided level raises rather than being copied); any base address and
+    row count is taken.  CPU tensors take the plain version."""
     levels = list(levels)
     if not 1 <= len(levels) <= MAX_LEVELS:
         raise ValueError(f"fused_cells_stage1 takes 1-{MAX_LEVELS} levels, got {len(levels)}")
@@ -87,30 +88,11 @@ def fused_cells_stage1(levels: Sequence[torch.Tensor], num_anchors: int, kw: int
             raise ValueError(f"levels must be (B, ..., {C}) with one batch size, got {tuple(lv.shape)}")
         if lv.dtype != first.dtype or lv.device != first.device:
             raise ValueError("levels must share one dtype and one device")
-    if first.device.type == "cpu":
-        return fused_cells_stage1_reference(levels, num_anchors, kw)
-    if first.device.type != "cuda":
+    if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_cells_stage1 runs on cuda or cpu tensors, not {first.device}")
-    if not all(lv.is_contiguous() for lv in levels):
+    if first.device.type == "cuda" and not all(lv.is_contiguous() for lv in levels):
         raise ValueError("fused_cells_stage1 needs contiguous levels (NHWC head outputs as views)")
-    bsz = first.shape[0]
-    rows = [_rows(lv) for lv in levels]
-    n_cells = sum(rows)
-    cells = torch.empty(bsz, n_cells, C, dtype=first.dtype, device=first.device)
-    obj = torch.empty(bsz, n_cells, num_anchors, dtype=first.dtype, device=first.device)
-    cls = torch.empty_like(obj)
-    pad = MAX_LEVELS - len(levels)
-    neg = float(torch.tensor(NEG_LOGIT, dtype=first.dtype))  # -9984.0 in bfloat16
-    lib = _build.library()
-    with torch.cuda.device(first.device):
-        rc = lib.yt_cells_stage1(
-            *[lv.data_ptr() for lv in levels], *[None] * pad, *rows, *[0] * pad, len(levels),
-            bsz, C, num_anchors, kw, neg, first.element_size(), cells.data_ptr(),
-            obj.data_ptr(), cls.data_ptr(), _build.stream_of(first),
-        )
-    _build.check(rc, "fused_cells_stage1")
-    fused_cells_stage1.launches += 1
-    return cells, obj, cls
+    return torch.ops.yolort_tpu.fused_cells_stage1(levels, num_anchors, kw)
 
 
 fused_cells_stage1.launches = 0
