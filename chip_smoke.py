@@ -3064,7 +3064,109 @@ def phase_train(device, card: str) -> dict:
             raise AssertionError("train state: save and load on the card did not give it back")
         print(f"[train] train state saved and loaded on the card: params, momentum, step "
               f"{back.step} and schedule count {back.scheduler.last_epoch} bit for bit", flush=True)
-    return dict(launches=counts, step_ms=step_ms, peak=peak, report=report)
+    del task, state, back, back_task
+    t0 = time.perf_counter()
+    bf16 = phase_train_bf16(device, card, data, dm_kw)
+    print(f"[wall] phase 9e, bf16 step: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(launches=counts, step_ms=step_ms, peak=peak, report=report, bf16=bf16)
+
+
+# card against CPU, one bfloat16 step from the same params on the same batch
+# of 8 @640: loss terms relative, the gradients' global norm relative (each
+# leaf's norm is printed).  Measured on an H100 80GB at 700 W: loss 6.25e-5,
+# global norm 5.6e-6, the worst leaf's norm 1.55e-3 (a BatchNorm var): two
+# devices' bfloat16 convolutions round their float32 sums differently.
+TRAIN_BF16_TOL = {"loss": 1e-3, "grad_norm": 1e-3}
+
+
+def phase_train_bf16(device, card: str, data, dm_kw) -> dict:
+    """(e) bfloat16 training, as the JAX package's bench casts it: yolov5s
+    r6.0 @640 from a fabricated checkpoint's unfused leaves
+    (``load_from_ultralytics(..., fuse=False)``: seeded init weights'
+    activations vanish with depth, so every image would give the same
+    logits), params cast to bfloat16 (``utils.common.cast_floating``), the
+    optimizer made again on the cast params (bfloat16 momentum buffers),
+    bfloat16 images.  One step on the card and on the CPU from the same
+    params on one batch of 8: loss terms and gradient norms within
+    ``TRAIN_BF16_TOL``; then ten steps on the card, steps 3-10 timed (CUDA
+    events), a step's device time (profiler), the peak memory."""
+    import torch
+
+    from yolort_tpu_torch.data.data_module import DetectionDataModule
+    from yolort_tpu_torch.models._bridge import params_from_jax, params_to_jax
+    from yolort_tpu_torch.models._checkpoint import load_from_ultralytics
+    from yolort_tpu_torch.models.yolo import build_yolo
+    from yolort_tpu_torch.trainer.task import DefaultTask, TrainState
+    from yolort_tpu_torch.utils.common import cast_floating
+
+    arch = "yolov5_darknet_pan_s_r60"
+    bf = torch.bfloat16
+    batch = next(DetectionDataModule(data, batch_size=TRAIN_BATCH, **dm_kw).batches())
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        start = load_from_ultralytics(fabricate(tmp, "s r6.0", dict(dm=0.33, wm=0.5))[0],
+                                      fuse=False)["params"]
+    losses, norms, secs = {}, {}, {}
+    for side, dev in (("card", device), ("cpu", cpu)):
+        model = cast_floating(params_from_jax(start, build_yolo(arch, device=dev)).trainable(), bf)
+        task = DefaultTask(model, **TRAIN_CFG)
+        state = TrainState(model, *task.make_optimizer())
+        bi, bt, bm = (torch.from_numpy(batch[k]).to(dev) for k in ("images", "targets",
+                                                                  "target_mask"))
+        t0 = time.perf_counter()
+        state, metrics = task.train_step(state, bi.to(bf), bt, bm)
+        losses[side] = {k: float(v) for k, v in metrics.items()}
+        secs[side] = time.perf_counter() - t0
+        grads = params_to_jax(model, leaf=lambda q: q.grad)
+        norms[side] = {path: float(np.linalg.norm(g)) for path, g in _leaves(grads)}
+        if side == "card":
+            card_state, card_task, card_batch = state, task, (bi.to(bf), bt, bm)
+    loss_err = max((abs(losses["card"][k] - v) / abs(v), k) for k, v in losses["cpu"].items())
+    glob = {side: float(np.sqrt(sum(v * v for v in n.values()))) for side, n in norms.items()}
+    glob_err = abs(glob["card"] - glob["cpu"]) / glob["cpu"]
+    leaf_err = max((abs(norms["card"][k] - v) / v, k) for k, v in norms["cpu"].items() if v > 0)
+    print(f"[train bf16] one step of {TRAIN_BATCH} @640, card {secs['card']:.2f} s / CPU "
+          f"{secs['cpu']:.2f} s; losses card {losses['card']} CPU {losses['cpu']}; worst loss "
+          f"term {loss_err[1]} at {loss_err[0]:.3g} (tolerance {TRAIN_BF16_TOL['loss']:g}); "
+          f"gradient global norm card {glob['card']:.6g} CPU {glob['cpu']:.6g}, {glob_err:.3g} "
+          f"apart (tolerance {TRAIN_BF16_TOL['grad_norm']:g}); worst leaf norm {leaf_err[1]} at "
+          f"{leaf_err[0]:.3g} | {card}", flush=True)
+    if not (loss_err[0] <= TRAIN_BF16_TOL["loss"] and glob_err <= TRAIN_BF16_TOL["grad_norm"]):
+        raise AssertionError(f"bf16 step: the card's loss or gradient norm is off the CPU's "
+                             f"({loss_err}, {glob_err:.3g})")
+    totals = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(10):
+        if i == 2:
+            events[0].record()
+        card_state, metrics = card_task.train_step(card_state, *card_batch)
+        totals.append(metrics["total"])
+    events[1].record()
+    torch.cuda.synchronize()
+    step_ms = events[0].elapsed_time(events[1]) / 8
+    peak = torch.cuda.max_memory_allocated()
+    totals = [float(t) for t in totals]
+    if not all(np.isfinite(totals)):
+        raise AssertionError(f"bf16 train: a loss is not finite: {totals}")
+    busy, rows = device_profile(lambda: card_task.train_step(card_state, *card_batch), iters=3)
+    print(f"[train bf16] repeated batch: totals {[round(t, 5) for t in totals]}; step at batch "
+          f"{TRAIN_BATCH} @640 bf16: {step_ms:.2f} ms (CUDA events, steps 3-10), "
+          f"{TRAIN_BATCH * 1e3 / step_ms:.1f} images/s, device busy {fmt_ms(busy)} a step "
+          f"(profiler), max_memory_allocated {peak / 2**30:.3f} GiB; top kernels: "
+          + "; ".join(f"{name[:70]} {ms:.3f}" for name, ms in (rows or [])[:6]) + f" | {card}",
+          flush=True)
+    return dict(step_ms=step_ms, busy_ms=busy, peak=peak, loss_err=loss_err[0],
+                grad_norm_err=glob_err, leaf_norm_err=leaf_err[0])
+
+
+def _leaves(tree, path=""):
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{path}/{key}")
+        else:
+            yield f"{path}/{key}", v
 
 
 # --------------------------------------------------------------------------
@@ -3165,6 +3267,89 @@ def phase_export(models, req, card: str) -> dict:
                       flush=True)
             yolo.row_gather = DEFAULT_ROUTE
     return dict(launches=total, seconds=times)
+
+
+def phase_export_moved(models, req, card: str) -> dict:
+    """(a) continued, f32, default route, serving config: an artifact
+    exported on the card and served on the CPU (``load_aot(path,
+    device="cpu")``, the program moved) equals the CPU export's output bit
+    for bit; one exported on the CPU and served on the card launches exactly
+    the route's kernels and pairs with the card export's detections; the
+    flatten (``classes_per_anchor``) and decoded (an ``Ensemble``'s pooled
+    predictions) paths export on the card, their detections identical to the
+    live pipeline's, their launches exact."""
+    import copy
+
+    import torch
+
+    from yolort_tpu_torch.models.ensemble import Ensemble
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+    from yolort_tpu_torch.runtime.aot import _pipeline_fn, export_aot, load_aot, plan_for
+
+    yolo = models[torch.float32].model
+    yolo.score_thresh, yolo.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+    x = torch.from_numpy(req).cuda()
+    kw = dict(batch_size=RUNTIME_BATCH, input_hw=RUNTIME_HW)
+    moved, paths = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        on_card = export_aot(yolo, f"{tmp}/card.ytpt", **kw)
+        cpu_model = copy.deepcopy(yolo).cpu()
+        on_cpu = export_aot(cpu_model, f"{tmp}/cpu.ytpt", **kw)
+        t1 = time.perf_counter()
+        card_on_cpu = load_aot(on_card, device="cpu")
+        got = card_on_cpu(req)
+        want = load_aot(on_cpu)(req)
+        if card_on_cpu.meta["device"] != "cuda:0" or got[0].device.type != "cpu":
+            raise AssertionError(f"export moved: {card_on_cpu.meta['device']} -> {got[0].device}")
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("export moved: the card's artifact on the CPU differs from the "
+                                 "CPU export's output")
+        t2 = time.perf_counter()
+        cpu_on_card = load_aot(on_cpu, device="cuda")
+        reset_launch_counts()
+        moved_out = cpu_on_card(req)
+        moved = launch_counts()
+        route_want = {k: (2 if k == "bisect_count" else 1) if k in ROUTE_KERNELS[DEFAULT_ROUTE]
+                      else 0 for k in moved}
+        if moved != route_want:
+            raise AssertionError(f"export moved to the card: launches {moved}, want {route_want}")
+        card_out = load_aot(on_card)(req)
+        unpaired = pair_detections(as_dets(moved_out), as_dets(tuple(t.cpu() for t in card_out)),
+                                   "export moved")
+        bitwise = all(torch.equal(a, b) for a, b in zip(moved_out, card_out))
+        print(f"[export] moved: the card's f32 artifact on the CPU equals the CPU export's output "
+              f"bit for bit ({got[3].tolist()} a frame; exports {t1 - t0:.1f} s, the CPU runs "
+              f"{t2 - t1:.1f} s); the CPU's artifact on the card launches "
+              f"{ {k: n for k, n in moved.items() if n} }, {unpaired} unpaired against the card's "
+              f"export (bit for bit: {bitwise}) | {card}", flush=True)
+        del cpu_model, card_on_cpu, cpu_on_card
+
+        other = copy.deepcopy(yolo)
+        with torch.no_grad():
+            for p in other.parameters():
+                p.mul_(1.01)
+        for name, model in (("classes_per_anchor", yolo), ("decoded", Ensemble([yolo, other]))):
+            yolo.classes_per_anchor = CPA if name == "classes_per_anchor" else None
+            pred = load_aot(export_aot(model, f"{tmp}/{name}.ytpt", **kw))
+            reset_launch_counts()
+            out = pred(req)
+            counts = launch_counts()
+            want_n = {k: FLATTEN_KERNELS[DEFAULT_ROUTE].get(k, 0) for k in counts}
+            if counts != want_n:
+                raise AssertionError(f"export {name}: launches {counts}, want {want_n}")
+            with torch.no_grad():
+                live = _pipeline_fn(model, plan_for(RUNTIME_HW), torch.float32)(x)
+            if not all(torch.equal(a, b) for a, b in zip(out, live)) or int(out[3].min()) <= 0:
+                raise AssertionError(f"export {name}: the reloaded program differs from the live "
+                                     f"pipeline or serves an empty frame")
+            for k, n in counts.items():
+                paths[k] = paths.get(k, 0) + n
+            print(f"[export] {name} path, f32 batch {RUNTIME_BATCH} @640 on the card: detections "
+                  f"identical to the live pipeline ({out[3].tolist()} a frame); launches "
+                  f"{ {k: n for k, n in counts.items() if n} } | {card}", flush=True)
+        yolo.classes_per_anchor = None
+    return dict(moved=moved, paths=paths)
 
 
 def phase_aoti(models, req, card: str) -> dict:
@@ -3312,6 +3497,52 @@ def phase_streaming(models, card: str) -> dict:
     return out
 
 
+INT8_STREAM_FRAMES = 2 * STREAM_BATCH + 5
+
+
+def phase_int8_stream(qmodels, card: str) -> dict:
+    """(d) continued: ``StreamingPipeline`` of the int8 yolov5s in both
+    compute dtypes, serving config, two batches of 32 and a tail of 5: each
+    frame's detections equal ``YOLOv5.__call__`` on the same padded batch;
+    the qconv kernels launched a forward's count a batch (42 ``qconv1x1``,
+    18 ``qconv_kxk``), the postprocess kernels as the float stream."""
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+    from yolort_tpu_torch.runtime.streaming import StreamingPipeline
+
+    fr = frames(43, INT8_STREAM_FRAMES, *RUNTIME_HW)
+    batches = -(-INT8_STREAM_FRAMES // STREAM_BATCH)
+    launches, out = {}, {}
+    for dt, m in qmodels.items():
+        m.model.score_thresh, m.model.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
+        pipe = StreamingPipeline(m.model, batch_size=STREAM_BATCH, input_hw=RUNTIME_HW, dtype=dt)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = list(pipe.run(fr))
+        sec = time.perf_counter() - t0
+        counts = launch_counts()
+        want = {k: n * batches for k, n in {**DEFAULT_PER_BATCH, "qconv1x1": 42,
+                                            "qconv_kxk": 18}.items()}
+        if {k: n for k, n in counts.items() if n} != want or len(res) != INT8_STREAM_FRAMES:
+            raise AssertionError(f"int8 stream {dt}: {len(res)} results, launches {counts}, "
+                                 f"want {want}")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        for start in range(0, INT8_STREAM_FRAMES, STREAM_BATCH):
+            chunk = fr[start:start + STREAM_BATCH]
+            want_d = m(chunk + [chunk[-1]] * (STREAM_BATCH - len(chunk)))
+            for i, (got, w) in enumerate(zip(res[start:start + STREAM_BATCH], want_d)):
+                if not all(np.array_equal(got[k], w[k]) for k in ("boxes", "scores", "labels")):
+                    raise AssertionError(f"int8 stream {dt}: frame {start + i} differs from "
+                                         f"YOLOv5.__call__ on its batch")
+        out[str(dt)] = sec
+        print(f"[stream] int8 yolov5s {dt} serving, {INT8_STREAM_FRAMES} frames ({batches} batches "
+              f"of {STREAM_BATCH}): every frame equal to YOLOv5.__call__ on its batch, launches "
+              f"{ {k: n for k, n in counts.items() if n} }, {sec:.2f} s with the first batch's "
+              f"warm-up | {card}", flush=True)
+        m.model.score_thresh, m.model.pre_nms_topk = EVAL["score_thresh"], EVAL["pre_nms_topk"]
+    return dict(launches=launches, seconds=out)
+
+
 def phase_ir(models, card: str) -> dict:
     """(e) ``relay.get_trace_module`` and ``utils.ir_visualizer`` on the card:
     ``cost_analysis`` of yolov5s's pipeline @640 batch 1 and the node count
@@ -3338,18 +3569,230 @@ def phase_ir(models, card: str) -> dict:
     return dict(costs, dot_nodes=nodes)
 
 
-def phase_runtime(models, compiled, card: str) -> dict:
-    """Phase 12: export and reload, AOTInductor, the C++ driver, streaming,
-    relay and the IR tools, each path's launch counts set to 0 just before
-    it and read just after."""
+def phase_runtime(models, qmodels, compiled, card: str) -> dict:
+    """Phase 12: export and reload (and moved between the card and the CPU,
+    and the flatten and decoded paths), AOTInductor, the C++ driver,
+    streaming (float and int8), relay and the IR tools, each path's launch
+    counts set to 0 just before it and read just after."""
     req = np.stack(frames(40, RUNTIME_BATCH, *RUNTIME_HW))
+    t0 = time.perf_counter()
     out = dict(export=phase_export(models, req, card))
+    out["export_more"] = phase_export_moved(models, req, card)
+    print(f"[wall] phase 12a, exports: {time.perf_counter() - t0:.1f} s", flush=True)
     out["aoti"] = phase_aoti(models, req, card)
     out["driver"] = phase_driver(compiled, card)
     out["streaming"] = phase_streaming(models, card)
+    t0 = time.perf_counter()
+    out["int8_stream"] = phase_int8_stream(qmodels, card)
+    print(f"[wall] phase 12d, int8 stream: {time.perf_counter() - t0:.1f} s", flush=True)
     out["ir"] = phase_ir(models, card)
     for m in models.values():
         m.model.score_thresh, m.model.pre_nms_topk = EVAL["score_thresh"], EVAL["pre_nms_topk"]
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 13: data-parallel serving and training, the CLIs
+# --------------------------------------------------------------------------
+
+PARALLEL_BATCH = 32
+TRAIN_EPOCHS_MESH = 2
+
+
+class CountedCollectives:
+    """Counts the ``torch.distributed`` collectives issued inside a ``with``
+    (by name), calling through to the real ones: phase 13 shows that the
+    NCCL calls ran at world size 1 and not only the group's set-up."""
+
+    NAMES = ("all_reduce", "all_gather", "broadcast", "all_gather_object")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.saved = {n: getattr(dist, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(dist, name, counted)
+        return self.calls
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+
+
+def phase_parallel(device, card: str) -> dict:
+    """Phase 13, yolov5s r6.0 @640 at full width on a fabricated checkpoint's
+    weights (tests/torch_fixture.make_checkpoint), through
+    ``yolort_tpu_torch.parallel`` on an NCCL process group of one rank (the
+    machine has one card; the two-rank semantics are held on gloo by the CPU
+    tests): (a) ``data_parallel_infer`` at batch 32, serving config, equal
+    to the model's own call, with exactly the route's launches; its batch
+    time beside ``YOLOv5.__call__``'s; (b) ``fit(mesh=...)`` for two epochs
+    of the train phase's synthetic frames with its ``evaluate(mesh=...)``
+    (launches exact a validation batch), the loss finite, the evaluation
+    equal to ``evaluate`` without a mesh; (c) ``tools/convert_yolov5_to_yolort``
+    then ``tools/eval_metric`` on its ``.npz`` over a synthetic COCO set on
+    disk (``data._helper.create_synthetic_coco``), and ``tools/detect`` on
+    its images, each path's launches exact.  Every collective the mesh, the
+    evaluator's merge and the logger use is issued at least once (counted)."""
+    out, times = {}, {}
+    t_all = time.perf_counter()
+    with CountedCollectives() as calls:
+        out.update(_phase_parallel(device, card, times))
+    if not all(calls.values()):
+        raise AssertionError(f"phase 13 issued not every collective: {calls}")
+    print(f"[parallel] NCCL collectives issued in phase 13 (world 1): {calls} | {card}",
+          flush=True)
+    print(f"[wall] phase 13: {time.perf_counter() - t_all:.1f} s (a {times['a']:.1f}, b "
+          f"{times['b']:.1f}, c {times['c']:.1f})", flush=True)
+    return out
+
+
+def _phase_parallel(device, card: str, times: dict) -> dict:
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from yolort_tpu_torch import YOLOv5
+    from yolort_tpu_torch.data._helper import create_synthetic_coco
+    from yolort_tpu_torch.data.data_module import DetectionDataModule
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+    from yolort_tpu_torch.parallel import data_parallel_infer, make_mesh, replicate
+    from yolort_tpu_torch.tools import convert_yolov5_to_yolort, detect, eval_metric
+    from yolort_tpu_torch.trainer.fit import evaluate, fit
+    from yolort_tpu_torch.trainer.task import DefaultTask, TrainState
+
+    out = {}
+    mesh = make_mesh()
+    print(f"[parallel] mesh: backend {dist.get_backend()}, world {mesh.world_size}, data axis "
+          f"{mesh.data_size}, device {mesh.device} | {card}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        pt, _ = fabricate(tmp, "s r6.0", dict(dm=0.33, wm=0.5))
+        served = YOLOv5.load_from_yolov5(pt, device=device, **SERVING)
+        yolo = served.model
+
+        # (a) batch-sharded inference
+        t0 = time.perf_counter()
+        raw = frames(50, PARALLEL_BATCH, *RUNTIME_HW)
+        canvas, _ = served.canvas(torch.from_numpy(np.stack(raw)).to(device))
+        images = canvas.cpu()  # the global batch, as every rank holds it
+        infer = data_parallel_infer(replicate(mesh, yolo), mesh)
+        infer(images)
+        reset_launch_counts()
+        det = infer(images)
+        counts = launch_counts()
+        if {k: n for k, n in counts.items() if n} != DEFAULT_PER_BATCH:
+            raise AssertionError(f"data_parallel_infer: launches {counts}")
+        with torch.no_grad():
+            want = yolo(canvas)
+        if not all(torch.equal(a, b) for a, b in zip(det, want)) or int(det.num.min()) <= 0:
+            raise AssertionError("data_parallel_infer: detections differ from the model's call "
+                                 "or a frame has none")
+        out["parallel_infer"] = counts
+        ms = {}
+        for name, fn in (("data_parallel_infer", lambda: infer(images)),
+                         ("YOLOv5.__call__", lambda: served(raw))):
+            fn()
+            ts = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t1)
+            ms[name] = 1e3 * float(np.median(ts))
+        times["a"] = time.perf_counter() - t0
+        print(f"[parallel] data_parallel_infer, batch {PARALLEL_BATCH} @640 f32 serving: "
+              f"detections equal to the model's own call ({det.num[:4].tolist()}... a frame), "
+              f"launches {DEFAULT_PER_BATCH}; a batch {ms['data_parallel_infer']:.2f} ms "
+              f"(letterboxed canvases from the host) beside YOLOv5.__call__ "
+              f"{ms['YOLOv5.__call__']:.2f} ms (uint8 frames, letterbox included; host clock, "
+              f"median of 5); {times['a']:.1f} s | {card}", flush=True)
+        del det, want, canvas
+
+        # (b) fit on the mesh, validated on the mesh
+        t0 = time.perf_counter()
+        data = synthetic_coco(30, 32)
+        dm_kw = dict(canvas_hw=(640, 640), min_size=640, max_size=640, max_targets_per_image=8)
+        train = DetectionDataModule(data, batch_size=TRAIN_BATCH, shuffle=True, seed=0, **dm_kw)
+        val = DetectionDataModule(data[:8], batch_size=TRAIN_BATCH, **dm_kw)
+        steps = len(data) // TRAIN_BATCH
+        model = YOLOv5.load_from_yolov5(pt, device=device).model.trainable()
+        task = DefaultTask(model, total_steps=TRAIN_EPOCHS_MESH * steps, warmup_steps=1,
+                           **TRAIN_CFG)
+        state = TrainState(model, *task.make_optimizer())
+        reset_launch_counts()
+        state = fit(task, train, val, max_epochs=TRAIN_EPOCHS_MESH, use_ema=True, mesh=mesh,
+                    print_freq=steps, state=state, checkpoint_path=f"{tmp}/ema.npz")
+        counts = launch_counts()
+        want_n = {k: DEFAULT_PER_BATCH.get(k, 0) * len(val) * TRAIN_EPOCHS_MESH for k in counts}
+        if counts != want_n or state.step != TRAIN_EPOCHS_MESH * steps:
+            raise AssertionError(f"fit on the mesh: {state.step} steps, launches {counts}, "
+                                 f"want {want_n}")
+        out["fit_mesh"] = counts
+        batch = next(val.batches())
+        with torch.no_grad():
+            total, losses = task.loss_fn(*(torch.from_numpy(batch[k]).to(device)
+                                           for k in ("images", "targets", "target_mask")))
+        on_mesh = evaluate(state.model, val, val.canvas_hw, mesh=mesh)
+        alone = evaluate(state.model, val, val.canvas_hw)
+        if not np.isfinite(float(total)) or not os.path.exists(f"{tmp}/ema.npz"):
+            raise AssertionError(f"fit on the mesh: loss {float(total)}, or no checkpoint")
+        if on_mesh.keys() != alone.keys() or not all(
+                np.array_equal(on_mesh[k], alone[k], equal_nan=True) for k in alone):
+            raise AssertionError(f"evaluate on the mesh {on_mesh} differs from one device's "
+                                 f"{alone}")
+        times["b"] = time.perf_counter() - t0
+        print(f"[parallel] fit(mesh=...) yolov5s f32 @640, {TRAIN_EPOCHS_MESH} epochs of {steps} "
+              f"steps at batch {TRAIN_BATCH}, EMA: loss on a validation batch {float(total):.5f} "
+              f"(finite); evaluate(mesh=...) equal to evaluate() {on_mesh}; launches "
+              f"{ {k: n for k, n in counts.items() if n} }; {times['b']:.1f} s | {card}",
+              flush=True)
+        del state, task, model
+
+        # (c) the CLIs: convert, eval_metric, detect
+        t0 = time.perf_counter()
+        npz = convert_yolov5_to_yolort.cli_main(["--checkpoint_path", pt, "--output_path", tmp])
+        img_dir, ann = create_synthetic_coco(f"{tmp}/coco", num_images=12, num_classes=80, seed=5,
+                                             image_hw=(480, 640))
+        reset_launch_counts()
+        res = eval_metric.cli_main([
+            "--checkpoint_path", npz, "--arch", "yolov5_darknet_pan_s_r60", "--image_path",
+            str(img_dir), "--annotation_path", str(ann), "--batch_size", "8", "--image_size",
+            "640", "--device", "cuda"])
+        counts = launch_counts()
+        n_batches = 2  # 12 images at batch 8: the second padded
+        if counts != {k: DEFAULT_PER_BATCH.get(k, 0) * n_batches for k in counts} or not all(
+                np.isfinite(v) or np.isnan(v) for v in res.values()):
+            raise AssertionError(f"eval_metric: launches {counts}, results {res}")
+        out["eval_metric"] = counts
+        t1 = time.perf_counter()
+        reset_launch_counts()
+        results = detect.cli_main(["--source", str(img_dir), "--checkpoint_path", pt,
+                                   "--score_thresh", "0.25", "--save_dir", f"{tmp}/detect",
+                                   "--device", "cuda"])
+        counts = launch_counts()
+        rendered = len(os.listdir(f"{tmp}/detect"))
+        # detect serves the frames as one batch a size: here one size
+        if counts != {k: DEFAULT_PER_BATCH.get(k, 0) for k in counts} or len(results) != 12 \
+                or rendered != 12:
+            raise AssertionError(f"detect: launches {counts}, {len(results)} results, "
+                                 f"{rendered} rendered")
+        out["detect"] = counts
+        times["c"] = time.perf_counter() - t0
+        print(f"[parallel] convert_yolov5_to_yolort -> {os.path.basename(npz)}; eval_metric over "
+              f"12 synthetic 480x640 images at batch 8: {res}; launches "
+              f"{ {k: n for k, n in out['eval_metric'].items() if n} } ({t1 - t0:.1f} s with the "
+              f"conversion); detect: {len(results)} frames, {rendered} rendered, launches "
+              f"{ {k: n for k, n in counts.items() if n} } ({time.perf_counter() - t1:.1f} s) "
+              f"| {card}", flush=True)
+    dist.destroy_process_group()
     return out
 
 
@@ -3436,8 +3879,10 @@ def main() -> int:
     done("int8 rest: AP harness")
     tr = phase_train(device, card)
     done("train")
-    rt = phase_runtime(sl["models"], cpp_compile, card)
+    rt = phase_runtime(sl["models"], q8["models"], cpp_compile, card)
     done("runtime and export")
+    par = phase_parallel(device, card)
+    done("parallel and the CLIs")
     phase_throughput(sl["models"], card, "float")
     phase_throughput(q8["models"], card, "int8")
     phase_route_times(sl["models"], card)
@@ -3454,6 +3899,11 @@ def main() -> int:
              "int8_lite_grouped": lite_served["int8_lite_grouped"]["launches"],
              "int8_ap": int8_ap["launches"], "export": rt["export"]["launches"],
              "aoti": rt["aoti"]["launches"], "streaming": rt["streaming"]["launches"],
+             "export_moved": rt["export_more"]["moved"],
+             "export_paths": rt["export_more"]["paths"],
+             "int8_stream": rt["int8_stream"]["launches"],
+             "parallel_infer": par["parallel_infer"], "fit_mesh": par["fit_mesh"],
+             "eval_metric": par["eval_metric"], "detect": par["detect"],
              **phase_entry_points()}
     done("entry points")
     kernels = []

@@ -191,3 +191,19 @@ def test_a_quantized_model_does_not_export(pair, tmp_path):
     q = quantize_compute_params(calibrate_activations(q, [canvas]))
     with pytest.raises(NotImplementedError, match=QCONV_OPS[0]):
         export_aot(q, str(tmp_path / "q.ytpt"), batch_size=1, input_hw=HW)
+
+
+def test_a_cpu_artifact_moved_to_the_cpu_is_the_same_program(exported):
+    """``load_aot(path, device=...)`` moves the program
+    (``move_to_device_pass``); to the device it was exported on, that is the
+    identity.  A device the process lacks raises."""
+    raw = frames(8, BATCH)
+    want = load_aot(exported)(raw)
+    moved = load_aot(exported, device="cpu")
+    assert moved.device == torch.device("cpu")
+    got = moved(raw)
+    assert int(want[3].min()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="not in this process"):
+            load_aot(exported, device="cuda")

@@ -9,7 +9,10 @@
 - an AOTInductor package pairs with the eager run detection by detection
   (Inductor fuses the network's elementwise work: no bit equality);
 - ``StreamingPipeline`` on the card (pinned staging, copy stream) gives
-  ``YOLOv5.__call__``'s detections on the same padded batches.
+  ``YOLOv5.__call__``'s detections on the same padded batches, float and
+  int8;
+- ``load_aot(path, device=...)`` moves an artifact between the card and
+  the CPU.
 The C++ driver's gate is tests/test_torch_cpp_driver.py.
 """
 
@@ -107,6 +110,65 @@ def test_streaming_on_the_card_equals_yolov5_call(cuda_device, dtype):
     assert len(outs) == 10
     served = YOLOv5(model=m, dtype=dtype, size=HW)
     for start in range(0, 10, 4):
+        chunk = fr[start:start + 4]
+        want = served(chunk + [chunk[-1]] * (4 - len(chunk)))
+        for got, w in zip(outs[start:start + 4], want):
+            for key in ("boxes", "scores", "labels"):
+                np.testing.assert_array_equal(got[key], w[key])
+
+
+@pytest.mark.cuda
+def test_an_artifact_moves_between_the_card_and_the_cpu(cuda_device, tmp_path):
+    """``load_aot(path, device=...)``: exported on the card and served on the
+    CPU, the CPU export's output bit for bit; exported on the CPU and
+    served on the card, exactly the route's kernel launches, and the card
+    export's detections."""
+    import copy
+
+    m = card_model(cuda_device)
+    on_card = export_aot(m, str(tmp_path / "card.ytpt"), batch_size=BATCH, input_hw=HW)
+    on_cpu = export_aot(copy.deepcopy(m).cpu(), str(tmp_path / "cpu.ytpt"), batch_size=BATCH,
+                        input_hw=HW)
+    raw = frames(8, BATCH)
+    got = load_aot(on_card, device="cpu")(raw)
+    want = load_aot(on_cpu)(raw)
+    assert got[0].device.type == "cpu" and int(want[3].min()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    moved = load_aot(on_cpu, device="cuda")
+    reset_launch_counts()
+    out = moved(raw)
+    torch.cuda.synchronize()
+    assert {fn.__name__: fn.launches for fn in KERNELS if fn.launches} == {
+        "fused_cells_stage1": 1, "bisect_count": 2, "row_fetch": 1, "nms_mask": 1}
+    card_out = load_aot(on_card)(raw)
+    for g, w in zip(as_dicts(out, BATCH), as_dicts(card_out, BATCH)):
+        assert len(g["scores"]) == len(w["scores"]) > 0
+        np.testing.assert_allclose(g["scores"], w["scores"], rtol=1e-5, atol=0)
+        np.testing.assert_allclose(g["boxes"], w["boxes"], rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_an_int8_stream_on_the_card_equals_yolov5_call(cuda_device):
+    """An int8-quantized model streams on the card (pinned staging, copy
+    stream) with the qconv kernels, each frame equal to ``YOLOv5.__call__``
+    on the same padded batch."""
+    from yolort_tpu_torch.ops.quantization import (
+        calibrate_activations, finalize_scales, quantize_compute_params,
+    )
+
+    m = card_model(cuda_device)
+    canvas = torch.from_numpy(frames(9, 2)).to(cuda_device).float() / 255.0
+    q = quantize_compute_params(calibrate_activations(m, [canvas]))
+    finalize_scales(q, canvas[:1])
+    pipe = StreamingPipeline(q, batch_size=4, input_hw=HW, dtype=torch.float32)
+    fr = list(frames(10, 6))
+    reset_launch_counts()
+    outs = list(pipe.run(iter(fr)))
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    assert counts["qconv1x1"] > 0 and counts["qconv_kxk"] > 0 and counts["nms_mask"] == 2
+    served = YOLOv5(model=q, size=HW)
+    for start in range(0, 6, 4):
         chunk = fr[start:start + 4]
         want = served(chunk + [chunk[-1]] * (4 - len(chunk)))
         for got, w in zip(outs[start:start + 4], want):

@@ -12,8 +12,7 @@ COCOeval-compatible semantics:
   * AP = mean over classes present in GT of interpolated precision
 
 Port of ``yolort_tpu/data/coco_eval.py`` (numpy, unchanged but for the
-shard merge): single process, so ``synchronize_between_processes`` has
-nothing to merge.
+shard merge, which goes through ``torch.distributed``).
 """
 
 from __future__ import annotations
@@ -251,4 +250,10 @@ class COCOEvaluator:
 
     # ------------------------------------------------------------------
     def synchronize_between_processes(self):
-        """One process: every shard is already here."""
+        """Merge every process's shard, in rank order (reference
+        coco_eval.py:105-120); one process keeps its own."""
+        from yolort_tpu_torch.parallel.distributed import all_gather_objects
+
+        merged = all_gather_objects({"preds": self._preds, "targets": self._targets})
+        self._preds = [p for shard in merged for p in shard["preds"]]
+        self._targets = [t for shard in merged for t in shard["targets"]]

@@ -11,7 +11,9 @@ Port of ``yolort_tpu/models/_checkpoint.py`` (torch and numpy only):
   * weights go OIHW -> HWIO as float32 (half checkpoints are cast to float
     first) and every Conv's BatchNorm is folded into it in float64
     (``ops.blocks.fuse_conv_bn``), so the leaves are bit-equal to the JAX
-    package's; BottleneckCSP's standalone BatchNorm stays unfused;
+    package's; BottleneckCSP's standalone BatchNorm stays unfused.  With
+    ``fuse=False`` each Conv keeps ``w``, ``gamma``, ``beta``, ``mean`` and
+    ``var``: the train form a fine-tuning run starts from;
   * the flat ``model.N`` indices map onto the structured tree by the P5
     and P6 index tables.
 
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import json
 import pickle
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -32,7 +35,8 @@ import numpy as np
 from yolort_tpu_torch.models.darknet import VERSIONS
 from yolort_tpu_torch.ops.blocks import fuse_conv_bn
 
-__all__ = ["load_from_ultralytics", "save_params", "load_params", "get_yolov5_size"]
+__all__ = ["load_from_ultralytics", "convert_yolov5_checkpoint", "save_params", "load_params",
+           "get_yolov5_size"]
 
 
 # --- stub unpickling of ultralytics checkpoints ---------------------------
@@ -140,11 +144,14 @@ def _convert_conv2d(m) -> Dict[str, np.ndarray]:
     return out
 
 
-def _convert_conv_bn(m) -> Dict[str, np.ndarray]:
-    """An ultralytics Conv: conv (Conv2d, no bias) + bn + act, folded."""
+def _convert_conv_bn(m, fuse: bool = True) -> Dict[str, np.ndarray]:
+    """An ultralytics Conv: conv (Conv2d, no bias) + bn + act, folded unless
+    ``fuse`` is False."""
     ch = _children(m)
     w = _np(_params_of(ch["conv"])["weight"]).transpose(2, 3, 1, 0)
     bn = _convert_batchnorm(ch["bn"])
+    if not fuse:
+        return {"w": w, **bn}
     eps = float(object.__getattribute__(ch["bn"], "__dict__").get("eps", 1e-3))
     w_f, b_f = fuse_conv_bn(w, bn["gamma"], bn["beta"], bn["mean"], bn["var"], eps=eps)
     return {"w": w_f, "b": b_f}
@@ -175,10 +182,11 @@ _PARAMFREE = {"SiLU", "Hardswish", "LeakyReLU", "Identity", "Upsample", "MaxPool
               "Dropout", "ReLU", "ReLU6"}
 
 
-def convert_module(m) -> Optional[Dict[str, Any]]:
-    """Convert any (stub) module subtree into the params tree.  The child
-    names of ultralytics blocks (cv1, cv2, m, 0, 1, ...) are the tree's
-    keys, so the walk is generic."""
+def convert_module(m, fuse: bool = True) -> Optional[Dict[str, Any]]:
+    """Convert any (stub) module subtree into the params tree, each Conv's
+    BatchNorm folded unless ``fuse`` is False.  The child names of
+    ultralytics blocks (cv1, cv2, m, 0, 1, ...) are the tree's keys, so the
+    walk is generic."""
     name = _cls_name(m)
     ch = _children(m)
     if name == "Conv2d":
@@ -192,13 +200,13 @@ def convert_module(m) -> Optional[Dict[str, Any]]:
     if name in _PARAMFREE and not ch:
         return None
     if "conv" in ch and "bn" in ch and _cls_name(ch["conv"]) == "Conv2d":
-        return _convert_conv_bn(m)
+        return _convert_conv_bn(m, fuse)
     out: Dict[str, Any] = {}
     for k, sub in ch.items():
         if _cls_name(sub) == "MultiheadAttention" and k == "ma":
             out.update(_convert_mha(sub))  # flattened into the TransformerLayer
             continue
-        converted = convert_module(sub)
+        converted = convert_module(sub, fuse)
         if converted is not None:
             out[k] = converted
     for k, v in _params_of(m).items():
@@ -226,11 +234,12 @@ def get_yolov5_size(depth_multiple: float, width_multiple: float) -> str:
     return table[key]
 
 
-def load_from_ultralytics(checkpoint_path: str, version: str = "r6.0") -> Dict:
+def load_from_ultralytics(checkpoint_path: str, version: str = "r6.0", fuse: bool = True
+                          ) -> Dict:
     """An ultralytics ``.pt`` as {'num_classes', 'depth_multiple',
     'width_multiple', 'strides', 'anchor_grids', 'use_p6', 'size',
     'params'}: the JAX package's metadata, and its params tree with numpy
-    leaves."""
+    leaves (each Conv unfused when ``fuse`` is False)."""
     if version not in VERSIONS:
         raise NotImplementedError(f"Unsupported version {version}")
     ckpt = load_torch_checkpoint(checkpoint_path)
@@ -258,13 +267,13 @@ def load_from_ultralytics(checkpoint_path: str, version: str = "r6.0") -> Dict:
 
     inner_map, layer_map, p6_map = ((P6_INNER_MAP, P6_LAYER_MAP, P6_P6_MAP) if use_p6
                                     else (P5_INNER_MAP, P5_LAYER_MAP, None))
-    backbone = {str(i): convert_module(flat[i]) for i in range(9)}
+    backbone = {str(i): convert_module(flat[i], fuse) for i in range(9)}
     pan: Dict[str, Any] = {
-        "inner": {k: convert_module(flat[i]) for k, i in inner_map.items()},
-        "layer": {k: convert_module(flat[i]) for k, i in layer_map.items()},
+        "inner": {k: convert_module(flat[i], fuse) for k, i in inner_map.items()},
+        "layer": {k: convert_module(flat[i], fuse) for k, i in layer_map.items()},
     }
     if p6_map is not None:
-        pan["p6"] = {k: convert_module(flat[i]) for k, i in p6_map.items()}
+        pan["p6"] = {k: convert_module(flat[i], fuse) for k, i in p6_map.items()}
     head = {str(i): _convert_conv2d(c) for i, c in enumerate(_seq_children(_children(detect)["m"]))}
     return {
         "num_classes": int(yaml_cfg["nc"]),
@@ -287,6 +296,23 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
             out.update(_flatten(v, f"{prefix}{k}/"))
     else:
         out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def convert_yolov5_checkpoint(checkpoint_path: str, output_path: str, version: str = "r6.0",
+                              prefix: str = "yolov5_darknet_pan",
+                              postfix: str = "custom.npz") -> str:
+    """Convert an ultralytics ``.pt`` into a ``save_params`` file under the
+    directory ``output_path``, named as the JAX package names it
+    (``<prefix>_<size>[6]_<version>_<postfix>``), its metadata in
+    ``__meta__``.  Returns the file's path."""
+    info = load_from_ultralytics(checkpoint_path, version=version)
+    p6 = "6" if info["use_p6"] else ""
+    name = f"{prefix}_{info['size']}{p6}_{version.replace('.', '')}_{postfix}"
+    out = str(Path(output_path) / name)
+    meta = {k: info[k] for k in ("num_classes", "depth_multiple", "width_multiple", "strides",
+                                 "anchor_grids", "use_p6", "size")}
+    save_params(out, info["params"], meta)
     return out
 
 

@@ -153,11 +153,75 @@ class YOLOLoss:
     def balance(self) -> Tuple[float, ...]:
         return (4.0, 1.0, 0.4, 0.1)[: len(self.strides)]
 
+    def _candidates(self, shape, stride: int, ag, targets: torch.Tensor,
+                    target_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The candidate lattice of one level of head output ``shape`` (B, H,
+        W, ...): per image C = T*5*A candidates, each a target matched to an
+        anchor ratio and one of its five neighbour cells.  Returns 'c_mask'
+        (B, C) bool, 'cell' (B, C) the flat (H*W*A) index, 'c_txy',
+        'c_twh', 'c_anchor_wh' (B, C, 2) and 'c_cls' (B, C)."""
+        na = self.num_anchors
+        dev = targets.device
+        f32 = torch.float32
+        bt, nt = targets.shape[:2]
+        _, h, w = shape[:3]
+        t_cls = targets[..., 0].to(torch.int32)  # (B, T)
+        t_xy = targets[..., 1:3]
+        t_wh = targets[..., 3:5]
+        offsets = torch.tensor([[0, 0], [1, 0], [0, 1], [-1, 0], [0, -1]], dtype=f32,
+                               device=dev) * 0.5  # (5, 2)
+        anchors = torch.tensor(ag, dtype=f32, device=dev).reshape(na, 2) / stride
+        hw = torch.tensor([w, h], dtype=f32, device=dev)
+        gxy = t_xy * hw  # (B, T, 2) grid units
+        gwh = t_wh * hw
+
+        # anchor-ratio match: (B, T, A)
+        r = gwh[:, :, None, :] / anchors[None, None, :, :]
+        match = torch.amax(torch.maximum(r, 1.0 / r), dim=-1) < self.anchor_thresh
+        match = match & target_mask[:, :, None]
+
+        # neighbour-offset gating: (B, T, 5)
+        gx, gy = gxy[..., 0], gxy[..., 1]
+        off_ok = torch.stack([
+            torch.ones_like(gx, dtype=torch.bool),
+            (gx % 1.0 < 0.5) & (gx > 1.0),
+            (gy % 1.0 < 0.5) & (gy > 1.0),
+            ((w - gx) % 1.0 < 0.5) & ((w - gx) > 1.0),
+            ((h - gy) % 1.0 < 0.5) & ((h - gy) > 1.0),
+        ], dim=-1)
+
+        # dense candidate lattice (B, T, 5, A), flattened to (B, C)
+        cand = off_ok[..., :, None] & match[:, :, None, :]
+        gij = torch.floor(gxy[:, :, None, :] - offsets[None, None, :, :])  # (B, T, 5, 2)
+        gi = gij[..., 0].to(torch.int32).clamp(0, w - 1)
+        gj = gij[..., 1].to(torch.int32).clamp(0, h - 1)
+
+        c = nt * 5 * na
+        a_idx = torch.arange(na, device=dev).expand(cand.shape)
+        gi_b = gi[..., None].expand(cand.shape)
+        gj_b = gj[..., None].expand(cand.shape)
+        return {
+            "c_mask": cand.reshape(bt, c),
+            "cell": ((gj_b * w + gi_b) * na + a_idx).reshape(bt, c).long(),
+            "c_txy": (gxy[:, :, None, None, :].expand(*cand.shape, 2)
+                      - torch.stack([gi_b, gj_b], dim=-1).to(f32)).reshape(bt, c, 2),
+            "c_twh": gwh[:, :, None, None, :].expand(*cand.shape, 2).reshape(bt, c, 2),
+            "c_cls": t_cls[:, :, None, None].expand(cand.shape).reshape(bt, c),
+            "c_anchor_wh": anchors[a_idx.reshape(bt, c)],
+        }
+
     def __call__(self, head_outputs: Sequence[torch.Tensor], targets: torch.Tensor,
-                 target_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+                 target_mask: torch.Tensor, data_axis=None) -> Dict[str, torch.Tensor]:
         """head_outputs: per-level (B, H, W, A*(5+nc)) NHWC logits; targets
         (B, T, 5); target_mask (B, T) bool.  Returns {'cls_logits',
-        'bbox_regression', 'objectness'}, f32 scalars."""
+        'bbox_regression', 'objectness'}, f32 scalars.
+
+        ``data_axis`` (a ``parallel.Mesh``): this batch is one of
+        ``data_axis.data_size`` equal shards of a global batch.  The box and
+        class terms are normalised by each level's candidate count summed
+        over the shards (``data_axis.all_sum``), and the objectness mean is
+        divided by the number of shards, so that the shards' terms sum to
+        the global batch's."""
         na = self.num_anchors
         nc = self.num_classes
         dev = targets.device
@@ -166,67 +230,31 @@ class YOLOLoss:
         zero = torch.zeros((), dtype=f32, device=dev)
         loss_box, loss_obj, loss_cls = zero, zero, zero
 
-        bt, nt = targets.shape[:2]
-        t_cls = targets[..., 0].to(torch.int32)  # (B, T)
-        t_xy = targets[..., 1:3]
-        t_wh = targets[..., 3:5]
-        offsets = torch.tensor([[0, 0], [1, 0], [0, 1], [-1, 0], [0, -1]], dtype=f32,
-                               device=dev) * 0.5  # (5, 2)
+        levels = [self._candidates(out.shape, stride, ag, targets, target_mask)
+                  for out, stride, ag in zip(head_outputs, self.strides, self.anchor_grids)]
+        counts = torch.stack([lv["c_mask"].sum() for lv in levels])
+        shards = 1
+        if data_axis is not None:
+            counts = data_axis.all_sum(counts)
+            shards = data_axis.data_size
 
-        for out, stride, ag, bal in zip(head_outputs, self.strides, self.anchor_grids,
-                                        self.balance):
+        for out, lv, n_level, bal in zip(head_outputs, levels, counts, self.balance):
             b, h, w, _ = out.shape
             k = 5 + nc
+            bt, c = lv["c_mask"].shape
+            c_mask, cell = lv["c_mask"], lv["cell"]
             logits = out.reshape(b, h * w * na, k)  # the head's dtype, cast after the gather
-            anchors = torch.tensor(ag, dtype=f32, device=dev).reshape(na, 2) / stride
-            hw = torch.tensor([w, h], dtype=f32, device=dev)
-            gxy = t_xy * hw  # (B, T, 2) grid units
-            gwh = t_wh * hw
-
-            # anchor-ratio match: (B, T, A)
-            r = gwh[:, :, None, :] / anchors[None, None, :, :]
-            match = torch.amax(torch.maximum(r, 1.0 / r), dim=-1) < self.anchor_thresh
-            match = match & target_mask[:, :, None]
-
-            # neighbour-offset gating: (B, T, 5)
-            gx, gy = gxy[..., 0], gxy[..., 1]
-            off_ok = torch.stack([
-                torch.ones_like(gx, dtype=torch.bool),
-                (gx % 1.0 < 0.5) & (gx > 1.0),
-                (gy % 1.0 < 0.5) & (gy > 1.0),
-                ((w - gx) % 1.0 < 0.5) & ((w - gx) > 1.0),
-                ((h - gy) % 1.0 < 0.5) & ((h - gy) > 1.0),
-            ], dim=-1)
-
-            # dense candidate lattice (B, T, 5, A), flattened to (B, C)
-            cand = off_ok[..., :, None] & match[:, :, None, :]
-            gij = torch.floor(gxy[:, :, None, :] - offsets[None, None, :, :])  # (B, T, 5, 2)
-            gi = gij[..., 0].to(torch.int32).clamp(0, w - 1)
-            gj = gij[..., 1].to(torch.int32).clamp(0, h - 1)
-
-            c = nt * 5 * na
-            c_mask = cand.reshape(bt, c)
-            a_idx = torch.arange(na, device=dev).expand(cand.shape)
-            gi_b = gi[..., None].expand(cand.shape)
-            gj_b = gj[..., None].expand(cand.shape)
-            cell = ((gj_b * w + gi_b) * na + a_idx).reshape(bt, c).long()  # (B, C)
-
-            c_txy = (gxy[:, :, None, None, :].expand(*cand.shape, 2)
-                     - torch.stack([gi_b, gj_b], dim=-1).to(f32)).reshape(bt, c, 2)
-            c_twh = gwh[:, :, None, None, :].expand(*cand.shape, 2).reshape(bt, c, 2)
-            c_cls = t_cls[:, :, None, None].expand(cand.shape).reshape(bt, c)
-            c_anchor_wh = anchors[a_idx.reshape(bt, c)]
 
             # predictions at the candidate cells, gathered per image
             pred = torch.gather(logits, 1, cell[..., None].expand(bt, c, k)).float()  # (B, C, k)
             sig = torch.sigmoid(pred[..., :4])
             pred_xy = sig[..., :2] * 2.0 - 0.5
-            pred_wh = (sig[..., 2:4] * 2.0) ** 2 * c_anchor_wh
+            pred_wh = (sig[..., 2:4] * 2.0) ** 2 * lv["c_anchor_wh"]
             pred_box = torch.cat([pred_xy, pred_wh], dim=-1)
-            tgt_box = torch.cat([c_txy, c_twh], dim=-1)
+            tgt_box = torch.cat([lv["c_txy"], lv["c_twh"]], dim=-1)
 
             iou = bbox_ciou(pred_box, tgt_box)  # (B, C)
-            n_cand = c_mask.sum().clamp(min=1)
+            n_cand = n_level.clamp(min=1)
             loss_box = loss_box + torch.where(c_mask, 1.0 - iou, 0.0).sum() / n_cand
 
             # objectness: each image's (H*W*A,) grid holds the IoU of the
@@ -236,10 +264,10 @@ class YOLOLoss:
             drop_cell = torch.where(c_mask, cell, h * w * na)
             tobj = last_write_scatter(drop_cell, tobj_val, h * w * na)
             loss_obj_l = torch.mean(self._bce(logits[..., 4].float(), tobj, self.obj_pos))
-            loss_obj = loss_obj + loss_obj_l * bal
+            loss_obj = loss_obj + loss_obj_l / shards * bal
 
             if nc > 1:
-                onehot = (c_cls[..., None] == torch.arange(nc, device=dev)).to(f32)
+                onehot = (lv["c_cls"][..., None] == torch.arange(nc, device=dev)).to(f32)
                 t = smooth_neg + (smooth_pos - smooth_neg) * onehot
                 cls_bce = self._bce(pred[..., 5:], t, self.cls_pos)
                 loss_cls = loss_cls + torch.where(c_mask[..., None], cls_bce, 0.0).sum() / (

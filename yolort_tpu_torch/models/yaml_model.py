@@ -390,14 +390,15 @@ class YAMLDetectionModel(Detector):
         raise AssertionError("unreachable: parse_model guarantees a Detect row")
 
 
-def load_yaml_from_ultralytics(checkpoint_path: str, act: str = "silu", **model_kwargs
-                               ) -> YAMLDetectionModel:
+def load_yaml_from_ultralytics(checkpoint_path: str, fuse: bool = True, act: str = "silu",
+                               **model_kwargs) -> YAMLDetectionModel:
     """A ``YAMLDetectionModel`` of an ultralytics ``.pt``, built from the yaml
     the pickled model carries: any architecture of known modules.  The
     anchors come from the Detect buffers (in stride units there); the
     stride from Detect's buffers, its attributes, or the model's.  Each
     row's weights load from ``model.<i>`` (BatchNorm folded into its conv,
-    as ``_checkpoint.convert_module`` does; Detect's convs are under its
+    as ``_checkpoint.convert_module`` does, unless ``fuse`` is False: then
+    each Conv keeps its BatchNorm leaves; Detect's convs are under its
     ``m``).  ``model_kwargs`` go to the model: ``device`` (the card unless
     ``"cpu"``), ``dtype``, the postprocess configuration."""
     from yolort_tpu_torch.models._bridge import params_from_jax
@@ -430,7 +431,7 @@ def load_yaml_from_ultralytics(checkpoint_path: str, act: str = "silu", **model_
     for spec in m.layers:
         if spec.block is None:
             continue
-        converted = convert_module(flat[spec.i])
+        converted = convert_module(flat[spec.i], fuse)
         params[str(spec.i)] = converted["m"] if spec.kind == "detect" else converted
     params_from_jax(params, m)
     return m

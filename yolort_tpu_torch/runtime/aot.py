@@ -10,14 +10,16 @@ the eager model.  Two artifacts:
   * ``export_aot``: a zip of ``program.pt2`` (``torch.export.save``, the
     weights inside it), ``meta.json`` (the input spec, the device, the
     torch version) and ``program.txt`` (the exported program's text).
-    ``load_aot`` / ``AOTPredictor`` serve it on the device it names.
+    ``load_aot`` / ``AOTPredictor`` serve it on the device it names, or
+    on another device the caller names (the program moved there).
   * ``export_aoti_package``: an AOTInductor package (``.pt2``), the
     weights baked in, compiled for the model's device: what the C++ driver
     of ``deployment/libtorch`` loads without Python, and what
     ``torch._inductor.aoti_load_package`` loads in Python.
 
 An int8-quantized model does not export yet: its qconv kernels are not
-ops (``ops.library.QCONV_OPS``).
+ops (``ops.library.QCONV_OPS``).  It streams (``runtime/streaming.py``),
+which exports nothing.
 """
 
 from __future__ import annotations
@@ -73,22 +75,26 @@ def model_device(model: nn.Module) -> torch.device:
 
 
 def _float_model(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """``model`` in ``dtype``: itself, or a copy cast to it.  An
-    int8-quantized model raises."""
+    """``model`` in ``dtype``: itself, or a copy cast to it.  The int8
+    buffers of a quantized model stay as they are under the cast."""
     if dtype not in FLOAT_DTYPES:
         raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
-    if any(isinstance(m, blocks._Int8Conv) and m.quantized for m in model.modules()):
-        raise NotImplementedError(
-            f"an int8-quantized model does not export yet: its kernels "
-            f"{', '.join(QCONV_OPS)} are not dispatcher ops (ops/library.py)")
     floats = {t.dtype for t in itertools.chain(model.parameters(), model.buffers())
               if t.is_floating_point()}
     return model if floats <= {dtype} else copy.deepcopy(model).to(dtype)
 
 
+def _refuse_int8(model: nn.Module) -> None:
+    """An int8-quantized model raises: its kernels are not dispatcher ops."""
+    if any(isinstance(m, blocks._Int8Conv) and m.quantized for m in model.modules()):
+        raise NotImplementedError(
+            f"an int8-quantized model does not export yet: its kernels "
+            f"{', '.join(QCONV_OPS)} are not dispatcher ops (ops/library.py)")
+
+
 def _pipeline_fn(model: nn.Module, plan: LetterboxPlan, dtype: torch.dtype) -> _Pipeline:
-    """The module ``export_aot`` traces: ``model`` (in ``dtype``) behind the
-    normalisation and the letterbox of ``plan``."""
+    """``model`` (in ``dtype``) behind the normalisation and the letterbox
+    of ``plan``: the module ``export_aot`` traces and the stream runs."""
     return _Pipeline(_float_model(model, dtype), plan, dtype)
 
 
@@ -96,7 +102,8 @@ def export_program(model: nn.Module, *, batch_size: int = 1,
                    input_hw: Tuple[int, int] = (640, 640), dtype: torch.dtype = torch.float32):
     """(pipeline module, ``torch.export.ExportedProgram``) of ``model``'s
     serving pipeline for uint8 (batch_size, *input_hw, 3) frames, traced on
-    the model's device."""
+    the model's device.  An int8-quantized model raises."""
+    _refuse_int8(model)
     module = _pipeline_fn(model, plan_for(input_hw), dtype)
     example = torch.zeros(batch_size, *input_hw, 3, dtype=torch.uint8,
                           device=model_device(model))
@@ -163,26 +170,36 @@ def export_aoti_package(
                                     inductor_configs={"cpp.cxx": (None, CXX)})
 
 
-def load_aot(path: str) -> "AOTPredictor":
-    return AOTPredictor(path)
+def load_aot(path: str, device=None) -> "AOTPredictor":
+    return AOTPredictor(path, device=device)
 
 
 class AOTPredictor:
-    """Serves an ``export_aot`` artifact on the device its ``meta.json``
-    names: an artifact exported on the card runs on the card, one exported
-    on the CPU on the CPU.  A device that is absent raises; the program is
-    never moved."""
+    """Serves an ``export_aot`` artifact.  With no ``device`` it serves on
+    the device its ``meta.json`` names, and a device that is absent raises.
+    A ``device`` given moves the program there
+    (``torch.export.passes.move_to_device_pass``): each kernel is an op with
+    a CPU implementation (the plain version) and a CUDA one (the kernel),
+    so the moved program dispatches by the device of its tensors."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, device=None):
         with zipfile.ZipFile(path) as zf:
             self.meta = json.loads(zf.read("meta.json").decode())
             program = zf.read("program.pt2")
-        self.device = torch.device(self.meta["device"])
+        recorded = torch.device(self.meta["device"])
+        self.device = recorded if device is None else torch.device(device)
         if self.device.type == "cuda" and (not torch.cuda.is_available() or (
                 self.device.index or 0) >= torch.cuda.device_count()):
-            raise RuntimeError(f"{path} was exported on {self.device}, which this process does "
-                               f"not have; export it again on a device it has")
+            if device is None:
+                raise RuntimeError(f"{path} was exported on {self.device}, which this process "
+                                   f"does not have; export it again on a device it has, or "
+                                   f"pass device= to move it")
+            raise RuntimeError(f"device {str(self.device)!r} is not in this process")
         self.exported = torch.export.load(io.BytesIO(program))
+        if device is not None:
+            from torch.export.passes import move_to_device_pass
+
+            self.exported = move_to_device_pass(self.exported, str(self.device))
         self.module = self.exported.module()
 
     def __call__(self, raw_u8):

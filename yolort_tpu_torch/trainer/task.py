@@ -105,30 +105,57 @@ class DefaultTask:
         self.model.init_train(seed)
         return TrainState(self.model, *self.make_optimizer())
 
-    def loss_fn(self, images: torch.Tensor, targets: torch.Tensor,
-                target_mask: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss_fn(self, images: torch.Tensor, targets: torch.Tensor, target_mask: torch.Tensor,
+                data_axis=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         outs = self.model.head_outputs(images)
-        losses = self.loss(outs, targets, target_mask)
+        losses = self.loss(outs, targets, target_mask, data_axis=data_axis)
         total = losses["cls_logits"] + losses["bbox_regression"] + losses["objectness"]
         return total, losses
 
     def train_step(self, state: TrainState, images: torch.Tensor, targets: torch.Tensor,
-                   target_mask: torch.Tensor) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+                   target_mask: torch.Tensor, data_axis=None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One SGD step. images (B, H, W, 3) letterboxed; targets (B, T, 5)
         [cls, cxcywh normalised] padded per image; target_mask (B, T).
-        Returns the state and the detached loss terms and total."""
+        Returns the state and the detached loss terms and total.
+
+        ``data_axis`` (a ``parallel.Mesh``): the batch is this rank's shard
+        of a global batch (``parallel.data_parallel_train_step``); the loss
+        takes the global candidate counts, and the gradients and the
+        returned terms are summed over the data axis, so that every rank
+        takes the global batch's step."""
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        total, losses = self.loss_fn(images, targets, target_mask)
+        total, losses = self.loss_fn(images, targets, target_mask, data_axis)
         total.backward()
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if data_axis is not None:
+            _sum_gradients(params, data_axis)
         opt.step()
         if state.scheduler is not None:
             state.scheduler.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total"] = total.detach()
+        if data_axis is not None:
+            keys = list(metrics)
+            summed = data_axis.all_sum(torch.stack([metrics[k] for k in keys]))
+            metrics = dict(zip(keys, summed.unbind()))
         return state, metrics
+
+
+def _sum_gradients(params, data_axis) -> None:
+    """Sum every gradient over the data axis: one flat buffer a dtype."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for p in params:
+        by_dtype.setdefault(p.grad.dtype, []).append(p)
+    for group in by_dtype.values():
+        flat = data_axis.all_sum(torch.cat([p.grad.reshape(-1) for p in group]))
+        offset = 0
+        for p in group:
+            n = p.grad.numel()
+            p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+            offset += n

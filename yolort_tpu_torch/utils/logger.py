@@ -1,9 +1,9 @@
 """Training/eval metric logging.
 
 Port of ``yolort_tpu/utils/logger.py``: windowed meters and an ETA-aware
-iteration logger; wandb streaming stays optional and soft-gated.  Single
-process: the cross-process mean of the JAX package is the identity at one
-process, and so is ``synchronize_between_processes`` here.
+iteration logger; wandb streaming stays optional and soft-gated.
+``synchronize_between_processes`` averages each meter's total over the
+processes (``parallel.distributed.all_reduce_mean``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import time
 import importlib.util
 from collections import defaultdict, deque
 from typing import Dict, Iterable
+
+from yolort_tpu_torch.parallel.distributed import all_reduce_mean
 
 
 class SmoothedValue:
@@ -30,7 +32,7 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self):
-        """One process: nothing to merge."""
+        self.total = all_reduce_mean(self.total)
 
     @property
     def median(self) -> float:
