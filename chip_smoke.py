@@ -186,12 +186,27 @@ Phases, each fatal on failure:
      images/s, device busy and the pinned HtoD copy beside __call__'s
      pageable one; (e) cost_analysis and the GraphVisualizer dot of the
      pipeline @640 batch 1.
+ 13. data parallel on an NCCL group of one rank: data_parallel_infer at
+     batch 32, fit and evaluate on the mesh, the eval_metric and detect
+     CLIs (phase_parallel).
+ 14. the last modules (phase_last_modules): (a) yolov5s(pretrained=True)
+     from a weights directory holding a fabricated full-width checkpoint
+     as .pt and as .npz, batch 32 @640 f32, detections bit-equal to
+     load_from_yolov5's, exact launches, a tampered sha-suffixed file
+     refused; (b) tools/profile_stages at batch 32 @640, calibrated, in
+     both dtypes and configs: every row, each prefix's launches exact, the
+     last prefix bit-equal to batched_postprocess_from_heads; (c)
+     tools/regression --selftest; (d) FeatureExtractor against the CPU, no
+     hook left; (e) a trace naming the four serving kernels, model_info,
+     device_memory_stats.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels as JSON, with each kernel's launches by path (float, int8,
 cpa, decoded, fixed_shape, r31_int8, p6, p6_int8, checkpoint, train_eval,
 zoo_lite, zoo_yaml, ensemble, tta, int8_lite, int8_lite_grouped, int8_ap,
-export, aoti, streaming and the two entry points); before them, the total
-seconds.  Imports nothing of JAX.
+export, aoti, streaming, export_moved, export_paths, int8_stream,
+parallel_infer, fit_mesh, eval_metric, detect, pretrained, profile_stages,
+regression and the two entry points); before them, the card's name and
+power limit and the total seconds.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -207,6 +222,7 @@ from yolort_tpu_torch.experiments.timing import (
     PEAK_OPS_PER_S, abs_err, bound, card_line, cold_ms, device_profile, distinct_rows, fmt_ms,
     fmt_share, graph_ms, median_ms, same_bits,
 )
+from yolort_tpu_torch.utils.profiling import calibrate_candidate_density, shift_head_bias
 
 B = 8  # images per kernel check
 EVAL = dict(score_thresh=0.005, pre_nms_topk=4096)
@@ -922,50 +938,6 @@ def phase_p6_kernels(device, card: str) -> dict:
 def frames(seed: int, n: int, h: int, w: int):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(n)]
-
-
-def calibrate_candidate_density(m, requests, target: int = 120, margin: float = 0.5) -> float:
-    """Head-bias shift that gives every image at least ``target`` pairs with
-    score > 0.25: seeded random weights keep scores near 1e-4, which would
-    leave the selection and NMS kernels with no work.  Bisects the shift
-    on ``YOLOv5`` ``m``'s own logits of the requests' frames, as
-    bench.calibrate_candidate_density does, then adds ``margin``: random
-    weights make the count a cliff in the shift, and the margin keeps a
-    bias rounded to bfloat16 on the busy side of it."""
-    import torch
-
-    yolo = m.model
-    logits = []
-    for raw_u8 in requests:
-        x = torch.from_numpy(np.stack(raw_u8)).to(m.device)
-        with torch.inference_mode():
-            outs = yolo.head_outputs(m.canvas(x)[0])
-        logits.append(torch.cat([o.reshape(o.shape[0], -1, 5 + yolo.num_classes).float()
-                                 for o in outs], dim=1))
-
-    def count_at(d):
-        counts = []
-        for lg in logits:
-            s = torch.sigmoid(lg[..., 4:5] + d) * torch.sigmoid(lg[..., 5:] + d)
-            counts.append(int((s > 0.25).sum(dim=(1, 2)).min()))
-        return min(counts)
-
-    lo, hi = 0.0, 20.0
-    for _ in range(30):
-        mid = (lo + hi) / 2
-        if count_at(mid) < target:
-            lo = mid
-        else:
-            hi = mid
-    return hi + margin
-
-
-def shift_head_bias(yolo, delta: float) -> None:
-    import torch
-
-    with torch.no_grad():
-        for conv in yolo.head.children():
-            conv.bias.view(yolo.num_anchors, -1)[:, 4:] += delta
 
 
 def pair_detections(a, b, label: str) -> int:
@@ -3796,6 +3768,271 @@ def _phase_parallel(device, card: str, times: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 14: the last modules (pretrained=True, the stage profiler, the
+# regression harness, the feature taps and the profiling helpers)
+# --------------------------------------------------------------------------
+
+LAST_BATCH = 32
+LAST_SIZE = 640
+WEIGHTS_ARCH = "yolov5_darknet_pan_s_r60"
+# profile_stages' cell-path prefixes, each with the kernels it adds to the
+# prefix before it (one call, default route)
+PROFILE_PREFIXES = (
+    ("cells concat + stage-1", {"fused_cells_stage1": 1}),
+    ("+ stage-1 select (bisect)", {"bisect_count": 1}),
+    ("+ segment gather", {}),
+    ("+ seg extract + box decode", {}),
+    ("+ stage-2 pair select", {"bisect_count": 1, "row_fetch": 1}),
+    ("+ box gather + NMS + compact", {"nms_mask": 1}),
+)
+# the tool's other rows: the network alone, the decoded path, the pipeline
+PROFILE_ROWS = {"backbone+pan+head": {}, "+decode": {},
+                "postprocess": FLATTEN_KERNELS[DEFAULT_ROUTE], "full pipeline": DEFAULT_PER_BATCH}
+SERVING_KERNELS = ("cells_stage1_kernel", "bisect_count_kernel", "row_fetch_kernel",
+                   "nms_mask_kernel")
+
+
+class weights_env:
+    """``YOLORT_TPU_WEIGHTS`` set to ``path`` (and no ``YOLORT_HUB_BASE``)
+    inside the ``with``; both restored after."""
+
+    KEYS = ("YOLORT_TPU_WEIGHTS", "YOLORT_HUB_BASE")
+
+    def __init__(self, path):
+        self.path = str(path)
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.pop(k, None) for k in self.KEYS}
+        os.environ["YOLORT_TPU_WEIGHTS"] = self.path
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def phase_last_modules(device, card: str) -> dict:
+    """Phase 14.  (a) ``yolov5s(pretrained=True)`` from a weights directory
+    holding a fabricated full-width yolov5s r6.0 checkpoint, as ``.pt`` and
+    as the ``.npz`` of ``convert_yolov5_checkpoint``: batch 32 @640 f32,
+    serving config, detections bit-equal to ``load_from_yolov5`` of the
+    ``.pt``, exactly DEFAULT_PER_BATCH launches a batch; a file under the
+    registry's sha-suffixed name that does not match it raises ValueError.
+    (b) ``tools/profile_stages`` on yolov5s at batch 32 @640, calibrated,
+    in both dtypes and configs, default route: every row in ms, each row's
+    launches exactly PROFILE_PREFIXES / PROFILE_ROWS, the last prefix
+    bit-equal to ``batched_postprocess_from_heads``.  (c) ``tools/regression
+    --selftest`` on the card: bit parity exact, floor pass, DEFAULT_PER_BATCH
+    a batch.  (d) ``FeatureExtractor`` on the card against the CPU (each tap
+    within 1e-3 of its largest value, the bound phase 7 holds head outputs
+    to) and no hook left.  (e) a ``trace`` of served batches naming the four
+    serving kernels, ``model_info``, ``device_memory_stats``."""
+    from yolort_tpu_torch.utils.profiling import time_sync
+
+    out, times = {}, {}
+    t_all = time_sync(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time_sync(device)
+        out["pretrained"], m, path = _phase_pretrained(tmp, device, card)
+        times["a"] = time_sync(device) - t0
+        t0 = time_sync(device)
+        out["profile_stages"] = _phase_profile_stages(device, card)
+        times["b"] = time_sync(device) - t0
+        t0 = time_sync(device)
+        out["regression"] = _phase_regression(tmp, device, card)
+        times["c"] = time_sync(device) - t0
+        t0 = time_sync(device)
+        _phase_taps(m, path, device, card)
+        times["d"] = time_sync(device) - t0
+        t0 = time_sync(device)
+        _phase_trace(m, tmp, card)
+        times["e"] = time_sync(device) - t0
+    print(f"[wall] phase 14: {time_sync(device) - t_all:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + f") | {card}", flush=True)
+    return out
+
+
+def _phase_pretrained(tmp: str, device, card: str):
+    """(a); returns (launches, the pretrained model, the checkpoint path)."""
+    import shutil
+    from pathlib import Path
+
+    import yolort_tpu_torch
+    from yolort_tpu_torch import YOLOv5
+    from yolort_tpu_torch.models._checkpoint import convert_yolov5_checkpoint
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+    from yolort_tpu_torch.utils.robustness import PRETRAINED_REGISTRY
+
+    pt, _ = fabricate(tmp, "s r6.0", dict(dm=0.33, wm=0.5))
+    dirs = {form: Path(tmp, f"weights_{form}") for form in ("pt", "npz", "tampered")}
+    for d in dirs.values():
+        d.mkdir()
+    shutil.copy(pt, dirs["pt"] / f"{WEIGHTS_ARCH}_coco.pt")
+    convert_yolov5_checkpoint(pt, str(dirs["npz"]), postfix="coco.npz")
+    shutil.copy(pt, dirs["tampered"] / f"{PRETRAINED_REGISTRY[WEIGHTS_ARCH]}.pt")
+    raw = frames(61, LAST_BATCH, LAST_SIZE, LAST_SIZE)
+    want = YOLOv5.load_from_yolov5(pt, device=device, **SERVING)(raw)
+    check_served([want], "pretrained: load_from_yolov5")
+    launches, model = {}, None
+    for form in ("pt", "npz"):
+        with weights_env(dirs[form]):
+            m = yolort_tpu_torch.yolov5s(pretrained=True, device=device, **SERVING)
+        if m.device != device or next(m.model.parameters()).device != device:
+            raise AssertionError(f"pretrained ({form}): the model is not on {device}")
+        m(raw)
+        reset_launch_counts()
+        got = m(raw)
+        counts = launch_counts()
+        if {k: n for k, n in counts.items() if n} != DEFAULT_PER_BATCH:
+            raise AssertionError(f"pretrained ({form}): launches {counts}")
+        if not all(np.array_equal(x[key], y[key]) for x, y in zip(got, want)
+                   for key in ("boxes", "scores", "labels")):
+            raise AssertionError(f"pretrained ({form}): detections differ from load_from_yolov5's")
+        launches = {k: launches.get(k, 0) + n for k, n in counts.items()}
+        print(f"[last] yolov5s(pretrained=True) from {WEIGHTS_ARCH}_coco.{form}: batch "
+              f"{LAST_BATCH} @{LAST_SIZE} f32 serving, detections bit-equal to load_from_yolov5 "
+              f"({[len(d['boxes']) for d in got[:4]]}... a frame), launches {DEFAULT_PER_BATCH} "
+              f"| {card}", flush=True)
+        model = m
+    with weights_env(dirs["tampered"]):
+        try:
+            yolort_tpu_torch.yolov5s(pretrained=True, device=device)
+        except ValueError as e:
+            print(f"[last] a tampered {PRETRAINED_REGISTRY[WEIGHTS_ARCH]}.pt raises ValueError: "
+                  f"{e}", flush=True)
+        else:
+            raise AssertionError("pretrained: a tampered sha-suffixed file loaded")
+    return launches, model, pt
+
+
+def _phase_profile_stages(device, card: str) -> dict:
+    """(b); returns the launches of the counted calls of every row."""
+    from yolort_tpu_torch.tools import profile_stages
+
+    launches: dict = {}
+    for dt in ("float32", "bfloat16"):
+        for name, cfg in (("serving", SERVING), ("eval", EVAL)):
+            print(f"[last] profile_stages yolov5s batch {LAST_BATCH} @{LAST_SIZE} {dt} {name} "
+                  f"(score {cfg['score_thresh']}, top-k {cfg['pre_nms_topk']}), calibrated, "
+                  f"default route | {card}", flush=True)
+            rows = profile_stages.cli_main([
+                "--arch", WEIGHTS_ARCH, "--batch", str(LAST_BATCH), "--size", str(LAST_SIZE),
+                "--dtype", dt, "--topk", str(cfg["pre_nms_topk"]),
+                "--score", str(cfg["score_thresh"]), "--calibrate", "--device", str(device)])
+            want, acc = {}, {}
+            for label, added in PROFILE_PREFIXES:
+                for k, n in added.items():
+                    acc[k] = acc.get(k, 0) + n
+                want[label] = dict(acc)
+            want.update(PROFILE_ROWS)
+            want[f"decode-out topk(k={cfg['pre_nms_topk']})"] = {}
+            got = {r["label"]: r["launches"] for r in rows}
+            if got != want:
+                raise AssertionError(f"profile_stages {dt} {name}: launches {got}, want {want}")
+            last = next(r for r in rows if r["label"] == PROFILE_PREFIXES[-1][0])
+            if last.get("bit_equal") is not True:
+                raise AssertionError(f"profile_stages {dt} {name}: the last prefix differs from "
+                                     "batched_postprocess_from_heads")
+            for r in rows:
+                for k, n in r["launches"].items():
+                    launches[k] = launches.get(k, 0) + n
+            print(f"[last] profile_stages {dt} {name} rows (ms, median / min of "
+                  f"{profile_stages.ITERS}): "
+                  + "; ".join(f"{r['label']} {r['ms']:.3f} / {r['min_ms']:.3f}" for r in rows)
+                  + f"; {rows[-1]['images_per_s']:.1f} images/s; every prefix's launches exact, "
+                  f"the last bit-equal | {card}", flush=True)
+    return {k: launches.get(k, 0) for k in TPU_KERNELS}
+
+
+def _phase_regression(tmp: str, device, card: str) -> dict:
+    """(c); returns the selftest's launches."""
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+    from yolort_tpu_torch.tools import regression
+
+    reset_launch_counts()
+    report = regression.cli_main(["--selftest", "--selftest-dir", f"{tmp}/selftest",
+                                  "--device", str(device)])
+    counts = launch_counts()
+    batches = 4  # two passes over 8 images at batch 4
+    want = {k: DEFAULT_PER_BATCH.get(k, 0) * batches for k in counts}
+    if report["bit_parity"] != "exact" or report["map_floor"] != "pass" or counts != want:
+        raise AssertionError(f"regression --selftest: {report}, launches {counts}, want {want}")
+    print(f"[last] regression --selftest on the card: bit_parity {report['bit_parity']}, "
+          f"map_floor {report['map_floor']}, AP {report['metrics']['AP']} AP50 "
+          f"{report['metrics']['AP50']}; launches {DEFAULT_PER_BATCH} x {batches} batches "
+          f"| {card}", flush=True)
+    return counts
+
+
+def _phase_taps(m, path: str, device, card: str) -> None:
+    """(d): FeatureExtractor on the card against the CPU, then a served
+    batch with the route's launches."""
+    import torch
+
+    from yolort_tpu_torch import YOLOv5
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+    from yolort_tpu_torch.utils.hooks import FeatureExtractor
+
+    cpu = YOLOv5.load_from_yolov5(path, device="cpu", **SERVING)
+    canvas = cpu.canvas(torch.from_numpy(np.stack(frames(62, 1, 480, 640))))[0]
+    with torch.inference_mode():
+        got = FeatureExtractor(m.model)(canvas.to(device))
+        want = FeatureExtractor(cpu.model)(canvas)
+    if list(got) != list(want) or len(got) != 9 + 3 + 3:
+        raise AssertionError(f"FeatureExtractor: taps {list(got)} on the card, {list(want)} on "
+                             "the CPU")
+    worst = 0.0
+    for name, w in want.items():
+        err = (got[name].cpu() - w).abs().max().item()
+        rel = err / max(w.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        if rel > 1e-3:
+            raise AssertionError(f"FeatureExtractor {name}: card vs CPU {err} ({rel:.2e} of the "
+                                 "largest value)")
+    if any(mod._forward_hooks for mod in m.model.modules()):
+        raise AssertionError("FeatureExtractor left a hook on the model")
+    raw = frames(61, LAST_BATCH, LAST_SIZE, LAST_SIZE)
+    reset_launch_counts()
+    m(raw)
+    counts = launch_counts()
+    if {k: n for k, n in counts.items() if n} != DEFAULT_PER_BATCH:
+        raise AssertionError(f"after FeatureExtractor: launches {counts}")
+    print(f"[last] FeatureExtractor on the card: {len(got)} taps ({', '.join(got)}), card vs "
+          f"CPU within {worst:.2e} of each tap's largest value (bound 1e-3); no hook left, the "
+          f"next batch launches {DEFAULT_PER_BATCH} | {card}", flush=True)
+
+
+def _phase_trace(m, tmp: str, card: str) -> None:
+    """(e): a trace of served batches names the serving kernels; the model
+    summary and the memory statistics."""
+    from yolort_tpu_torch.utils.profiling import device_memory_stats, model_info, trace
+
+    raw = frames(61, LAST_BATCH, LAST_SIZE, LAST_SIZE)
+    with trace(f"{tmp}/trace"):
+        for _ in range(3):  # the profiler on that machine can lose a record
+            m(raw)
+    with open(f"{tmp}/trace/trace.json") as f:
+        names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+    found = {k: any(k in n for n in names) for k in SERVING_KERNELS}
+    if not all(found.values()):
+        raise AssertionError(f"trace: serving kernels seen {found}")
+    print(f"[last] trace of 3 served batches names {list(SERVING_KERNELS)} | {card}", flush=True)
+    print(f"[last] model_info(yolov5s): {model_info(m.model)} | {card}", flush=True)
+    stats = device_memory_stats()
+    if not stats or not stats.get("cuda:0"):
+        raise AssertionError(f"device_memory_stats: {stats}")
+    s0 = stats["cuda:0"]
+    print(f"[last] device_memory_stats: {len(s0)} byte counters on cuda:0; allocated "
+          f"{s0.get('allocated_bytes.all.current', 0) / 2**30:.3f} GiB, peak "
+          f"{s0.get('allocated_bytes.all.peak', 0) / 2**30:.3f} GiB | {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3883,6 +4120,8 @@ def main() -> int:
     done("runtime and export")
     par = phase_parallel(device, card)
     done("parallel and the CLIs")
+    last = phase_last_modules(device, card)
+    done("the last modules")
     phase_throughput(sl["models"], card, "float")
     phase_throughput(q8["models"], card, "int8")
     phase_route_times(sl["models"], card)
@@ -3904,6 +4143,8 @@ def main() -> int:
              "int8_stream": rt["int8_stream"]["launches"],
              "parallel_infer": par["parallel_infer"], "fit_mesh": par["fit_mesh"],
              "eval_metric": par["eval_metric"], "detect": par["detect"],
+             "pretrained": last["pretrained"], "profile_stages": last["profile_stages"],
+             "regression": last["regression"],
              **phase_entry_points()}
     done("entry points")
     kernels = []

@@ -221,7 +221,7 @@ def _hub_names(module) -> list:
     return sorted(n for n in dir(module) if callable(getattr(module, n)) and not n.startswith("_"))
 
 
-def test_hub_file_lists_the_root_factories_and_builds():
+def test_hub_file_lists_the_root_factories_and_builds(monkeypatch, tmp_path):
     spec = importlib.util.spec_from_file_location("root_hubconf", ROOT / "hubconf.py")
     root = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(root)
@@ -237,7 +237,12 @@ def test_hub_file_lists_the_root_factories_and_builds():
     assert isinstance(m, YOLOv5) and m.device == torch.device("cpu")
     assert m.model.score_thresh == 0.3 and m.fixed_shape == (96, 96)
     assert len(m([np.zeros((40, 50, 3), np.uint8), np.zeros((30, 20, 3), np.uint8)])) == 2
-    with pytest.raises(ValueError, match="no released weights"):
+    # pretrained=True reaches the factory: with an empty weights directory
+    # and no hub it finds no weights
+    monkeypatch.setenv("YOLORT_TPU_WEIGHTS", str(tmp_path))
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("YOLORT_HUB_BASE", raising=False)
+    with pytest.raises(FileNotFoundError, match="No pretrained weights"):
         torch.hub.load(hub_dir, "yolov5s", source="local", pretrained=True, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):

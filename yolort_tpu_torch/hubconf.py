@@ -7,9 +7,10 @@
                            device="cuda", score_thresh=0.25)
 
 Every keyword goes to the factory (``upstream_version``, ``size``,
-``fixed_shape``, ``dtype``, ``classes_per_anchor``, ...).  No released
-weights are in the repository, so ``pretrained=True`` raises; load an
-ultralytics checkpoint with ``YOLOv5.load_from_yolov5`` instead.
+``fixed_shape``, ``dtype``, ``classes_per_anchor``, ...).  ``pretrained=True``
+loads the arch's COCO weights from the local weights directory
+(``$YOLORT_TPU_WEIGHTS``, then ``~/.cache/yolort_tpu``; a hub mirror only
+where ``YOLORT_HUB_BASE`` names one), as the factory does.
 """
 
 import os
@@ -29,15 +30,10 @@ def _entry(name: str):
     factory = getattr(_models, name)
 
     def entry(pretrained: bool = False, **kwargs):
-        if pretrained:
-            raise ValueError(
-                f"{name}(pretrained=True): no released weights are in the repository; build "
-                f"with pretrained=False (seeded random weights) or load an ultralytics "
-                f"checkpoint with yolort_tpu_torch.YOLOv5.load_from_yolov5(path)")
-        return factory(**kwargs)
+        return factory(pretrained=pretrained, **kwargs)
 
     entry.__name__ = entry.__qualname__ = name
-    entry.__doc__ = f"``yolort_tpu_torch.models.{name}``; ``pretrained=True`` raises."
+    entry.__doc__ = f"``yolort_tpu_torch.models.{name}``."
     return entry
 
 

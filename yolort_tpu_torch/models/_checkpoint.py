@@ -20,7 +20,9 @@ Port of ``yolort_tpu/models/_checkpoint.py`` (torch and numpy only):
 Nothing detects the TAN variant: its checkpoint loads as r4.0 and the
 caller builds the model with ``use_tan=True``.  ``save_params`` /
 ``load_params`` write and read the JAX package's ``.npz`` layout, so a
-file written by either package loads in the other.
+file written by either package loads in the other.  ``load_pretrained_params``
+finds an arch's COCO weights in a local weights directory, as the JAX
+package does, so one directory serves both packages.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from yolort_tpu_torch.models.darknet import VERSIONS
 from yolort_tpu_torch.ops.blocks import fuse_conv_bn
 
 __all__ = ["load_from_ultralytics", "convert_yolov5_checkpoint", "save_params", "load_params",
-           "get_yolov5_size"]
+           "get_yolov5_size", "load_pretrained_params", "weights_dirs"]
 
 
 # --- stub unpickling of ultralytics checkpoints ---------------------------
@@ -337,3 +339,57 @@ def load_params(path: str) -> Tuple[Dict, Dict]:
             node = node.setdefault(p, {})
         node[leaf] = data[key]
     return tree, meta
+
+
+# --- pretrained weights ---------------------------------------------------
+
+def weights_dirs() -> List[str]:
+    """The local weights directories, in lookup order: ``$YOLORT_TPU_WEIGHTS``
+    (where set), then ``~/.cache/yolort_tpu``."""
+    import os
+
+    roots = [os.environ.get("YOLORT_TPU_WEIGHTS", ""), os.path.expanduser("~/.cache/yolort_tpu")]
+    return [r for r in roots if r]
+
+
+def load_pretrained_params(arch: str) -> Dict[str, Any]:
+    """The JAX-layout params tree (numpy leaves) of ``arch``'s COCO weights,
+    the JAX package's lookup: in each weights directory (``weights_dirs``),
+    ``<arch>_coco`` then the registry's sha-suffixed name, each as ``.npz``
+    (``save_params``' layout, which both packages write) before ``.pt``
+    (an ultralytics checkpoint, read as r6.0).  A file whose name carries a
+    sha256 prefix must match it (else ``ValueError``).  Where no file is
+    found and ``YOLORT_HUB_BASE`` names a hub, only the registry's ``.pt``
+    is downloaded into the first weights directory, its hash passed
+    explicitly, so an unverified pickle never reaches ``torch.load``.
+    Else ``FileNotFoundError``."""
+    from yolort_tpu_torch.utils.robustness import (
+        PRETRAINED_REGISTRY, attempt_download, hub_base, verify_checkpoint,
+    )
+
+    names = [f"{arch}_coco"]
+    if arch in PRETRAINED_REGISTRY:
+        names.append(PRETRAINED_REGISTRY[arch])
+    for root in weights_dirs():
+        for name in names:
+            for suffix in (".npz", ".pt"):
+                cand = Path(root) / f"{name}{suffix}"
+                if not cand.exists():
+                    continue
+                if not verify_checkpoint(str(cand)):
+                    raise ValueError(f"sha256 mismatch for checkpoint {cand}")
+                if suffix == ".npz":
+                    return load_params(str(cand))[0]
+                return load_from_ultralytics(str(cand))["params"]
+
+    base = hub_base()
+    if base is not None and arch in PRETRAINED_REGISTRY:
+        name = PRETRAINED_REGISTRY[arch]
+        got = attempt_download(f"{base}/{name}.pt", Path(weights_dirs()[0]) / f"{name}.pt",
+                               hash_prefix=name.rsplit("-", 1)[-1])
+        return load_from_ultralytics(str(got))["params"]
+
+    raise FileNotFoundError(
+        f"No pretrained weights for '{arch}'. Place '{arch}_coco.npz' under "
+        "$YOLORT_TPU_WEIGHTS or ~/.cache/yolort_tpu, or set YOLORT_HUB_BASE "
+        "to a release mirror to download them.")

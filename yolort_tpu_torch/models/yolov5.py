@@ -9,7 +9,8 @@ letterboxed on the device into its slice of one canvas
 (``letterbox_images``) and its boxes scaled back with its own size
 (``_infer_fixed``).  ``predict_rich`` wraps the detections in
 ``utils.results.DetectionResults``; ``load_from_yolov5`` builds a model
-from an ultralytics checkpoint.
+from an ultralytics checkpoint, ``pretrained=True`` from the weights
+directory.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from yolort_tpu_torch.models._bridge import params_from_jax
-from yolort_tpu_torch.models._checkpoint import load_from_ultralytics
+from yolort_tpu_torch.models._checkpoint import load_from_ultralytics, load_pretrained_params
 from yolort_tpu_torch.models.transform import (
     letterbox_batch, letterbox_images, make_plan, scale_coords_back,
 )
@@ -45,10 +46,14 @@ class YOLOv5:
     ``fixed_shape`` pins the canvas (h, w) (then images of mixed sizes
     share one batch), ``fill_color`` the pad value; ``device`` (the card unless the caller
     passes ``"cpu"``; a CUDA device where there is none raises) and
-    ``dtype`` (float32 or bfloat16) place the model.  A ``model`` passed in
-    (any ``Detector``: YOLO, YOLOLite, YAMLDetectionModel; or an
-    ``Ensemble``) is served where its parameters lie; a ``device`` given
-    beside it must be that one."""
+    ``dtype`` (float32 or bfloat16) place the model.  ``pretrained`` loads
+    ``arch``'s COCO weights from the local weights directory
+    (``_checkpoint.load_pretrained_params``) onto the model's device and
+    dtype, in place of the seeded ones; ``progress`` is kept for the
+    reference's signature and unused.  A ``model`` passed in (any
+    ``Detector``: YOLO, YOLOLite, YAMLDetectionModel; or an ``Ensemble``)
+    is served where its parameters lie, with its own weights; a ``device``
+    given beside it must be that one."""
 
     def __init__(
         self,
@@ -57,6 +62,8 @@ class YOLOv5:
         *,
         device=None,
         num_classes: int = 80,
+        pretrained: bool = False,
+        progress: bool = True,
         size: Tuple[int, int] = (640, 640),
         size_divisible: int = 32,
         fixed_shape: Optional[Tuple[int, int]] = None,
@@ -71,6 +78,11 @@ class YOLOv5:
             device = resolve_device("cuda" if device is None else device)
             model = build_yolo(arch, device=device, num_classes=num_classes, dtype=dtype,
                                seed=seed, **kwargs)
+            if pretrained:
+                params_from_jax(load_pretrained_params(arch), model)
+        elif pretrained:
+            raise ValueError("pretrained=True loads the weights of the arch's model; a model "
+                             "passed in keeps its own")
         else:
             # a quantized model keeps its weights as buffers, not parameters
             first = next(itertools.chain(model.parameters(), model.buffers()))
