@@ -1,0 +1,10 @@
+"""Device ms a batch of host-to-device copies: the frames ``__call__``
+uploads (models/yolov5.py), pageable memory.
+
+Moves ``images_per_s``."""
+
+from portbench.layers._device import upload_ms
+
+
+def read(run):
+    return upload_ms(run)
