@@ -15,6 +15,7 @@ from torch import nn
 
 from yolort_tpu_torch.models.yolo import Detector
 from yolort_tpu_torch.ops.nms import Detections
+from yolort_tpu_torch.utils.profiling import span
 
 
 class Ensemble(nn.Module):
@@ -41,4 +42,6 @@ class Ensemble(nn.Module):
     def forward(self, images: torch.Tensor) -> Detections:
         """images (B, H, W, 3) letterboxed -> padded Detections of the pooled
         predictions, canvas coordinates."""
-        return self.members[0].postprocess_decoded(self.decode(images))
+        with span("network"):
+            pred = self.decode(images)
+        return self.members[0].postprocess_decoded(pred)

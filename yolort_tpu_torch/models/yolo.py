@@ -26,6 +26,7 @@ from yolort_tpu_torch.ops import blocks
 from yolort_tpu_torch.ops.nms import (
     Detections, batched_postprocess, batched_postprocess_from_heads,
 )
+from yolort_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device) -> torch.device:
@@ -145,12 +146,13 @@ class Detector(nn.Module):
         """Padded detections of decoded predictions (B, Na, 5+nc) (``decode``
         of this model, or a pool of them: Ensemble, TTA) under this model's
         thresholds and ``row_gather`` route."""
-        return batched_postprocess(
-            pred, num_classes=self.num_classes, score_thresh=self.score_thresh,
-            nms_thresh=self.nms_thresh, detections_per_img=self.detections_per_img,
-            pre_nms_topk=self.pre_nms_topk, nms_tile_size=self.nms_tile_size,
-            row_gather=self.row_gather,
-        )
+        with span("postprocess"):
+            return batched_postprocess(
+                pred, num_classes=self.num_classes, score_thresh=self.score_thresh,
+                nms_thresh=self.nms_thresh, detections_per_img=self.detections_per_img,
+                pre_nms_topk=self.pre_nms_topk, nms_tile_size=self.nms_tile_size,
+                row_gather=self.row_gather,
+            )
 
     def with_thresholds(self, score_thresh=None, nms_thresh=None, detections_per_img=None,
                         pre_nms_topk=None) -> "Detector":
@@ -165,7 +167,10 @@ class Detector(nn.Module):
 
     def forward(self, images: torch.Tensor) -> Detections:
         """images (B, H, W, 3) letterboxed -> padded Detections, canvas coordinates."""
-        return self.postprocess(self.head_outputs(images))
+        with span("network"):
+            outs = self.head_outputs(images)
+        with span("postprocess"):
+            return self.postprocess(outs)
 
 
 class YOLO(Detector):

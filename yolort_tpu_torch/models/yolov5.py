@@ -28,6 +28,8 @@ from yolort_tpu_torch.models.transform import (
 )
 from yolort_tpu_torch.models.yolo import YOLO, Detector, build_yolo, resolve_device
 from yolort_tpu_torch.ops.nms import Detections
+from yolort_tpu_torch.utils import profiling
+from yolort_tpu_torch.utils.profiling import span
 
 
 def read_image(path: str) -> np.ndarray:
@@ -100,6 +102,7 @@ class YOLOv5:
                                                              int(fixed_shape[1]))
         self.fill_color = fill_color
         self.dtype = dtype
+        self._calls = 0  # calls so far: the request span's sequence number
 
     @classmethod
     def load_from_yolov5(
@@ -152,8 +155,9 @@ class YOLOv5:
         and the ``LetterboxPlan`` that made it (onto ``fixed_shape`` where
         it is set)."""
         _, h, w, _ = raw.shape
-        plan = self._plans([(h, w)])[0]
-        return letterbox_batch(self._to_unit(raw), plan, self.fill_color / 255.0), plan
+        with span("letterbox"):
+            plan = self._plans([(h, w)])[0]
+            return letterbox_batch(self._to_unit(raw), plan, self.fill_color / 255.0), plan
 
     def canvas_mixed(self, raws: Sequence[torch.Tensor]) -> torch.Tensor:
         """The ``fixed_shape`` canvas (B, ch, cw, 3) of frames (H_i, W_i, 3)
@@ -161,8 +165,10 @@ class YOLOv5:
         slice equals ``canvas`` of its frame alone, bit for bit."""
         if self.fixed_shape is None:
             raise ValueError("images of mixed sizes share a batch only with fixed_shape set")
-        plans = self._plans([tuple(r.shape[:2]) for r in raws])
-        return letterbox_images([self._to_unit(r) for r in raws], plans, self.fill_color / 255.0)
+        with span("letterbox"):
+            plans = self._plans([tuple(r.shape[:2]) for r in raws])
+            return letterbox_images([self._to_unit(r) for r in raws], plans,
+                                    self.fill_color / 255.0)
 
     @torch.inference_mode()
     def _infer(self, raw: torch.Tensor) -> Detections:
@@ -171,8 +177,9 @@ class YOLOv5:
         _, h, w, _ = raw.shape
         canvas, plan = self.canvas(raw)
         det = self.model(canvas)
-        orig = torch.tensor([h, w], dtype=torch.float32, device=raw.device)
-        return det._replace(boxes=scale_coords_back(det.boxes, plan.canvas_hw, orig))
+        with span("rescale"):
+            orig = torch.tensor([h, w], dtype=torch.float32, device=raw.device)
+            return det._replace(boxes=scale_coords_back(det.boxes, plan.canvas_hw, orig))
 
     @torch.inference_mode()
     def _infer_fixed(self, canvases: torch.Tensor, orig_hw: torch.Tensor) -> Detections:
@@ -180,48 +187,66 @@ class YOLOv5:
         of frames of any sizes; each image's boxes scaled back with its own
         ``orig_hw`` (B, 2) f32 row."""
         det = self.model(canvases.to(self.dtype))
-        return det._replace(boxes=scale_coords_back(det.boxes, self.fixed_shape,
-                                                    orig_hw[:, None, :]))
+        with span("rescale"):
+            return det._replace(boxes=scale_coords_back(det.boxes, self.fixed_shape,
+                                                        orig_hw[:, None, :]))
 
     @staticmethod
     def _unpack(det: Detections, idxs: Sequence[int], results: list) -> None:
-        boxes, scores, labels, num = (
-            det.boxes.float().cpu().numpy(), det.scores.float().cpu().numpy(),
-            det.labels.cpu().numpy(), det.num.cpu().numpy(),
-        )
-        for j, i in enumerate(idxs):
-            n = int(num[j])
-            results[i] = {
-                "boxes": boxes[j, :n],
-                "scores": scores[j, :n],
-                "labels": labels[j, :n].astype(np.int64),
-            }
+        """The batch's detections read back into ``results`` at ``idxs``,
+        then the request's held counts and ``kept``."""
+        with span("readback"):
+            boxes, scores, labels, num = (
+                det.boxes.float().cpu().numpy(), det.scores.float().cpu().numpy(),
+                det.labels.cpu().numpy(), det.num.cpu().numpy(),
+            )
+            for j, i in enumerate(idxs):
+                n = int(num[j])
+                results[i] = {
+                    "boxes": boxes[j, :n],
+                    "scores": scores[j, :n],
+                    "labels": labels[j, :n].astype(np.int64),
+                }
+            profiling.emit_held_counts()
+            profiling.count("kept", num.sum())
 
     def __call__(self, inputs: Sequence[np.ndarray]) -> List[Dict[str, np.ndarray]]:
         """Detect on a list of HWC images (uint8, or float in [0, 1]).
         Same-size images of one dtype share a batch; with ``fixed_shape``
         set, a request of several sizes or dtypes is one batch on the
         fixed canvas (``canvas_mixed``, ``_infer_fixed``)."""
-        images = [np.asarray(x) for x in inputs]
-        results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(images)
-        groups: Dict[Tuple[Tuple[int, int], np.dtype], List[int]] = {}
-        for i, im in enumerate(images):
-            if im.ndim != 3 or im.shape[-1] != 3:
-                raise ValueError(f"expected an HWC image with 3 channels, got shape {im.shape}")
-            dt = np.dtype(np.uint8) if im.dtype == np.uint8 else np.dtype(np.float32)
-            images[i] = im.astype(dt, copy=False)
-            groups.setdefault((im.shape[:2], dt), []).append(i)
+        self._calls += 1
+        with profiling.request(self._calls):
+            return self._serve(inputs)
+
+    def _serve(self, inputs: Sequence[np.ndarray]) -> List[Dict[str, np.ndarray]]:
+        with span("stack"):
+            images = [np.asarray(x) for x in inputs]
+            results: List[Optional[Dict[str, np.ndarray]]] = [None] * len(images)
+            groups: Dict[Tuple[Tuple[int, int], np.dtype], List[int]] = {}
+            for i, im in enumerate(images):
+                if im.ndim != 3 or im.shape[-1] != 3:
+                    raise ValueError(f"expected an HWC image with 3 channels, got shape {im.shape}")
+                dt = np.dtype(np.uint8) if im.dtype == np.uint8 else np.dtype(np.float32)
+                images[i] = im.astype(dt, copy=False)
+                groups.setdefault((im.shape[:2], dt), []).append(i)
         if self.fixed_shape is not None and len(groups) > 1:
             with torch.inference_mode():
-                raws = [torch.from_numpy(np.ascontiguousarray(im)).to(self.device) for im in images]
-                orig = torch.tensor([im.shape[:2] for im in images], dtype=torch.float32,
-                                    device=self.device)
+                with span("stack"):
+                    frames = [torch.from_numpy(np.ascontiguousarray(im)) for im in images]
+                with span("upload"):
+                    raws = [f.to(self.device) for f in frames]
+                    orig = torch.tensor([im.shape[:2] for im in images], dtype=torch.float32,
+                                        device=self.device)
                 det = self._infer_fixed(self.canvas_mixed(raws), orig)
             self._unpack(det, range(len(images)), results)
             return results  # type: ignore[return-value]
         for idxs in groups.values():
-            batch = torch.from_numpy(np.stack([images[i] for i in idxs]))
-            self._unpack(self._infer(batch.to(self.device)), idxs, results)
+            with span("stack"):
+                batch = torch.from_numpy(np.stack([images[i] for i in idxs]))
+            with span("upload"):
+                raw = batch.to(self.device)
+            self._unpack(self._infer(raw), idxs, results)
         return results  # type: ignore[return-value]
 
     def predict(self, x: Any, image_loader: Optional[Callable] = None) -> List[Dict[str, np.ndarray]]:

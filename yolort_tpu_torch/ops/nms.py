@@ -30,7 +30,11 @@ over (B, Na, 5+nc) decoded predictions.  Both run ``bisect_count``, the
 route's fetch kernel and ``nms_mask``, and no stage-1 kernel.
 
 Batch is the leading dimension throughout.  Thresholds are taken as
-float32 values, as the JAX program compares them.
+float32 values, as the JAX program compares them.  Under the profiler
+(``utils.profiling``) the spans ``cells`` (the stage-1 table),
+``select`` (both selections, to the candidates' gather) and ``nms``
+(steps 3 and 4) split the postprocess, and ``candidates`` counts the
+pairs that enter NMS.
 """
 
 from __future__ import annotations
@@ -46,6 +50,11 @@ from yolort_tpu_torch.ops.boxes import cxcywh_to_xyxy
 from yolort_tpu_torch.ops.cuda.nms_kernel import nms_mask
 from yolort_tpu_torch.ops.cuda.stage1_kernel import fused_cells_stage1
 from yolort_tpu_torch.ops.select import ROW_GATHERS, select_topk_indices, select_topk_threshold
+from yolort_tpu_torch.utils.profiling import count_later, span
+
+# (boxes (B, k, 4), scores (B, k), labels (B, k) int32, valid (B, k)): the
+# selected pairs that enter NMS
+Candidates = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _f32(x: float) -> float:
@@ -129,11 +138,20 @@ def _nms_and_compact(cand_boxes, top_scores, labels, valid, *, nms_thresh, detec
                      nms_tile_size) -> Detections:
     """Class-offset trick (boxes of different classes never overlap), greedy
     suppression, compaction."""
-    max_coord = torch.where(valid[..., None], cand_boxes, 0.0).amax(dim=(1, 2))
-    offset_boxes = cand_boxes + (labels.to(cand_boxes.dtype) * (max_coord[:, None] + 1.0))[..., None]
-    keep = nms_keep_mask(offset_boxes, valid, nms_thresh, tile_size=nms_tile_size,
-                         stop_after=detections_per_img)
-    return _compact_detections(keep, cand_boxes, top_scores, labels, detections_per_img)
+    with span("nms"):
+        max_coord = torch.where(valid[..., None], cand_boxes, 0.0).amax(dim=(1, 2))
+        offset_boxes = cand_boxes + (labels.to(cand_boxes.dtype)
+                                     * (max_coord[:, None] + 1.0))[..., None]
+        keep = nms_keep_mask(offset_boxes, valid, nms_thresh, tile_size=nms_tile_size,
+                             stop_after=detections_per_img)
+        return _compact_detections(keep, cand_boxes, top_scores, labels, detections_per_img)
+
+
+def _nms(cands: Candidates, cfg: NMSConfig) -> Detections:
+    """NMS and compaction of the candidates under ``cfg``."""
+    return _nms_and_compact(*cands, nms_thresh=_f32(cfg.nms_thresh),
+                            detections_per_img=cfg.detections_per_img,
+                            nms_tile_size=cfg.nms_tile_size)
 
 
 def _stage1_scores(obj: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
@@ -161,29 +179,26 @@ def _stage2_scores(sel_sig, s1_ok, nc: int) -> torch.Tensor:
     return torch.where(s1_ok[..., None], sel_scores, 0.0)
 
 
-def _select_and_nms(flat, k: int, row_of, label_of, sel_boxes, cfg: NMSConfig) -> Detections:
+def _candidates(flat, k: int, row_of, label_of, sel_boxes, cfg: NMSConfig) -> Candidates:
     """Top-k pairs of the (B, n) domain ``flat`` above the score threshold,
     their boxes (``sel_boxes`` rows ``row_of(idx)``) and labels
-    (``label_of(idx)``), NMS and compaction."""
+    (``label_of(idx)``); the valid ones are counted as ``candidates``."""
     score_thresh = _f32(cfg.score_thresh)
     top_scores, top_idx = select_topk_threshold(flat, k, score_thresh, row_gather=cfg.row_gather)
     cand_boxes = torch.gather(sel_boxes, 1, row_of(top_idx)[..., None].expand(-1, -1, 4))
-    return _nms_and_compact(
-        cand_boxes, top_scores, label_of(top_idx).to(torch.int32), top_scores > score_thresh,
-        nms_thresh=_f32(cfg.nms_thresh), detections_per_img=cfg.detections_per_img,
-        nms_tile_size=cfg.nms_tile_size,
-    )
+    valid = top_scores > score_thresh
+    count_later("candidates", valid)
+    return cand_boxes, top_scores, label_of(top_idx).to(torch.int32), valid
 
 
-def _decode_stage2_nms(sel_sig, anchor_sel, s1_ok, cfg: NMSConfig, k: int, k1: int) -> Detections:
-    """Lazy box decode of the k1 stage-1 anchors, stage-2 pair selection
-    over every (anchor, class), NMS and compaction.  sel_sig (B, k1, 5+nc)
-    f32 sigmoids."""
+def _decode_stage2(sel_sig, anchor_sel, s1_ok, cfg: NMSConfig, k: int, k1: int) -> Candidates:
+    """Lazy box decode of the k1 stage-1 anchors and stage-2 pair selection
+    over every (anchor, class).  sel_sig (B, k1, 5+nc) f32 sigmoids."""
     nc = cfg.num_classes
     sel_scores = _stage2_scores(sel_sig, s1_ok, nc)
-    return _select_and_nms(sel_scores.reshape(sel_scores.shape[0], -1), min(k, k1 * nc),
-                           lambda i: i // nc, lambda i: i % nc,
-                           _decode_boxes(sel_sig, anchor_sel, cfg), cfg)
+    return _candidates(sel_scores.reshape(sel_scores.shape[0], -1), min(k, k1 * nc),
+                       lambda i: i // nc, lambda i: i % nc,
+                       _decode_boxes(sel_sig, anchor_sel, cfg), cfg)
 
 
 def top_classes(sel_scores: torch.Tensor, cpa: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -195,21 +210,21 @@ def top_classes(sel_scores: torch.Tensor, cpa: int) -> Tuple[torch.Tensor, torch
     return vals[..., :cpa].contiguous(), idx[..., :cpa].contiguous()
 
 
-def _stage2_top_classes_nms(sel_sig, anchor_sel, s1_ok, cfg: NMSConfig, k: int, k1: int,
-                            cpa: int) -> Detections:
+def _stage2_top_classes(sel_sig, anchor_sel, s1_ok, cfg: NMSConfig, k: int, k1: int,
+                        cpa: int) -> Candidates:
     """Stage 2 over each selected anchor's best ``cpa`` classes (the
     ``classes_per_anchor`` cut of ``_single_image_nms_from_logits``): the
-    (k1 * cpa) domain, in anchor-major order, then NMS and compaction."""
+    (k1 * cpa) domain, in anchor-major order."""
     bsz = sel_sig.shape[0]
     class_vals, class_idx = top_classes(_stage2_scores(sel_sig, s1_ok, cfg.num_classes), cpa)
     class_idx = class_idx.reshape(bsz, -1)
-    return _select_and_nms(class_vals.reshape(bsz, -1), min(k, k1 * cpa),
-                           lambda i: i // cpa, lambda i: torch.gather(class_idx, 1, i),
-                           _decode_boxes(sel_sig, anchor_sel, cfg), cfg)
+    return _candidates(class_vals.reshape(bsz, -1), min(k, k1 * cpa),
+                       lambda i: i // cpa, lambda i: torch.gather(class_idx, 1, i),
+                       _decode_boxes(sel_sig, anchor_sel, cfg), cfg)
 
 
-def _nms_cells(cells: torch.Tensor, per_anchor: torch.Tensor, cfg: NMSConfig) -> Detections:
-    """Cell-major lazy-decode postprocess.  cells: (B, n_cells, A*(5+nc))
+def _select_cells(cells: torch.Tensor, per_anchor: torch.Tensor, cfg: NMSConfig) -> Candidates:
+    """Cell-major lazy-decode selection.  cells: (B, n_cells, A*(5+nc))
     raw logits in conv channel layout, levels concatenated; per_anchor
     (B, n_cells*A), the stage-1 scores."""
     A, nc = cfg.num_anchors, cfg.num_classes
@@ -224,11 +239,11 @@ def _nms_cells(cells: torch.Tensor, per_anchor: torch.Tensor, cfg: NMSConfig) ->
     # anchor's segment as one row
     seg = torch.gather(cells.reshape(bsz, na, kw), 1, anchor_sel[..., None].expand(-1, -1, kw))
     sel_sig = torch.sigmoid(seg.float())
-    return _decode_stage2_nms(sel_sig, anchor_sel, s1_ok, cfg, k, k1)
+    return _decode_stage2(sel_sig, anchor_sel, s1_ok, cfg, k, k1)
 
 
-def _nms_flatten(logits: torch.Tensor, cfg: NMSConfig) -> Detections:
-    """The flatten-path postprocess of (B, Na, 5+nc) raw logits in the
+def _select_flatten(logits: torch.Tensor, cfg: NMSConfig) -> Candidates:
+    """The flatten-path selection of (B, Na, 5+nc) raw logits in the
     model dtype: per-anchor scores sigmoid(max class logit) *
     sigmoid(obj logit) in that dtype, the top k1 anchors unsorted, their
     rows' f32 sigmoids, then stage 2 over every class, or over each
@@ -247,8 +262,8 @@ def _nms_flatten(logits: torch.Tensor, cfg: NMSConfig) -> Detections:
     sel_sig = torch.sigmoid(seg.float())
     cpa = cfg.classes_per_anchor
     if cpa is None or cpa >= nc:
-        return _decode_stage2_nms(sel_sig, anchor_sel, s1_ok, cfg, k, k1)
-    return _stage2_top_classes_nms(sel_sig, anchor_sel, s1_ok, cfg, k, k1, cpa)
+        return _decode_stage2(sel_sig, anchor_sel, s1_ok, cfg, k, k1)
+    return _stage2_top_classes(sel_sig, anchor_sel, s1_ok, cfg, k, k1, cpa)
 
 
 def batched_postprocess_from_heads(
@@ -283,10 +298,18 @@ def batched_postprocess_from_heads(
         nms_tile_size=nms_tile_size, row_gather=row_gather,
     )
     if cfg.classes_per_anchor is not None:
-        return _nms_flatten(flatten_heads(head_outputs, cfg.num_anchors), cfg)
+        with span("cells"):
+            logits = flatten_heads(head_outputs, cfg.num_anchors)
+        with span("select"):
+            cands = _select_flatten(logits, cfg)
+        return _nms(cands, cfg)
     bsz = head_outputs[0].shape[0]
-    cells, obj, cls = fused_cells_stage1(head_outputs, cfg.num_anchors, 5 + num_classes)
-    return _nms_cells(cells, _stage1_scores(obj, cls).reshape(bsz, -1), cfg)
+    with span("cells"):
+        cells, obj, cls = fused_cells_stage1(head_outputs, cfg.num_anchors, 5 + num_classes)
+        per_anchor = _stage1_scores(obj, cls).reshape(bsz, -1)
+    with span("select"):
+        cands = _select_cells(cells, per_anchor, cfg)
+    return _nms(cands, cfg)
 
 
 def batched_postprocess(
@@ -312,16 +335,18 @@ def batched_postprocess(
                     pre_nms_anchors=pre_nms_anchors, nms_tile_size=nms_tile_size,
                     row_gather=row_gather)
     nc = num_classes
-    pred = pred.float()
-    bsz, na, _ = pred.shape
-    k = min(pre_nms_topk, na * nc)
-    k1 = min(pre_nms_anchors if pre_nms_anchors is not None else k + 8, na)
-    boxes_all = cxcywh_to_xyxy(pred[..., :4])
-    scores_all = pred[..., 5:5 + nc] * pred[..., 4:5]
-    s1_vals, anchor_sel = select_topk_threshold(scores_all.amax(-1), k1, 0.0,
-                                                row_gather=row_gather)
-    sel_scores = torch.gather(scores_all, 1, anchor_sel[..., None].expand(-1, -1, nc))
-    sel_scores = torch.where(s1_vals[..., None] >= 0.0, sel_scores, 0.0)
-    return _select_and_nms(sel_scores.reshape(bsz, -1), min(k, k1 * nc),
-                           lambda i: torch.gather(anchor_sel, 1, i // nc), lambda i: i % nc,
-                           boxes_all, cfg)
+    with span("select"):
+        pred = pred.float()
+        bsz, na, _ = pred.shape
+        k = min(pre_nms_topk, na * nc)
+        k1 = min(pre_nms_anchors if pre_nms_anchors is not None else k + 8, na)
+        boxes_all = cxcywh_to_xyxy(pred[..., :4])
+        scores_all = pred[..., 5:5 + nc] * pred[..., 4:5]
+        s1_vals, anchor_sel = select_topk_threshold(scores_all.amax(-1), k1, 0.0,
+                                                    row_gather=row_gather)
+        sel_scores = torch.gather(scores_all, 1, anchor_sel[..., None].expand(-1, -1, nc))
+        sel_scores = torch.where(s1_vals[..., None] >= 0.0, sel_scores, 0.0)
+        cands = _candidates(sel_scores.reshape(bsz, -1), min(k, k1 * nc),
+                            lambda i: torch.gather(anchor_sel, 1, i // nc), lambda i: i % nc,
+                            boxes_all, cfg)
+    return _nms(cands, cfg)

@@ -1,30 +1,46 @@
-"""Profiling and tracing helpers: a profiler trace, a synchronised clock,
-device memory statistics, the model summary, and the candidate load that
-makes a random-weight network's postprocess do a real network's work.
+"""Profiling and tracing helpers: a profiler trace, the request path's
+spans and counters, a synchronised clock, device memory statistics, the
+model summary, and the candidate load that makes a random-weight
+network's postprocess do a real network's work.
 
 Port of ``yolort_tpu/utils/profiling.py`` on ``torch.profiler`` and
 ``torch.utils.flop_counter``.  ``calibrate_candidate_density`` and
 ``shift_head_bias`` are the port's counterpart of the bench's candidate
 calibration (``bench.calibrate_candidate_density``), shared by
 ``tools/profile_stages.py`` and ``chip_smoke.py``.
+
+Spans and counters (``span``, ``count``, ``count_later``) record only
+while ``torch.profiler`` records: each is a ``cpu_op`` event named
+``yolort_tpu::span.<name>`` or ``yolort_tpu::count.<name>`` on the
+profiler's clock, a counter's value its event's one input (seen with
+``record_shapes=True``, as ``trace`` records).  With the profiler off a
+span is one flag read and a shared no-op context.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from typing import Dict
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+SPAN_PREFIX = "yolort_tpu::span."
+COUNT_PREFIX = "yolort_tpu::count."
+_OFF = contextlib.nullcontext()
+_held = threading.local()  # .counts: the counts kept on the device in this thread's request
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the ``with`` block on the host and, where torch sees a card,
-    on the card (``torch.profiler``); on exit the Chrome trace is written
-    to ``log_dir/trace.json`` (Perfetto, chrome://tracing).  Yields the
+    on the card (``torch.profiler``, with the inputs' shapes and the
+    counters' values); on exit the Chrome trace is written to
+    ``log_dir/trace.json`` (Perfetto, chrome://tracing).  Yields the
     profiler (``key_averages()`` sums the records by name)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -32,11 +48,75 @@ def trace(log_dir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=True) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def recording() -> bool:
+    """True while ``torch.profiler`` records in this process and no compiler
+    (``torch.export``, ``torch.compile``) is tracing the code."""
+    return _autograd_profiler._is_profiler_enabled and not torch.compiler.is_compiling()
+
+
+def span(name: str):
+    """The context of span ``yolort_tpu::span.<name>`` while the profiler
+    records; else one shared no-op context.  A ``cpu_op`` event, never a
+    user annotation: the profiler copies those onto the device's timeline."""
+    if not recording():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
+
+
+def count(name: str, value: int) -> None:
+    """A zero-length event ``yolort_tpu::count.<name>`` whose one input is
+    ``value``, while the profiler records."""
+    if recording():
+        with torch._C._profiler._RecordFunctionFast(COUNT_PREFIX + name, [int(value)]):
+            pass
+
+
+@contextlib.contextmanager
+def _request(seq: int):
+    outer = getattr(_held, "counts", None)
+    _held.counts = []
+    try:
+        with torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + "request", [int(seq)]):
+            yield
+    finally:
+        _held.counts = outer
+
+
+def request(seq: int):
+    """Span ``request`` of one call (``seq`` its sequence number), which
+    holds the counts ``count_later`` keeps until ``emit_held_counts``;
+    a no-op context while the profiler is off."""
+    return _request(seq) if recording() else _OFF
+
+
+def count_later(name: str, tensor: torch.Tensor) -> None:
+    """Keep ``tensor`` (a mask or counts, on its device), whose sum is count
+    ``name`` of the current ``request``, for ``emit_held_counts``: nothing
+    is launched or waited for inside the launch path.  Nothing outside a
+    request or with the profiler off."""
+    held = getattr(_held, "counts", None)
+    if held is not None and recording():
+        held.append((name, tensor))
+
+
+def emit_held_counts() -> None:
+    """Sum the tensors the current request keeps and read the sums in one
+    copy to the host (call it once the device's results are read, so it
+    waits for nothing), then emit each as ``count``."""
+    held = getattr(_held, "counts", None)
+    if not held:
+        return
+    values = torch.stack([t.sum(dtype=torch.int64) for _, t in held]).cpu().tolist()
+    for (name, _), value in zip(held, values):
+        count(name, value)
+    held.clear()
 
 
 def time_sync(device=None) -> float:
