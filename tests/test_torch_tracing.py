@@ -18,7 +18,9 @@ and the benchmark's readers of them (``portbench/layers/_program.py``), JAX-free
 - On the card (``cuda`` marker; skips without one), a traced run of the
   benchmark's tiny cell: no span on the device, no copy to the host or
   synchronisation launched in ``letterbox`` / ``network`` /
-  ``postprocess``, the held counts read in ``readback``:
+  ``postprocess`` / ``rescale``, every copy to the card one pinned copy a
+  call launched in ``upload`` (``count.staged`` once a readback), the
+  held counts read in ``readback``:
 
     python -m pytest --noconftest tests/test_torch_tracing.py -m cuda
 """
@@ -58,10 +60,11 @@ MIXED = [(72, 96), (96, 64), (50, 80)]
 CHILDREN = ["stack", "stack", "upload", "letterbox", "network", "postprocess", "rescale",
             "readback"]
 LAUNCHING = {"letterbox", "network", "postprocess", "cells", "select", "nms"}
-BATCH_READERS = ["stack_ms", "readback_ms", "network_host_ms", "postprocess_host_ms",
-                 "idle_launch_ms", "idle_between_ms", "nms_yield", "select_ms", "nms_ms"]
+BOTH_READERS = ["stack_ms", "readback_ms", "network_host_ms", "postprocess_host_ms",
+                "idle_launch_ms", "idle_between_ms", "nms_yield", "staging_reuse"]
+BATCH_READERS = BOTH_READERS + ["select_ms", "nms_ms"]
 NEW_READERS = ([f"{n}.batch" for n in BATCH_READERS]
-               + [f"{n}.stream" for n in BATCH_READERS[:7]])
+               + [f"{n}.stream" for n in BOTH_READERS])
 
 
 def tiny(fixed=None, device="cpu"):
@@ -250,9 +253,10 @@ class Ev:
         return self._inputs
 
 
-def request_events(t, corr, program=True):
+def request_events(t, corr, program=True, grown=False):
     """One call at ``t`` us: the benchmark's spans, the program's, launches
-    and their device work (one kernel launched in each layer)."""
+    and their device work (one kernel launched in each layer); the staging
+    arena grown in its ``stack`` where ``grown``."""
     def launch(at, start, end, name="kernel", api="cudaLaunchKernel"):
         nonlocal corr
         corr += 1
@@ -272,13 +276,16 @@ def request_events(t, corr, program=True):
                  ("select", 65, 72), ("nms", 72, 79), ("rescale", 80, 85),
                  ("readback", 85, 98)]
         evs += [Ev("yolort_tpu::span." + n, t + s, t + e) for n, s, e in spans]
-        evs += [Ev("yolort_tpu::count.candidates", t + 96, t + 96, inputs=[50]),
+        evs += [Ev("yolort_tpu::count.staged", t + 11, t + 11, inputs=[1]),
+                Ev("yolort_tpu::count.candidates", t + 96, t + 96, inputs=[50]),
                 Ev("yolort_tpu::count.kept", t + 97, t + 97, inputs=[20])]
+        if grown:
+            evs.append(Ev("yolort_tpu::count.staging_grown", t + 5, t + 5, inputs=[1]))
     return evs
 
 
 def hand_run(program=True, device=True):
-    evs = request_events(0, 0, program) + request_events(100, 100, program)
+    evs = request_events(0, 0, program, grown=True) + request_events(100, 100, program)
     if not device:
         evs = [e for e in evs if not e._cuda]
     prof = SimpleNamespace(profiler=SimpleNamespace(kineto_results=SimpleNamespace(
@@ -309,7 +316,8 @@ WANT_MS = {"stack_ms": 0.008, "readback_ms": 0.013, "network_host_ms": 0.030,
 def test_each_reader_reads_its_known_value(name):
     run = hand_run()
     base = name.split(".")[0]
-    want = 40.0 if base == "nms_yield" else WANT_MS[base]
+    # two groups staged, the arena grown for one of them
+    want = {"nms_yield": 40.0, "staging_reuse": 50.0, **WANT_MS}[base]
     assert read(name, run) == pytest.approx(want, rel=1e-9)
 
 
@@ -401,17 +409,26 @@ def test_a_traced_run_on_the_card_keeps_the_spans_off_the_device(cuda_device, tm
     lo, hi = tr.window
     syncs = [t for n, t in seen["host"] if n in SYNCS and lo <= t <= hi]
     assert syncs and not any(tl.at(t) in LAUNCHING for t in syncs)
+    assert not any(tl.at(t) == "rescale" for t in syncs)
+    # the frames and sizes reach the card in one pinned copy a call, launched in upload
+    htod = [d for d in tr.device if "HtoD" in d.name and d.launch is not None
+            and lo <= d.launch <= hi]
+    assert htod and all("Pinned" in d.name and tl.at(d.launch) == "upload" for d in htod)
     dtoh = [d.launch for d in tr.device if "DtoH" in d.name and d.launch is not None
             and lo <= d.launch <= hi]
     assert dtoh and all(tl.at(t) == "readback" for t in dtoh)
     readbacks = [s for s in spans if s[0] == "readback" and lo <= s[1] <= hi]
     counts = [o for o in tr.ops if o.name == "count.candidates" and lo <= o.start <= hi]
     assert len(counts) == len(readbacks) and all(tl.at(o.start) == "readback" for o in counts)
+    staged = [o for o in tr.ops if o.name == "count.staged" and lo <= o.start <= hi]
+    assert len(staged) == len(readbacks) and all(tl.at(o.start) == "upload" for o in staged)
+    assert len(htod) == len(readbacks)
     # four copies of the detections and one of the held counts in each readback
     for _, s, e in readbacks:
         assert sum(s <= t <= e for t in dtoh) == 5
     metrics = res["metrics"]
     assert {f"{n}.batch" for n in BATCH_READERS} <= set(metrics)
+    assert metrics["staging_reuse.batch"]["value"] == 100.0  # grown only in the warm-up
     batches = res["attempted"] - res["failed"]
     idle_ms = metrics["device_idle.batch"]["value"] / 100 * res["device"]["window_s"] * 1e3
     total = (metrics["idle_launch_ms.batch"]["value"]

@@ -7,10 +7,12 @@ as [0, 1].  With ``fixed_shape`` every canvas is that size, and a request
 of mixed sizes is served as one batch: each frame is uploaded as it is,
 letterboxed on the device into its slice of one canvas
 (``letterbox_images``) and its boxes scaled back with its own size
-(``_infer_fixed``).  ``predict_rich`` wraps the detections in
-``utils.results.DetectionResults``; ``load_from_yolov5`` builds a model
-from an ultralytics checkpoint, ``pretrained=True`` from the weights
-directory.
+(``_infer_fixed``).  On a card a request's frames and sizes reach the
+device in one asynchronous copy a batch through the instance's pinned
+staging arena (``utils.staging.StagingArena``).  ``predict_rich`` wraps
+the detections in ``utils.results.DetectionResults``;
+``load_from_yolov5`` builds a model from an ultralytics checkpoint,
+``pretrained=True`` from the weights directory.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from yolort_tpu_torch.models.yolo import YOLO, Detector, build_yolo, resolve_dev
 from yolort_tpu_torch.ops.nms import Detections
 from yolort_tpu_torch.utils import profiling
 from yolort_tpu_torch.utils.profiling import span
+from yolort_tpu_torch.utils.staging import StagingArena
 
 
 def read_image(path: str) -> np.ndarray:
@@ -103,6 +106,8 @@ class YOLOv5:
         self.fill_color = fill_color
         self.dtype = dtype
         self._calls = 0  # calls so far: the request span's sequence number
+        # page-locked host buffer of the largest request seen, on a card only
+        self._arena = StagingArena() if self.device.type == "cuda" else None
 
     @classmethod
     def load_from_yolov5(
@@ -171,15 +176,13 @@ class YOLOv5:
                                     self.fill_color / 255.0)
 
     @torch.inference_mode()
-    def _infer(self, raw: torch.Tensor) -> Detections:
+    def _infer(self, raw: torch.Tensor, orig_hw: torch.Tensor) -> Detections:
         """raw: (B, H, W, 3) uint8 or float in [0, 1], one shape bucket, on
-        the model's device."""
-        _, h, w, _ = raw.shape
+        the model's device; ``orig_hw`` its (2,) f32 ``[H, W]`` there."""
         canvas, plan = self.canvas(raw)
         det = self.model(canvas)
         with span("rescale"):
-            orig = torch.tensor([h, w], dtype=torch.float32, device=raw.device)
-            return det._replace(boxes=scale_coords_back(det.boxes, plan.canvas_hw, orig))
+            return det._replace(boxes=scale_coords_back(det.boxes, plan.canvas_hw, orig_hw))
 
     @torch.inference_mode()
     def _infer_fixed(self, canvases: torch.Tensor, orig_hw: torch.Tensor) -> Detections:
@@ -232,22 +235,33 @@ class YOLOv5:
                 groups.setdefault((im.shape[:2], dt), []).append(i)
         if self.fixed_shape is not None and len(groups) > 1:
             with torch.inference_mode():
-                with span("stack"):
-                    frames = [torch.from_numpy(np.ascontiguousarray(im)) for im in images]
-                with span("upload"):
-                    raws = [f.to(self.device) for f in frames]
-                    orig = torch.tensor([im.shape[:2] for im in images], dtype=torch.float32,
-                                        device=self.device)
+                *raws, orig = self._send(
+                    images + [np.array([im.shape[:2] for im in images], np.float32)])
                 det = self._infer_fixed(self.canvas_mixed(raws), orig)
             self._unpack(det, range(len(images)), results)
             return results  # type: ignore[return-value]
-        for idxs in groups.values():
-            with span("stack"):
-                batch = torch.from_numpy(np.stack([images[i] for i in idxs]))
-            with span("upload"):
-                raw = batch.to(self.device)
-            self._unpack(self._infer(raw), idxs, results)
+        for (hw, _), idxs in groups.items():
+            raw, orig = self._send([[images[i] for i in idxs], np.array(hw, np.float32)])
+            self._unpack(self._infer(raw, orig), idxs, results)
         return results  # type: ignore[return-value]
+
+    def _send(self, parts: list) -> List[torch.Tensor]:
+        """``parts`` (arrays, or lists of same-shaped arrays to stack) on the
+        model's device: made ready on the host under span ``stack``, moved
+        under ``upload``.  On a card they are written into the pinned arena
+        and sent in one asynchronous copy; elsewhere each becomes a tensor
+        as it is (a list stacked into a fresh array)."""
+        if self._arena is None:
+            with span("stack"):
+                host = [torch.from_numpy(np.ascontiguousarray(p) if isinstance(p, np.ndarray)
+                                         else np.stack(p)) for p in parts]
+            with span("upload"):
+                return [t.to(self.device) for t in host]
+        with self._arena.lock:
+            with span("stack"):
+                self._arena.stage(parts)
+            with span("upload"):
+                return self._arena.upload(self.device)
 
     def predict(self, x: Any, image_loader: Optional[Callable] = None) -> List[Dict[str, np.ndarray]]:
         """Detect on a path, an HWC array, or a list of either."""
