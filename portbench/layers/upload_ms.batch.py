@@ -1,5 +1,6 @@
 """Device ms a batch of host-to-device copies: the frames ``__call__``
-uploads (models/yolov5.py), pageable memory.
+uploads (models/yolov5.py), in one copy from the pinned host buffer of
+its staging arena (utils/staging.py).
 
 Moves ``images_per_s``."""
 

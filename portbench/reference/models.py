@@ -328,27 +328,29 @@ _SPOOF = {
 }
 
 
-def save_checkpoint(model: nn.Module, path: str) -> None:
+def save_checkpoint(model: nn.Module, path: str, extra=None) -> None:
     """Write ``model`` as an ultralytics checkpoint (``{'model': ...,
     'epoch': -1}``, its classes pickled under the ultralytics module
-    paths), in float16 as ultralytics ships them.  ``model`` itself is
-    left as it is."""
+    paths), in float16 as ultralytics ships them.  ``extra``: further
+    ``class -> ("models.<module>", name)`` pairs, for this call only (a
+    reference network's classes of its own).  ``model`` itself is left as it is."""
     import copy
 
-    saved = {cls: (cls.__module__, cls.__qualname__, cls.__name__) for cls in _SPOOF}
+    spoof = {**_SPOOF, **(extra or {})}
+    saved = {cls: (cls.__module__, cls.__qualname__, cls.__name__) for cls in spoof}
     mods = {}
-    for cls, (mod, name) in _SPOOF.items():
+    for cls, (mod, name) in spoof.items():
         cls.__module__, cls.__qualname__, cls.__name__ = mod, name, name
         setattr(mods.setdefault(mod, types.ModuleType(mod)), name, cls)
     pkg = types.ModuleType("models")
-    sys.modules["models"] = pkg
     for name, m in mods.items():
-        sys.modules[name] = m
         setattr(pkg, name.split(".")[1], m)
+    mods["models"] = pkg
+    sys.modules.update(mods)
     try:
         torch.save({"model": copy.deepcopy(model).half(), "epoch": -1}, path)
     finally:
-        for name in ("models", "models.common", "models.yolo"):
+        for name in mods:
             sys.modules.pop(name, None)
         for cls, (mod, qual, name) in saved.items():
             cls.__module__, cls.__qualname__, cls.__name__ = mod, qual, name

@@ -26,13 +26,13 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from portbench.reference.models import head_logits
+from portbench.reference import models
 
 FILL = 114.0 / 255.0
 
@@ -162,9 +162,11 @@ def postprocess(boxes: torch.Tensor, scores: torch.Tensor, post: dict):
 
 @torch.no_grad()
 def run(net, frames: Sequence[torch.Tensor], cfg: dict, post: dict,
-        fixed: Optional[Tuple[int, int]] = None, chunk: int = 8) -> List[Reference]:
+        fixed: Optional[Tuple[int, int]] = None, chunk: int = 8,
+        head_logits: Callable = models.head_logits) -> List[Reference]:
     """The reference of each uint8 HWC frame (on the network's device), in
-    chunks of at most ``chunk`` frames of one canvas."""
+    chunks of at most ``chunk`` frames of one canvas; ``head_logits`` is
+    the reference module's."""
     plans = [plan(tuple(f.shape[:2]), tuple(cfg["size"]), int(cfg["size_divisible"]), fixed)
              for f in frames]
     out: List[Optional[Reference]] = [None] * len(frames)

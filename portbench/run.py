@@ -155,12 +155,13 @@ def run_cell(bench, cell, seed: int, seconds: float, trace: bool, device: str = 
     import torch
 
     from portbench import frames as frames_mod, judge, program, weights
-    from portbench.reference import models as ref_models, pipeline
+    from portbench.reference import pipeline
     from portbench.reference.arith import forward_flops
     from portbench.spec import Bounds
     from portbench.trace import parse
 
     cfg, traffic = cell.config, cell.traffic
+    reference = bench.reference(cfg)
     dev = torch.device(device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -173,8 +174,7 @@ def run_cell(bench, cell, seed: int, seconds: float, trace: bool, device: str = 
     torch.nn.functional.conv2d(torch.zeros((1, 1, 4, 4), device=dev), torch.zeros((1, 1, 3, 3), device=dev))
     marks.append(("frames", time.perf_counter()))
 
-    net = ref_models.build(cfg["p6"], cfg["nc"], cfg["depth_multiple"], cfg["width_multiple"],
-                           cfg["anchors"]).to(dev)
+    net = reference.build(cfg).to(dev)
     flat_frames = [f for req in pool for f in req]
     stat = [torch.from_numpy(f).to(dev) for f in flat_frames[:8]]
     plans = [pipeline.plan(tuple(f.shape[:2]), tuple(cfg["size"]), int(cfg["size_divisible"]), fixed)
@@ -182,8 +182,8 @@ def run_cell(bench, cell, seed: int, seconds: float, trace: bool, device: str = 
     stat_x = torch.stack([pipeline.letterbox(f, p) for f, p in zip(stat, plans)
                           if p.canvas == plans[0].canvas])
     shift = weights.make(net, seed, stat_x, [torch.from_numpy(f).to(dev) for f in flat_frames],
-                         cfg, fixed)
-    flops = forward_flops(lambda x: ref_models.head_logits(net, x),
+                         cfg, fixed, head_logits=reference.head_logits)
+    flops = forward_flops(lambda x: reference.head_logits(net, x),
                           torch.zeros((1, 3, *plans[0].canvas), device=dev))
     del stat, stat_x
     if dev.type == "cuda":
@@ -194,7 +194,7 @@ def run_cell(bench, cell, seed: int, seconds: float, trace: bool, device: str = 
     tmp = tempfile.mkdtemp(prefix="portbench-")
     try:
         ckpt = os.path.join(tmp, "weights.pt")
-        ref_models.save_checkpoint(net, ckpt)
+        reference.save_checkpoint(net, ckpt)
         m = program.build(ckpt, cfg, traffic, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -292,7 +292,7 @@ def run_cell(bench, cell, seed: int, seconds: float, trace: bool, device: str = 
             continue
         if req not in refs:
             refs[req] = pipeline.run(net, [torch.from_numpy(f).to(dev) for f in pool[req]], cfg,
-                                     traffic["post"], fixed)
+                                     traffic["post"], fixed, head_logits=reference.head_logits)
         judge.judge(out, refs[req], traffic["post"], float(limits["iou_slack"]), dev, tally)
     worst = tally.numbers()
     checks = judge.verdict(worst, limits)

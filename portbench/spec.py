@@ -10,22 +10,44 @@ by name:
   ``read(run) -> float | None``;
 * ``bounds/<op>.py`` for each ``torch.ops.yolort_tpu.<op>``, with
   ``work(launch) -> (bytes, operations)``; ``bounds/peaks.json`` holds
-  the card's published rates.
+  the card's published rates;
+* ``reference/<reference>.py``, the configuration's plain reference
+  network, named by its file's ``reference`` key; without the key,
+  ``reference/r60.py`` (the r6.0 layouts of ``reference/models.py``).
 
 So a cell, a configuration or a metric is added by adding files and
 entries, and no file that is there changes.
+
+A reference network's module has, at top level:
+
+* ``build(cfg) -> nn.Module``: the network of the configuration ``cfg``
+  (its file's JSON), in float32 and in evaluation mode;
+* ``head_logits(net, x)``: the raw logits of NCHW float32 images ``x``,
+  a list of one (B, A, H_l, W_l, 5 + nc) tensor a level;
+* ``save_checkpoint(net, path)``: ``net`` written as an ultralytics
+  checkpoint that ``YOLOv5.load_from_yolov5`` reads (``models.save_checkpoint``
+  with ``extra`` for classes of its own).
+
+Its detection head is a ``reference.models.FDetect``, which
+``weights.make`` finds by type, and it imports torch and
+``portbench.reference`` alone: nothing of the program under test.
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import re
 from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
 from typing import Dict, List, Optional
 
 HERE = Path(__file__).resolve().parent
+REFERENCE_API = ("build", "head_logits", "save_checkpoint")
+_NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+# the modules under reference/ that the networks share, none a network of its own
+_SUPPORT = ("__init__", "arith", "models", "pipeline")
 
 
 class SpecError(ValueError):
@@ -104,6 +126,21 @@ class Benchmark:
     def reader(self, metric: Metric) -> ModuleType:
         return load_module(self.dir / ("e2e" if metric.kind == "end_to_end" else "layers")
                            / f"{metric.name}.py")
+
+    def reference(self, config: dict) -> ModuleType:
+        """The reference network's module of ``config``: the file its
+        ``reference`` key names (``r60`` without the key), checked for the
+        functions of the module docstring's contract."""
+        name = config.get("reference", "r60")
+        if not isinstance(name, str) or not _NAME.match(name):
+            raise SpecError(f"reference {name!r} is no name")
+        if name in _SUPPORT:
+            raise SpecError(f"reference/{name}.py is no reference network")
+        mod = load_module(self.dir / "reference" / f"{name}.py")
+        missing = [fn for fn in REFERENCE_API if not callable(getattr(mod, fn, None))]
+        if missing:
+            raise SpecError(f"reference/{name}.py lacks {', '.join(missing)}")
+        return mod
 
 
 class Bounds:

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 
 from portbench import run as run_mod
-from portbench.spec import Benchmark, Metric
+from portbench.spec import REFERENCE_API, Benchmark, Metric, SpecError
 
 from conftest import REPO, TINY_CELL, make_tiny_root
 
@@ -62,6 +62,9 @@ def test_every_cell_finds_its_files_by_name():
         assert cell.config["name"] == w["config"]
         assert hasattr(bench.load_kind(cell.traffic), "window")
         assert (bench.dir / "limits" / f"{cell.name}.json").is_file()
+        ref = bench.reference(cell.config)
+        assert ref.__file__.endswith("reference/r60.py")
+        assert all(callable(getattr(ref, fn)) for fn in REFERENCE_API)
         for kind in ("end_to_end", "per_layer"):
             for m in bench.metrics_of(cell.name, kind):
                 assert hasattr(bench.reader(m), "read"), m.name
@@ -83,6 +86,71 @@ def test_a_cell_added_as_files_alone_runs(tiny_root):
     assert set(res["metrics"]) == {"images_per_s", "setup_s"}
     assert res["device"]["platform"] == "cpu" and judged["calls"] >= 2
     assert set(res["checks"]) == {"score_err", "box_err", "miss_gap", "lost_frames"}
+
+
+OWN_REFERENCE = '''"""The r6.0 layouts through the reference network's contract."""
+from portbench.reference import models
+
+
+def build(cfg):
+    return models.build(cfg["p6"], cfg["nc"], cfg["depth_multiple"], cfg["width_multiple"],
+                        cfg["anchors"])
+
+
+head_logits = models.head_logits
+
+
+def save_checkpoint(net, path):
+    models.save_checkpoint(net, path)
+'''
+
+
+def _name_reference(root, name):
+    path = root / "portbench/configs/tiny-cfg.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()), reference=name)))
+
+
+def test_a_cell_with_its_own_reference_runs_as_files_alone(tmp_path, monkeypatch):
+    """The tiny cell, its configuration naming ``reference/tiny_r60.py``
+    (a file added beside the others): built, seeded, checkpointed,
+    FLOP-counted and judged through that file, with the numbers of the
+    same cell without the key.  One request in the pool, and the judged
+    calls fixed to the first two, so both runs judge the same frames
+    whatever the window's length."""
+    root = make_tiny_root(tmp_path)
+    mix = root / "portbench/traffic/tiny-mix.json"
+    mix.write_text(json.dumps(dict(json.loads(mix.read_text()), pool=1)))
+    (root / "portbench/reference/tiny_r60.py").write_text(OWN_REFERENCE)
+    monkeypatch.setattr(run_mod, "_sample", lambda records, n, seed: [0, 1])
+    plain = _tiny(root)
+    _name_reference(root, "tiny_r60")
+    bench = Benchmark(root, root / "portbench")
+    assert bench.reference(bench.cell(TINY_CELL).config).__file__.endswith("reference/tiny_r60.py")
+    own = _tiny(root)
+    assert plain["correct"] is True and own["correct"] is True and own["failed"] == 0
+    assert plain["attempted"] >= 2 and own["attempted"] >= 2
+    assert own["checks"] == plain["checks"]
+    a, b = plain.pop("_judged"), own.pop("_judged")
+    assert a["calls"] == b["calls"] == 2 and a["bias_shift"] == b["bias_shift"]
+    assert a["frames"] == b["frames"] and a["numbers"] == b["numbers"]
+
+
+@pytest.mark.parametrize("case", ["unknown", "no-name", "incomplete", "support"])
+def test_a_reference_that_cannot_be_resolved_stops_before_any_frame(tmp_path, monkeypatch, case):
+    root = make_tiny_root(tmp_path)
+    name, why = {"unknown": ("no_such_net", "missing file"), "no-name": ("../models", "no name"),
+                 "incomplete": ("half_r60", "lacks save_checkpoint"),
+                 "support": ("models", "no reference network")}[case]
+    (root / "portbench/reference/half_r60.py").write_text(
+        OWN_REFERENCE.split("def save_checkpoint")[0])
+    _name_reference(root, name)
+    from portbench import frames
+
+    def no_frames(*a, **kw):
+        raise AssertionError("frames made before the reference was resolved")
+    monkeypatch.setattr(frames, "make_pool", no_frames)
+    with pytest.raises(SpecError, match=why):
+        _tiny(root)
 
 
 def test_a_traced_run_reports_layers_and_breakdown(tiny_root):
