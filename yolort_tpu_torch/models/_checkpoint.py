@@ -17,8 +17,10 @@ Port of ``yolort_tpu/models/_checkpoint.py`` (torch and numpy only):
   * the flat ``model.N`` indices map onto the structured tree by the P5
     and P6 index tables.
 
-Nothing detects the TAN variant: its checkpoint loads as r4.0 and the
-caller builds the model with ``use_tan=True``.  ``save_params`` /
+The TAN variant (ultralytics v5.0 ``yolov5s-transformer.yaml``) is the
+r4.0 layout with a ``C3TR`` at flat layer 9: ``load_from_ultralytics``
+reports it as ``use_tan``, from that layer's pickled class name, and the
+checkpoint loads as r4.0.  ``save_params`` /
 ``load_params`` write and read the JAX package's ``.npz`` layout, so a
 file written by either package loads in the other.  ``load_pretrained_params``
 finds an arch's COCO weights in a local weights directory, as the JAX
@@ -225,6 +227,9 @@ P6_P6_MAP = {"0": 9, "1": 10}
 P6_INNER_MAP = {"0": 11, "1": 12, "3": 15, "4": 16, "6": 19, "7": 20}
 P6_LAYER_MAP = {"0": 23, "1": 24, "2": 26, "3": 27, "4": 29, "5": 30, "6": 32}
 
+# the flat layer that is a C3TR in the TAN variant (the PAN's first inner block)
+TAN_LAYER = 9
+
 
 def get_yolov5_size(depth_multiple: float, width_multiple: float) -> str:
     table = {(0.33, 0.25): "n", (0.33, 0.5): "s", (0.67, 0.75): "m", (1.0, 1.0): "l",
@@ -241,7 +246,8 @@ def load_from_ultralytics(checkpoint_path: str, version: str = "r6.0", fuse: boo
     """An ultralytics ``.pt`` as {'num_classes', 'depth_multiple',
     'width_multiple', 'strides', 'anchor_grids', 'use_p6', 'size',
     'params'}: the JAX package's metadata, and its params tree with numpy
-    leaves (each Conv unfused when ``fuse`` is False)."""
+    leaves (each Conv unfused when ``fuse`` is False); and 'use_tan',
+    whether flat layer 9 is a ``C3TR`` (the TAN variant)."""
     if version not in VERSIONS:
         raise NotImplementedError(f"Unsupported version {version}")
     ckpt = load_torch_checkpoint(checkpoint_path)
@@ -284,6 +290,7 @@ def load_from_ultralytics(checkpoint_path: str, version: str = "r6.0", fuse: boo
         "strides": strides,
         "anchor_grids": anchor_grids,
         "use_p6": use_p6,
+        "use_tan": _cls_name(flat[TAN_LAYER]) == "C3TR",
         "size": get_yolov5_size(depth_multiple, width_multiple),
         "params": {"backbone": backbone, "pan": pan, "head": head},
     }

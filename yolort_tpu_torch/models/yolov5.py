@@ -126,15 +126,20 @@ class YOLOv5:
         **kwargs: Any,
     ) -> "YOLOv5":
         """Build from an ultralytics/yolov5 checkpoint: the architecture
-        (depth, width, classes, P6, strides and anchors) from its metadata,
-        the weights from its tree (``models/_checkpoint.py``).  ``version``
+        (depth, width, classes, P6, strides and anchors, and the TAN
+        variant's C3TR at flat layer 9) from its metadata and layers, the
+        weights from its tree (``models/_checkpoint.py``).  ``version``
         names the family, as the checkpoint does not; a TAN checkpoint
-        loads as 'r4.0' with ``use_tan=True``, passed on to ``YOLO`` with
-        the other ``kwargs``."""
+        loads as 'r4.0'.  ``kwargs`` go on to ``YOLO``; a ``use_tan`` among
+        them that contradicts the checkpoint raises ``ValueError``."""
         info = load_from_ultralytics(checkpoint_path, version=version)
+        use_tan = bool(kwargs.pop("use_tan", info["use_tan"]))
+        if use_tan != info["use_tan"]:
+            raise ValueError(f"use_tan={use_tan}, but the checkpoint's layer model.9 is "
+                             f"{'a' if info['use_tan'] else 'not a'} C3TR")
         model = YOLO(info["depth_multiple"], info["width_multiple"], device=device, dtype=dtype,
                      version=version, num_classes=info["num_classes"], use_p6=info["use_p6"],
-                     strides=info["strides"], anchor_grids=info["anchor_grids"],
+                     use_tan=use_tan, strides=info["strides"], anchor_grids=info["anchor_grids"],
                      score_thresh=score_thresh, nms_thresh=nms_thresh, **kwargs)
         params_from_jax(info["params"], model)
         return cls(model=model, size=size, size_divisible=size_divisible, fixed_shape=fixed_shape,

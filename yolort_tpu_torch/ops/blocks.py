@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, qconv, quantize_int8
+from yolort_tpu_torch.utils.profiling import count, span
 
 # BatchNorm epsilon of the model zoo (as in the JAX package)
 BN_EPS = 1e-3
@@ -606,9 +607,10 @@ class TransformerLayer(nn.Module):
 
 class TransformerBlock(nn.Module):
     """A Linear position term, then ``num_layers`` TransformerLayers over
-    the feature map's pixels as tokens, in row-major order.  (The JAX
-    block's Conv for c1 != c2 is not ported: C3TR, its one caller, keeps
-    the width.)"""
+    the feature map's pixels as tokens, in row-major order, all inside
+    span ``attention``, with count ``attention_tokens`` (B·H·W) once a
+    call.  (The JAX block's Conv for c1 != c2 is not ported: C3TR, its
+    one caller, keeps the width.)"""
 
     def __init__(self, c: int, num_heads: int, num_layers: int, *, gen: torch.Generator):
         super().__init__()
@@ -618,12 +620,14 @@ class TransformerBlock(nn.Module):
     def forward(self, x):
         x = _as_float(x)
         n, c, h, w = x.shape
-        tokens = x.flatten(2).permute(2, 0, 1)  # (H*W, N, C)
-        tokens = tokens + self.linear(tokens)
-        for layer in self.tr:
-            tokens = layer(tokens)
-        y = tokens.permute(1, 2, 0).reshape(n, c, h, w)
-        return y.contiguous(memory_format=torch.channels_last)
+        with span("attention"):
+            count("attention_tokens", n * h * w)
+            tokens = x.flatten(2).permute(2, 0, 1)  # (H*W, N, C)
+            tokens = tokens + self.linear(tokens)
+            for layer in self.tr:
+                tokens = layer(tokens)
+            y = tokens.permute(1, 2, 0).reshape(n, c, h, w)
+            return y.contiguous(memory_format=torch.channels_last)
 
 
 class C3TR(nn.Module):
