@@ -20,7 +20,8 @@ and the benchmark's readers of them (``portbench/layers/_program.py``), JAX-free
   synchronisation launched in ``letterbox`` / ``network`` /
   ``postprocess`` / ``rescale``, every copy to the card one pinned copy a
   call launched in ``upload`` (``count.staged`` once a readback), the
-  held counts read in ``readback``:
+  held counts read in ``readback``, the network one ``cudaGraphLaunch`` a
+  call in its span (``graph_replay.batch`` 100):
 
     python -m pytest --noconftest tests/test_torch_tracing.py -m cuda
 """
@@ -61,7 +62,7 @@ CHILDREN = ["stack", "stack", "upload", "letterbox", "network", "postprocess", "
             "readback"]
 LAUNCHING = {"letterbox", "network", "postprocess", "cells", "select", "nms"}
 BOTH_READERS = ["stack_ms", "readback_ms", "network_host_ms", "postprocess_host_ms",
-                "idle_launch_ms", "idle_between_ms", "nms_yield", "staging_reuse"]
+                "idle_launch_ms", "idle_between_ms", "nms_yield", "staging_reuse", "graph_replay"]
 BATCH_READERS = BOTH_READERS + ["select_ms", "nms_ms"]
 NEW_READERS = ([f"{n}.batch" for n in BATCH_READERS]
                + [f"{n}.stream" for n in BOTH_READERS])
@@ -132,8 +133,13 @@ def test_each_call_gives_one_request_with_its_spans_nested(served):
         counts = [e for e in events if e[0].startswith("yolort_tpu::count.")
                   and req[1] <= e[1] <= req[2]]
         readback = next(e for e in inside if e[0] == "yolort_tpu::span.readback")
-        assert [short(c[0]) for c in counts] == ["candidates", "kept"]
-        assert all(parent_of(events, c) is readback for c in counts)
+        held = [c for c in counts if short(c[0]) != "graph_replayed"]
+        assert [short(c[0]) for c in held] == ["candidates", "kept"]
+        assert all(parent_of(events, c) is readback for c in held)
+        # one graph_replayed a network run (an Ensemble runs two), 0 on the CPU, in span network
+        replayed = [c for c in counts if short(c[0]) == "graph_replayed"]
+        assert len(replayed) == (2 if isinstance(m.model, Ensemble) else 1)
+        assert all(short(parent_of(events, c)[0]) == "network" and c[3] == [0] for c in replayed)
 
 
 def test_spans_and_counters_are_cpu_ops_in_the_chrome_trace(tmp_path):
@@ -253,10 +259,11 @@ class Ev:
         return self._inputs
 
 
-def request_events(t, corr, program=True, grown=False):
+def request_events(t, corr, program=True, grown=False, replayed=1):
     """One call at ``t`` us: the benchmark's spans, the program's, launches
     and their device work (one kernel launched in each layer); the staging
-    arena grown in its ``stack`` where ``grown``."""
+    arena grown in its ``stack`` where ``grown``; the network's
+    ``graph_replayed`` count ``replayed``."""
     def launch(at, start, end, name="kernel", api="cudaLaunchKernel"):
         nonlocal corr
         corr += 1
@@ -278,16 +285,20 @@ def request_events(t, corr, program=True, grown=False):
         evs += [Ev("yolort_tpu::span." + n, t + s, t + e) for n, s, e in spans]
         evs += [Ev("yolort_tpu::count.staged", t + 11, t + 11, inputs=[1]),
                 Ev("yolort_tpu::count.candidates", t + 96, t + 96, inputs=[50]),
-                Ev("yolort_tpu::count.kept", t + 97, t + 97, inputs=[20])]
+                Ev("yolort_tpu::count.kept", t + 97, t + 97, inputs=[20]),
+                Ev("yolort_tpu::count.graph_replayed", t + 31, t + 31, inputs=[replayed])]
         if grown:
             evs.append(Ev("yolort_tpu::count.staging_grown", t + 5, t + 5, inputs=[1]))
     return evs
 
 
-def hand_run(program=True, device=True):
-    evs = request_events(0, 0, program, grown=True) + request_events(100, 100, program)
+def hand_run(program=True, device=True, counts=True):
+    evs = (request_events(0, 0, program, grown=True, replayed=0)
+           + request_events(100, 100, program))
     if not device:
         evs = [e for e in evs if not e._cuda]
+    if not counts:
+        evs = [e for e in evs if not e.name().startswith("yolort_tpu::count.")]
     prof = SimpleNamespace(profiler=SimpleNamespace(kineto_results=SimpleNamespace(
         events=lambda: evs)))
     bench = Benchmark(ROOT)
@@ -316,8 +327,9 @@ WANT_MS = {"stack_ms": 0.008, "readback_ms": 0.013, "network_host_ms": 0.030,
 def test_each_reader_reads_its_known_value(name):
     run = hand_run()
     base = name.split(".")[0]
-    # two groups staged, the arena grown for one of them
-    want = {"nms_yield": 40.0, "staging_reuse": 50.0, **WANT_MS}[base]
+    # two groups staged, the arena grown for one of them; the first call eager, the second
+    # a replay
+    want = {"nms_yield": 40.0, "staging_reuse": 50.0, "graph_replay": 50.0, **WANT_MS}[base]
     assert read(name, run) == pytest.approx(want, rel=1e-9)
 
 
@@ -335,6 +347,12 @@ def test_readers_give_none_without_device_events_or_program_spans(name):
     assert read(name, hand_run(device=False)) is None
     assert read(name, hand_run(program=False)) is None
     assert read(name, SimpleNamespace(trace=None, batches=2)) is None
+
+
+@pytest.mark.parametrize("name", ["graph_replay.batch", "graph_replay.stream"])
+def test_graph_replay_reads_none_without_its_counter(name):
+    """A program that counts no ``graph_replayed`` (the parent's) reads None."""
+    assert read(name, hand_run(counts=False)) is None
 
 
 def test_program_spans_leave_the_benchmarks_own_metrics_as_they_were():
@@ -429,6 +447,11 @@ def test_a_traced_run_on_the_card_keeps_the_spans_off_the_device(cuda_device, tm
     metrics = res["metrics"]
     assert {f"{n}.batch" for n in BATCH_READERS} <= set(metrics)
     assert metrics["staging_reuse.batch"]["value"] == 100.0  # grown only in the warm-up
+    # the network is one graph launch a call, launched in its span (captured in the warm-up)
+    graph_launches = [t for n, t in seen["host"] if n == "cudaGraphLaunch" and lo <= t <= hi]
+    assert len(graph_launches) == len(readbacks)
+    assert all(tl.at(t) == "network" for t in graph_launches)
+    assert metrics["graph_replay.batch"]["value"] == 100.0
     batches = res["attempted"] - res["failed"]
     idle_ms = metrics["device_idle.batch"]["value"] / 100 * res["device"]["window_s"] * 1e3
     total = (metrics["idle_launch_ms.batch"]["value"]

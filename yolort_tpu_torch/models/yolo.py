@@ -26,6 +26,7 @@ from yolort_tpu_torch.ops import blocks
 from yolort_tpu_torch.ops.nms import (
     Detections, batched_postprocess, batched_postprocess_from_heads,
 )
+from yolort_tpu_torch.utils.graphs import GraphCache
 from yolort_tpu_torch.utils.profiling import span
 
 
@@ -52,7 +53,9 @@ class Detector(nn.Module):
     C: each anchor's best C classes, on the flatten path) and the stage-2
     route ``row_gather`` (``ops.nms.NMSConfig``; any route gives the same
     detections).  A built model serves frozen (no parameter requires
-    grad); ``init_train`` / ``trainable`` make it trainable."""
+    grad); ``init_train`` / ``trainable`` make it trainable.  On a card
+    the network runs as a CUDA graph of its input's shape where
+    ``utils/graphs.py``'s rule holds (``head_outputs``)."""
 
     def __init__(
         self,
@@ -70,6 +73,7 @@ class Detector(nn.Module):
         row_gather: str = "pallas_bisect",
     ):
         super().__init__()
+        self._graphs = GraphCache()
         self.num_classes = num_classes
         self.strides = tuple(strides)
         self.anchor_grids = tuple(tuple(a) for a in anchor_grids)
@@ -121,15 +125,23 @@ class Detector(nn.Module):
         raise NotImplementedError
 
     def head_outputs(self, images: torch.Tensor) -> List[torch.Tensor]:
-        """Per-level raw logits (B, Hl, Wl, A*(5+nc)), NHWC."""
+        """Per-level raw logits (B, Hl, Wl, A*(5+nc)), NHWC.  On a card with
+        grad off, from a shape's second call on, a replay of the network's
+        CUDA graph (``utils/graphs.py``), the eager outputs bit for bit:
+        inside ``forward`` and ``decode`` the graph's own output tensors,
+        elsewhere copies of them."""
+        return self._graphs.run(self, self._network, images)
+
+    def _network(self, images: torch.Tensor) -> List[torch.Tensor]:
         return self.head(self.features(images))
 
     def decode(self, images: torch.Tensor) -> torch.Tensor:
         """Decoded predictions (B, total_anchors, 5+nc) f32 in canvas pixels:
         everything but the NMS."""
-        outs = self.head_outputs(images)
-        return concat_pred_logits(outs, [tuple(o.shape[1:3]) for o in outs], self.strides,
-                                  self.anchor_grids)
+        with self._graphs.borrow():
+            outs = self.head_outputs(images)
+            return concat_pred_logits(outs, [tuple(o.shape[1:3]) for o in outs], self.strides,
+                                      self.anchor_grids)
 
     def postprocess(self, head_outputs: Sequence[torch.Tensor]) -> Detections:
         """Padded detections, in canvas coordinates, of per-level logits."""
@@ -167,10 +179,13 @@ class Detector(nn.Module):
 
     def forward(self, images: torch.Tensor) -> Detections:
         """images (B, H, W, 3) letterboxed -> padded Detections, canvas coordinates."""
-        with span("network"):
-            outs = self.head_outputs(images)
-        with span("postprocess"):
-            return self.postprocess(outs)
+        # held through the postprocess's launches: they read the graph's
+        # outputs, which the next replay overwrites
+        with self._graphs.borrow():
+            with span("network"):
+                outs = self.head_outputs(images)
+            with span("postprocess"):
+                return self.postprocess(outs)
 
 
 class YOLO(Detector):

@@ -612,6 +612,10 @@ class TransformerBlock(nn.Module):
     call.  (The JAX block's Conv for c1 != c2 is not ported: C3TR, its
     one caller, keeps the width.)"""
 
+    # its span and counter are Python, which a CUDA graph's replay does not
+    # run: a network that holds one runs eagerly (utils/graphs.py)
+    EAGER_ONLY = True
+
     def __init__(self, c: int, num_heads: int, num_layers: int, *, gen: torch.Generator):
         super().__init__()
         self.linear = Linear(c, c, bias=True, gen=gen)

@@ -271,7 +271,8 @@ def finalize_scales(model: nn.Module, example) -> nn.Module:
     """Fix a quantized model's activation scales as plain floats and unify
     every concat group's output scales to the group's max.
 
-    One eager pass of ``model.head_outputs(example)`` (a small example is
+    One eager pass of the network, ``model._network(example)`` (never a
+    CUDA graph's replay, which runs no Python; a small example is
     enough: the routing of scales does not depend on the shape) records,
     per concat, which scale leaves its parts carry.  Union-find merges the
     groups (a tensor that two concats read, such as a backbone tap of the
@@ -285,7 +286,7 @@ def finalize_scales(model: nn.Module, example) -> nn.Module:
     blocks._UNIFY = groups
     try:
         with torch.inference_mode():
-            model.head_outputs(x)
+            model._network(x)
     finally:
         blocks._UNIFY = None
 
