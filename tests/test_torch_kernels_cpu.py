@@ -793,19 +793,6 @@ def test_qconv_grouped_kernel_matches_plain(cuda_device, monkeypatch, c, co, g, 
             assert got.dtype == want.dtype and torch.equal(got, want), (act, inv, dt)
 
 
-def test_qconv_split_variants_apply_to_the_kernel_source():
-    """Each variant of experiments/qconv_split.py takes its part out of
-    csrc/qconv.cu by edits that still match the source exactly once."""
-    from yolort_tpu_torch.experiments.qconv_split import VARIANTS, variant_sources
-
-    source = (PKG / "csrc" / "qconv.cu").read_text()
-    sources = variant_sources(source)
-    assert list(sources) == list(VARIANTS) and sources["full"] == source
-    assert len(set(sources.values())) == len(VARIANTS)
-    with pytest.raises(ValueError, match="once"):
-        variant_sources(source.replace("mma_s8(acc[mi][ni]", "mma_s8(acc [mi][ni]"))
-
-
 def _postprocess_inputs(device="cpu", dtype=torch.float32):
     """Head levels (NHWC, C = 255, one NaN / inf / sub-floor logit), and a
     stage-2 chunk table with its k-th value, tier counts and offsets."""
@@ -1088,40 +1075,6 @@ def test_stage1_plan_fits_the_card(cuda_device):
         plan = stage1_plan(255, dtype)
         assert plan.rows == rows and plan.stage_bytes == 16320 + 16
         assert plan.stages == 4 and plan.smem <= 232448 and plan.grid >= 2 * sms
-
-
-def test_stage1_variants_apply_to_the_kernel_source():
-    """Each variant of experiments/stage1_variants.py is made by edits that
-    still match csrc/cells_stage1.cu exactly once."""
-    from yolort_tpu_torch.experiments.stage1_variants import VARIANTS, variant_sources
-
-    source = (PKG / "csrc" / "cells_stage1.cu").read_text()
-    sources = variant_sources(source)
-    assert list(sources) == list(VARIANTS) and sources["full"] == source
-    assert len(set(sources.values())) == len(VARIANTS)
-    with pytest.raises(ValueError, match="once"):
-        variant_sources(source.replace("constexpr int kMaxStages = 4;", "constexpr int kMaxStages = 5;"))
-
-
-def test_fetch_place_variants_apply_to_the_kernel_sources():
-    """Each variant of experiments/fetch_place_variants.py is made by edits
-    that still match csrc/row_fetch.cu or csrc/compact_select.cu exactly
-    once; the builds that take a part out are the ones not checked."""
-    from yolort_tpu_torch.experiments.fetch_place_variants import VARIANTS, computes, variant_sources
-
-    files = {f: (PKG / "csrc" / f).read_text() for f in ("row_fetch.cu", "compact_select.cu")}
-    sources = variant_sources(files)
-    assert list(sources) == list(VARIANTS)
-    assert sources["row_fetch"] == files["row_fetch.cu"]
-    assert sources["compact_place"] == files["compact_select.cu"]
-    assert len(set(sources.values())) == len(VARIANTS)
-    assert [n for n in VARIANTS if not computes(n)] == [
-        "row_fetch no stores", "row_fetch no row loads", "row_fetch index alone", "row_fetch empty",
-        "compact_place no stores", "compact_place no row loads", "compact_place metadata alone",
-        "compact_place empty"]
-    with pytest.raises(ValueError, match="once"):
-        variant_sources({**files, "compact_select.cu": files["compact_select.cu"].replace(
-            "int warps = 8;", "int warps = 4;")})
 
 
 def test_stage1_plan_refuses_other_dtypes_without_building():

@@ -24,7 +24,7 @@ import torch
 import yolort_tpu_torch
 from yolort_tpu.ops.pallas.lookup_kernel import pallas_lookup_fetch
 from yolort_tpu_torch.experiments import (
-    fetch_block_sweep, fetch_place_compare, fetch_place_variants, lookup_kernel_variants, qconv_split,
+    fetch_block_sweep, fetch_place_compare, lookup_kernel_variants,
 )
 from yolort_tpu_torch.ops.cuda import (
     KERNELS, _build, bisect_count_reference, lookup_fetch_reference, lookup_fetch_variant,
@@ -179,9 +179,7 @@ def test_importing_the_entry_points_runs_nothing():
     code = ("import torch\n"
             "import yolort_tpu_torch.experiments.fetch_block_sweep\n"
             "import yolort_tpu_torch.experiments.lookup_kernel_variants\n"
-            "import yolort_tpu_torch.experiments.qconv_split\n"
             "import yolort_tpu_torch.experiments.fetch_place_compare\n"
-            "import yolort_tpu_torch.experiments.fetch_place_variants\n"
             "import yolort_tpu_torch.experiments.timing\n"
             "from yolort_tpu_torch.ops.cuda import KERNELS, _build\n"
             "assert not _build._loaded and not any(fn.launches for fn in KERNELS)\n"
@@ -192,13 +190,12 @@ def test_importing_the_entry_points_runs_nothing():
     assert out.stdout == "" and out.stderr == ""
 
 
-@pytest.mark.parametrize("module", [lookup_kernel_variants, fetch_block_sweep, qconv_split,
-                                    fetch_place_compare, fetch_place_variants])
+@pytest.mark.parametrize("module", [lookup_kernel_variants, fetch_block_sweep, fetch_place_compare])
 def test_entry_points_raise_without_a_gpu(module, capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point would run")
     with pytest.raises(RuntimeError, match="CUDA device"):
-        module.main(["--seed", "1"] if module is fetch_place_variants else ["--batch", "2"])
+        module.main(["--batch", "2"])
     assert capsys.readouterr().out == ""
 
 

@@ -12,11 +12,17 @@ and their C++ twin (``yolort_tpu_torch/csrc/torch_ops.cpp``).
   Python launch plans at the main path's shapes equal a table written from
   the C++ plans (``bisect_plan``, ``row_fetch_geometry``; the stage-1 plan
   is the kernels' own C function on both sides, checked on the card).
+- The kernel layer's imports point one way: no module of ``ops/cuda/``
+  imports the postprocess, the models or the utilities, and
+  ``ops/library.py`` imports nothing of ``ops/cuda/``; each op is
+  registered once, by its own kernel module, with a CUDA implementation
+  defined there that launches through ``_build.launch``.
 - On the card (``cuda`` marker: ``python -m pytest --noconftest
   tests/test_torch_ops_library.py -m cuda``) each op launches its kernel
   once a call and equals the plain version bit for bit.
 """
 
+import ast
 import re
 from pathlib import Path
 
@@ -35,6 +41,12 @@ from yolort_tpu_torch.ops.cuda.lookup_kernel import bisect_plan, row_fetch_geome
 from yolort_tpu_torch.ops.select import f32_bits
 
 CPP = Path(library.__file__).resolve().parents[1] / "csrc" / "torch_ops.cpp"
+OPS_DIR = Path(library.__file__).resolve().parent
+KERNEL_LAYER = sorted(f"cuda/{p.name}" for p in (OPS_DIR / "cuda").glob("*.py")) + ["library.py"]
+# each op's kernel module, which registers it
+OP_MODULES = {"fused_cells_stage1": "stage1_kernel", "bisect_count": "lookup_kernel",
+              "row_fetch": "lookup_kernel", "lookup_fetch": "lookup_kernel",
+              "select_extract": "lookup_kernel", "nms_mask": "nms_kernel"}
 THR = f32_bits(0.25)
 
 
@@ -139,6 +151,51 @@ def test_cpp_schemas_parse_to_the_registered_ones():
         assert schema == library.op(name)._schema, name
     impls = set(re.findall(r'm\.impl\("(\w+)"', CPP.read_text()))
     assert impls == set(library.SCHEMAS)
+
+
+def _imports(path: Path) -> set:
+    """Every module an import statement of ``path`` names, at any depth."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            out.update(f"{node.module}.{a.name}" for a in node.names)
+    return out
+
+
+@pytest.mark.parametrize("module", KERNEL_LAYER)
+def test_kernel_layer_imports_point_down(module):
+    names = _imports(OPS_DIR / module)
+    above = ("ops.select", "ops.nms", "models", "utils")
+    assert not [n for n in names if n.startswith(tuple(f"yolort_tpu_torch.{a}" for a in above))]
+    if module == "library.py":
+        assert not [n for n in names if n.startswith("yolort_tpu_torch.ops.cuda")]
+
+
+def _register_calls(path: Path) -> list:
+    """(op name, the CUDA implementation's name) of each ``register`` call
+    in ``path``."""
+    return [(c.args[0].value, getattr(c.args[2], "id", None))
+            for c in ast.walk(ast.parse(path.read_text()))
+            if isinstance(c, ast.Call) and getattr(c.func, "id", getattr(c.func, "attr", None))
+            == "register" and c.args and isinstance(c.args[0], ast.Constant)]
+
+
+@pytest.mark.parametrize("name", sorted(library.SCHEMAS))
+def test_each_op_is_registered_by_its_kernel_module(name):
+    """The one ``register("<op>", cpu, cuda, fake, wrapper)`` call is in
+    the op's kernel module, and its CUDA implementation is a function of
+    that module that launches through ``_build.launch``."""
+    home = OPS_DIR / "cuda" / f"{OP_MODULES[name]}.py"
+    calls = [(p, cuda) for p in OPS_DIR.parent.rglob("*.py")
+             for op_name, cuda in _register_calls(p) if op_name == name]
+    assert [p for p, _ in calls] == [home]
+    cuda = [f for f in ast.parse(home.read_text()).body
+            if isinstance(f, ast.FunctionDef) and f.name == calls[0][1]]
+    assert len(cuda) == 1
+    assert any(isinstance(c, ast.Call) and ast.unparse(c.func) == "_build.launch"
+               for c in ast.walk(cuda[0]))
 
 
 def _cpp_constants() -> dict:

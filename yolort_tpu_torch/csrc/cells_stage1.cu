@@ -45,7 +45,8 @@
 //     dynamic shared memory a block.  On the H100 that beat 32 KB tiles at
 //     one or two blocks an SM, 8 KB tiles and 6 stages in bfloat16, where
 //     the reduction weighs twice as much a byte, and matched the best of
-//     them in float32 (experiments/stage1_variants.py; PERF.md).
+//     them in float32 (experiments/stage1_variants.py of commit bedd669;
+//     PERF.md).
 //
 // Alignment.  Bulk copies need 16-byte-aligned global and shared addresses
 // and sizes that are multiples of 16 bytes.  At 640 every tile is aligned

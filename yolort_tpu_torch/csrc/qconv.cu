@@ -24,8 +24,8 @@
 // in, int8 out at 3.35 TB/s), the 3x3 convs at 40x40 and 20x20 by a small
 // margin by int8 operations (1,979 TOP/s).  Measured, every shape runs
 // well above both (PERF.md section 6: chip_smoke.py per shape, and
-// experiments/qconv_split.py, which times builds of this file with one
-// part taken out).  The tensor-core products are the smallest part of a
+// experiments/qconv_split.py of commit bedd669, which timed builds of this
+// file with one part taken out).  The tensor-core products are the smallest part of a
 // block's time.  The epilogue's arithmetic is the largest on the wide
 // 1x1 convs: SiLU is expf and an IEEE division, some 30 instructions a
 // value, for bits equal to torch.sigmoid's.  On the 3x3 convs the slab

@@ -1,6 +1,11 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version.  A wrapper given CUDA tensors launches its kernel or raises; given
-CPU tensors it takes the plain version.  Nothing is built at import."""
+CPU tensors it takes the plain version.  Nothing is built at import.
+
+A kernel module holds all of its kernels' launches: the serving kernels'
+dispatcher ops (``ops/library.py``) are registered there at import, each
+with its CUDA implementation, and every launch goes through
+``_build.launch``, which counts it in its wrapper's ``launches``."""
 
 from yolort_tpu_torch.ops.cuda.compact_kernel import (  # noqa: F401
     compact_place,
@@ -43,7 +48,3 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     for fn in KERNELS:
         fn.launches = 0
-
-
-# the dispatcher ops the wrappers call (imported last: it reads the modules above)
-from yolort_tpu_torch.ops import library  # noqa: E402,F401

@@ -137,3 +137,17 @@ def stream_of(t) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def launch(wrapper, entry: str, t, *args) -> None:
+    """Call the library's C entry point ``entry`` with ``args`` and the
+    current stream of ``t``'s device, raise if it reports a CUDA error, and
+    count one launch of ``wrapper`` (its ``launches``, which ``KERNELS``
+    reads): every hand-written kernel is launched here."""
+    import torch
+
+    lib = library()
+    with torch.cuda.device(t.device):
+        rc = getattr(lib, entry)(*args, stream_of(t))
+    check(rc, wrapper.__name__)
+    wrapper.launches += 1

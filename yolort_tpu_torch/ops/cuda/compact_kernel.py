@@ -13,7 +13,7 @@ import torch
 
 from yolort_tpu_torch.ops.cuda import _build
 from yolort_tpu_torch.ops.cuda.lookup_kernel import (
-    CHUNK, NO_VALID_BITS, _check_aligned, _check_cuda, _check_table,
+    CHUNK, NO_VALID_BITS, _check_launch, _check_table, _on_cpu,
 )
 
 
@@ -63,21 +63,16 @@ def compact_place(table: torch.Tensor, cnt: torch.Tensor, off: torch.Tensor, t: 
         raise ValueError(f"k must be >= 1, got {k}")
     if m * CHUNK >= 2**31:
         raise ValueError("compact_place carries int32 indices: the table is too large")
-    if table.device.type == "cpu":
+    if _on_cpu("compact_place", table):
         return compact_place_reference(table, cnt, off, t, thr_bits, k)
-    _check_cuda("compact_place", table, cnt, off, t)
-    _check_aligned("compact_place", table)
+    _check_launch("compact_place", table, cnt, off, t)
     # the kernel writes every slot, the empty tail too: one launch a call
     vals = torch.empty(bsz, k, dtype=torch.float32, device=table.device)
     idx = torch.empty(bsz, k, dtype=torch.int32, device=table.device)
-    lib = _build.library()
-    with torch.cuda.device(table.device):
-        rc = lib.yt_compact_place(
-            table.data_ptr(), cnt.data_ptr(), off.data_ptr(), t.data_ptr(), int(thr_bits), bsz, m,
-            int(k), vals.data_ptr(), idx.data_ptr(), _build.stream_of(table),
-        )
-    _build.check(rc, "compact_place")
-    compact_place.launches += 1
+    _build.launch(
+        compact_place, "yt_compact_place", table, table.data_ptr(), cnt.data_ptr(), off.data_ptr(),
+        t.data_ptr(), int(thr_bits), bsz, m, int(k), vals.data_ptr(), idx.data_ptr(),
+    )
     return vals, idx
 
 

@@ -26,12 +26,38 @@ from typing import NamedTuple
 import torch
 
 from yolort_tpu_torch.ops.cuda import _build
+from yolort_tpu_torch.ops.library import register
 
 CHUNK = 128  # chunk-table row width
 
 # bits of 2.0f: the k-th value when no entry is valid (and the bisection's
 # upper bound; valid scores sit below it)
 NO_VALID_BITS = 0x40000000
+BISECT_PASSES = 9  # 16-ary passes that shrink the int32 range to a point
+
+
+def _bisect_kth_bits(bits: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact k-th largest valid int32 bit pattern per row, (B, n) -> (B,),
+    by the branchless 16-ary search of the JAX package: the converged ``lo``
+    satisfies count(bits >= lo) >= k > count(bits >= lo + 1), or is the
+    smallest valid pattern when fewer than k are valid, or 0x40000000 when
+    none is.  int32 arithmetic throughout, as in JAX."""
+    if bits.dtype != torch.int32:
+        raise ValueError(f"_bisect_kth_bits takes int32 bits, got {bits.dtype}")
+    arms = 16
+    masked = torch.where(valid, bits, torch.iinfo(torch.int32).min)
+    lo = torch.where(valid, bits, NO_VALID_BITS).amin(-1)
+    hi = torch.full_like(lo, NO_VALID_BITS)
+    for _ in range(BISECT_PASSES):
+        step = ((hi - lo) // arms).clamp_min(1)
+        m = torch.zeros_like(lo)
+        for i in range(1, arms):
+            piv = torch.minimum(lo + step * i, hi)
+            m += ((masked >= piv[:, None]).sum(-1) >= k).to(torch.int32)
+        new_lo = torch.where(m > 0, lo + step * m, lo)
+        new_hi = torch.where(m < arms - 1, lo + step * (m + 1), hi)
+        lo, hi = new_lo, torch.minimum(new_hi, hi)
+    return lo
 
 
 def bisect_count_reference(table: torch.Tensor, k: int, thr_bits: int):
@@ -39,8 +65,6 @@ def bisect_count_reference(table: torch.Tensor, k: int, thr_bits: int):
     valid bit pattern (valid = bits > thr_bits) as ``_bisect_kth_bits``
     defines it, and the per-chunk counts cnt_gt (B, m) of valid bits >= t+1
     and cnt_eq (B, m) of valid bits == t, both i32."""
-    from yolort_tpu_torch.ops.select import _bisect_kth_bits
-
     bsz = table.shape[0]
     bits = table.contiguous().view(torch.int32)
     valid = bits > thr_bits
@@ -82,20 +106,43 @@ def bisect_plan(bsz: int, m: int) -> BisectPlan:
     return BisectPlan(cluster, -(-m // cluster) * ROW_BYTES <= BISECT_SMEM_BYTES)
 
 
-def _launch_bisect(table: torch.Tensor, k: int, thr_bits: int, plan: BisectPlan):
-    """Launch the kernel at ``plan`` on a checked CUDA table."""
+def _on_cpu(name: str, table: torch.Tensor) -> bool:
+    """True for a CPU table, False for a CUDA one; any other device raises."""
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {table.device}")
+    return table.device.type == "cpu"
+
+
+def _check_launch(name: str, table: torch.Tensor, *others: torch.Tensor) -> None:
+    """A launch's own checks, made in the CUDA implementation, which an
+    exported program calls without the wrapper: contiguous inputs and a
+    16-byte aligned table."""
+    if not (table.is_contiguous() and all(x.is_contiguous() for x in others)):
+        raise ValueError(f"{name} needs contiguous inputs")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name} needs a 16-byte aligned table (the kernel loads int4)")
+
+
+def _launch_bisect(table: torch.Tensor, k: int, thr_bits: int, plan: BisectPlan | None = None):
+    """The op's CUDA implementation: one launch at ``bisect_plan``'s plan,
+    or at ``plan`` where one is given."""
+    _check_launch("bisect_count", table)
     bsz, m, _ = table.shape
+    plan = plan or bisect_plan(bsz, m)
     t = torch.empty(bsz, dtype=torch.int32, device=table.device)
     cnt_gt = torch.empty(bsz, m, dtype=torch.int32, device=table.device)
     cnt_eq = torch.empty(bsz, m, dtype=torch.int32, device=table.device)
-    lib = _build.library()
-    with torch.cuda.device(table.device):
-        rc = lib.yt_bisect_count(
-            table.data_ptr(), bsz, m, int(k), int(thr_bits), t.data_ptr(), cnt_gt.data_ptr(),
-            cnt_eq.data_ptr(), plan.cluster, int(plan.resident), _build.stream_of(table),
-        )
-    _build.check(rc, "bisect_count")
+    _build.launch(
+        bisect_count, "yt_bisect_count", table, table.data_ptr(), bsz, m, int(k), int(thr_bits),
+        t.data_ptr(), cnt_gt.data_ptr(), cnt_eq.data_ptr(), plan.cluster, int(plan.resident),
+    )
     return t, cnt_gt, cnt_eq
+
+
+def _bisect_fake(table, k: int, thr_bits: int):
+    bsz, m = table.shape[0], table.shape[1]
+    cnt = table.new_empty(bsz, m, dtype=torch.int32)
+    return table.new_empty(bsz, dtype=torch.int32), cnt, torch.empty_like(cnt)
 
 
 def bisect_count(table: torch.Tensor, k: int, thr_bits: int):
@@ -103,9 +150,9 @@ def bisect_count(table: torch.Tensor, k: int, thr_bits: int):
 
     table (B, m, 128) f32 scores in [0, 2), k >= 1, thr_bits the f32 bits
     of a threshold >= 0.  Returns (t (B,) i32, cnt_gt (B, m) i32,
-    cnt_eq (B, m) i32).  Calls the op ``yolort_tpu::bisect_count``
-    (``ops/library.py``): CUDA tensors launch the kernel on the current
-    stream, at ``bisect_plan``'s cluster size and mode; CPU tensors take
+    cnt_eq (B, m) i32).  Calls the op ``yolort_tpu::bisect_count``: CUDA
+    tensors launch the kernel on the current stream (``_launch_bisect``),
+    at ``bisect_plan``'s cluster size and mode; CPU tensors take
     ``bisect_count_reference``."""
     if table.dim() != 3 or table.shape[-1] != 128 or table.dtype != torch.float32:
         raise ValueError(f"table must be (B, m, 128) float32, got {tuple(table.shape)} {table.dtype}")
@@ -113,14 +160,11 @@ def bisect_count(table: torch.Tensor, k: int, thr_bits: int):
         raise ValueError(f"k must be >= 1, got {k}")
     if not 0 <= thr_bits < NO_VALID_BITS:
         raise ValueError(f"thr_bits must be the bits of a threshold in [0, 2), got {thr_bits:#x}")
-    if table.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"bisect_count runs on cuda or cpu tensors, not {table.device}")
-    if table.device.type == "cuda" and not table.is_contiguous():
-        raise ValueError("bisect_count needs a contiguous table")
+    _on_cpu("bisect_count", table)
     return torch.ops.yolort_tpu.bisect_count(table, int(k), int(thr_bits))
 
 
-bisect_count.launches = 0
+register("bisect_count", bisect_count_reference, _launch_bisect, _bisect_fake, bisect_count)
 
 _INT_VIEW = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
 # row_fetch's launch geometry (csrc/row_fetch.cu): a warp a slice of
@@ -164,44 +208,48 @@ def _check_rows(name: str, table: torch.Tensor, idx: torch.Tensor) -> bool:
         raise ValueError("table and idx must be on one device")
     if table.shape[1] < 1:
         raise ValueError(f"{name} needs a table with at least one row")
-    if table.device.type == "cpu":
+    if _on_cpu(name, table):
         return True
-    if table.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not {table.device}")
     if idx.dtype != torch.int32:
         raise ValueError(f"idx must be int32 on cuda, got {idx.dtype}")
-    if not (table.is_contiguous() and idx.is_contiguous()):
-        raise ValueError(f"{name} needs contiguous table and idx")
     return False
 
 
-def _launch_rows(table: torch.Tensor, idx: torch.Tensor, warps_per_block: int,
-                 rows_per_warp: int) -> torch.Tensor:
-    """Launch the row-fetch kernel on checked CUDA inputs."""
+def _launch_rows(table: torch.Tensor, idx: torch.Tensor,
+                 geometry: tuple | None = None) -> torch.Tensor:
+    """The op's CUDA implementation: one launch at ``row_fetch_geometry``'s
+    geometry; at ``geometry`` (warps per block, slots a warp), a launch of
+    ``row_fetch_p``."""
+    wrapper = row_fetch if geometry is None else row_fetch_p
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError(f"{wrapper.__name__} needs contiguous table and idx")
     bsz, m, w = table.shape
     k = idx.shape[1]
+    row_bytes = w * table.element_size()
+    warps_per_block, rows_per_warp = geometry or row_fetch_geometry(row_bytes, bsz, k)
     out = torch.empty(bsz, k, w, dtype=table.dtype, device=table.device)
-    lib = _build.library()
-    with torch.cuda.device(table.device):
-        rc = lib.yt_row_fetch_p(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), bsz, m, k,
-            w * table.element_size(), warps_per_block, rows_per_warp, _build.stream_of(table),
-        )
-    _build.check(rc, "row_fetch")
+    _build.launch(
+        wrapper, "yt_row_fetch_p", table, table.data_ptr(), idx.data_ptr(), out.data_ptr(), bsz,
+        m, k, row_bytes, warps_per_block, rows_per_warp,
+    )
     return out
+
+
+def _row_fetch_fake(table, idx):
+    return table.new_empty(table.shape[0], idx.shape[1], table.shape[2])
 
 
 def row_fetch(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Bit-exact row gather, (B, m, w) f32|bf16 + (B, k) int32 -> (B, k, w),
-    indices clamped to [0, m-1].  Calls the op ``yolort_tpu::row_fetch``
-    (``ops/library.py``): CUDA tensors launch the kernel on the current
-    stream, at ``row_fetch_geometry``'s launch; CPU tensors take
+    indices clamped to [0, m-1].  Calls the op ``yolort_tpu::row_fetch``:
+    CUDA tensors launch the kernel on the current stream (``_launch_rows``),
+    at ``row_fetch_geometry``'s launch; CPU tensors take
     ``row_fetch_reference``."""
     _check_rows("row_fetch", table, idx)
     return torch.ops.yolort_tpu.row_fetch(table, idx)
 
 
-row_fetch.launches = 0
+register("row_fetch", row_fetch_reference, _launch_rows, _row_fetch_fake, row_fetch)
 
 
 def row_fetch_p(table: torch.Tensor, idx: torch.Tensor, warps_per_block: int,
@@ -218,9 +266,7 @@ def row_fetch_p(table: torch.Tensor, idx: torch.Tensor, warps_per_block: int,
                          f"got ({warps_per_block}, {rows_per_warp})")
     if _check_rows("row_fetch_p", table, idx):
         return row_fetch_reference(table, idx)
-    out = _launch_rows(table, idx, int(warps_per_block), int(rows_per_warp))
-    row_fetch_p.launches += 1
-    return out
+    return _launch_rows(table, idx, (int(warps_per_block), int(rows_per_warp)))
 
 
 row_fetch_p.launches = 0
@@ -231,19 +277,6 @@ def _check_table(table: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: table must be (B, m, 128) float32, got {tuple(table.shape)} {table.dtype}")
     if table.shape[1] < 1:
         raise ValueError(f"{name}: the table needs at least one row")
-
-
-def _check_cuda(name: str, table: torch.Tensor, *others: torch.Tensor) -> None:
-    if table.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, not {table.device}")
-    if not (table.is_contiguous() and all(x.is_contiguous() for x in others)):
-        raise ValueError(f"{name} needs contiguous inputs")
-
-
-def _check_aligned(name: str, table: torch.Tensor) -> None:
-    """The address check a launch makes (a fake tensor has no address)."""
-    if table.data_ptr() % 16:
-        raise ValueError(f"{name} needs a 16-byte aligned table (the kernel loads int4)")
 
 
 def extract_hits(rows: torch.Tensor, p: torch.Tensor, is_eq: torch.Tensor, t: torch.Tensor,
@@ -272,30 +305,34 @@ def _check_lookup(name: str, table: torch.Tensor, off: torch.Tensor, k: int) -> 
         raise ValueError(f"{name}: table and off must be on one device")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if table.device.type == "cpu":
-        return True
-    _check_cuda(name, table, off)
-    return False
+    return _on_cpu(name, table)
 
 
-def _launch_lookup(table: torch.Tensor, off: torch.Tensor, k: int, variant: str):
-    """Launch the lookup-fetch kernel's ``variant`` on checked CUDA inputs;
-    p and is_eq are allocated (else None) for the variants that write them."""
+def _launch_lookup(table: torch.Tensor, off: torch.Tensor, k: int, variant: str | None = None):
+    """The op's CUDA implementation: one launch of the lookup-fetch kernel;
+    for a ``variant``, a launch of ``lookup_fetch_variant``.  p and is_eq
+    are allocated (else None) for the variants that write them."""
+    wrapper = lookup_fetch if variant is None else lookup_fetch_variant
+    _check_launch(wrapper.__name__, table, off)
     meta = variant not in ("fetch_only", "lookup_only")
     bsz, m, _ = table.shape
     rows = torch.empty(bsz, k, CHUNK, dtype=torch.float32, device=table.device)
     phys = torch.empty(bsz, k, dtype=torch.int32, device=table.device)
     p = torch.empty_like(phys) if meta else None
     is_eq = torch.empty(bsz, k, dtype=torch.bool, device=table.device) if meta else None
-    lib = _build.library()
-    with torch.cuda.device(table.device):
-        rc = lib.yt_lookup_fetch_variant(
-            table.data_ptr(), off.data_ptr(), bsz, m, int(k), rows.data_ptr(), phys.data_ptr(),
-            p.data_ptr() if meta else None, is_eq.data_ptr() if meta else None,
-            VARIANTS.index(variant), _build.stream_of(table),
-        )
-    _build.check(rc, "lookup_fetch")
+    _build.launch(
+        wrapper, "yt_lookup_fetch_variant", table, table.data_ptr(), off.data_ptr(), bsz, m,
+        int(k), rows.data_ptr(), phys.data_ptr(), p.data_ptr() if meta else None,
+        is_eq.data_ptr() if meta else None, VARIANTS.index(variant or "full"),
+    )
     return rows, phys, p, is_eq
+
+
+def _lookup_fetch_fake(table, off, k: int):
+    bsz = table.shape[0]
+    phys = table.new_empty(bsz, k, dtype=torch.int32)
+    return (table.new_empty(bsz, k, CHUNK), phys, torch.empty_like(phys),
+            table.new_empty(bsz, k, dtype=torch.bool))
 
 
 def lookup_fetch_reference(table: torch.Tensor, off: torch.Tensor, k: int):
@@ -319,14 +356,14 @@ def lookup_fetch(table: torch.Tensor, off: torch.Tensor, k: int):
     is_eq = c >= m, phys = c - m*is_eq, p = s - off[c].  Returns (rows
     (B, k, 128) f32 with the bits of table[b, phys], phys (B, k) i32,
     p (B, k) i32, is_eq (B, k) bool).  Calls the op
-    ``yolort_tpu::lookup_fetch`` (``ops/library.py``): CUDA tensors launch
-    the kernel on the current stream; CPU tensors take
+    ``yolort_tpu::lookup_fetch``: CUDA tensors launch the kernel on the
+    current stream (``_launch_lookup``); CPU tensors take
     ``lookup_fetch_reference``."""
     _check_lookup("lookup_fetch", table, off, k)
     return torch.ops.yolort_tpu.lookup_fetch(table, off, int(k))
 
 
-lookup_fetch.launches = 0
+register("lookup_fetch", lookup_fetch_reference, _launch_lookup, _lookup_fetch_fake, lookup_fetch)
 
 # the stripped variants of the lookup-fetch, in the C entry point's order
 VARIANTS = ("full", "no_boundary", "no_fetch", "fetch_only", "lookup_only")
@@ -383,10 +420,7 @@ def lookup_fetch_variant(table: torch.Tensor, off: torch.Tensor, k: int, variant
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if _check_lookup("lookup_fetch_variant", table, off, k):
         return lookup_fetch_variant_reference(table, off, k, variant)
-    _check_aligned("lookup_fetch_variant", table)
-    out = _launch_lookup(table, off, k, variant)
-    lookup_fetch_variant.launches += 1
-    return out
+    return _launch_lookup(table, off, k, variant)
 
 
 lookup_fetch_variant.launches = 0
@@ -397,6 +431,26 @@ def select_extract_reference(table, phys, p, is_eq, t, thr_bits: int):
     return extract_hits(row_fetch_reference(table, phys), p, is_eq, t, thr_bits)
 
 
+def _select_extract_cuda(table, phys, p, is_eq, t, thr_bits: int):
+    """The op's CUDA implementation: one launch on checked inputs."""
+    _check_launch("select_extract", table, phys, p, is_eq, t)
+    bsz, m, _ = table.shape
+    k = phys.shape[1]
+    vals = torch.empty(bsz, k, dtype=torch.float32, device=table.device)
+    lane = torch.empty(bsz, k, dtype=torch.int32, device=table.device)
+    _build.launch(
+        select_extract, "yt_select_extract", table, table.data_ptr(), phys.data_ptr(),
+        p.data_ptr(), is_eq.data_ptr(), t.data_ptr(), int(thr_bits), bsz, m, k, vals.data_ptr(),
+        lane.data_ptr(),
+    )
+    return vals, lane
+
+
+def _select_extract_fake(table, phys, p, is_eq, t, thr_bits: int):
+    return (table.new_empty(phys.shape, dtype=torch.float32),
+            table.new_empty(phys.shape, dtype=torch.int32))
+
+
 def select_extract(table: torch.Tensor, phys: torch.Tensor, p: torch.Tensor,
                    is_eq: torch.Tensor, t: torch.Tensor, thr_bits: int):
     """In-kernel extraction: per slot, the chunk row table[b, clamp(phys)],
@@ -405,9 +459,9 @@ def select_extract(table: torch.Tensor, phys: torch.Tensor, p: torch.Tensor,
     table (B, m, 128) f32; phys, p (B, k) i32; is_eq (B, k) bool; t (B,)
     i32 k-th value bits; thr_bits the f32 bits of a threshold >= 0.
     Returns (vals (B, k) f32, lane (B, k) i32), (0.0, 0) for a slot with
-    no hit.  Calls the op ``yolort_tpu::select_extract``
-    (``ops/library.py``): CUDA tensors launch the kernel on the current
-    stream; CPU tensors take ``select_extract_reference``."""
+    no hit.  Calls the op ``yolort_tpu::select_extract``: CUDA tensors
+    launch the kernel on the current stream (``_select_extract_cuda``); CPU
+    tensors take ``select_extract_reference``."""
     _check_table(table, "select_extract")
     bsz, m, _ = table.shape
     if not (phys.dim() == 2 and phys.shape[0] == bsz and p.shape == is_eq.shape == phys.shape):
@@ -419,15 +473,11 @@ def select_extract(table: torch.Tensor, phys: torch.Tensor, p: torch.Tensor,
         raise ValueError(f"select_extract: t must be ({bsz},) on the table's device, got {tuple(t.shape)}")
     if not 0 <= thr_bits < NO_VALID_BITS:
         raise ValueError(f"thr_bits must be the bits of a threshold in [0, 2), got {thr_bits:#x}")
-    if table.device.type == "cuda":
-        if (phys.dtype, p.dtype, is_eq.dtype, t.dtype) != (torch.int32, torch.int32, torch.bool,
-                                                            torch.int32):
-            raise ValueError("select_extract: phys, p and t must be int32 and is_eq bool on cuda")
-        if not all(x.is_contiguous() for x in (table, phys, p, is_eq, t)):
-            raise ValueError("select_extract needs contiguous inputs")
-    elif table.device.type != "cpu":
-        raise ValueError(f"select_extract runs on cuda or cpu tensors, not {table.device}")
+    if not _on_cpu("select_extract", table) and (phys.dtype, p.dtype, is_eq.dtype, t.dtype) != (
+            torch.int32, torch.int32, torch.bool, torch.int32):
+        raise ValueError("select_extract: phys, p and t must be int32 and is_eq bool on cuda")
     return torch.ops.yolort_tpu.select_extract(table, phys, p, is_eq, t, int(thr_bits))
 
 
-select_extract.launches = 0
+register("select_extract", select_extract_reference, _select_extract_cuda, _select_extract_fake,
+         select_extract)

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 
 from yolort_tpu_torch.ops.boxes import box_iou_matrix
+from yolort_tpu_torch.ops.cuda import _build
+from yolort_tpu_torch.ops.library import register
 
 
 def nms_mask_reference(
@@ -64,14 +66,38 @@ def nms_mask_reference(
     return alive[:, :k].contiguous()  # the kernel's layout
 
 
+def _nms_cuda(boxes, valid, iou_thresh: float, tile_size: int, stop_after: int):
+    """The op's CUDA implementation: one launch on checked inputs."""
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("nms_mask needs contiguous boxes and valid")
+    if boxes.data_ptr() % 16:
+        raise ValueError("nms_mask needs 16-byte aligned boxes (the kernel loads float4)")
+    bsz, k, _ = boxes.shape
+    tile = min(tile_size, k)
+    stop = min(stop_after, k + 1) if stop_after > 0 else k + 1  # k + 1: no early exit
+    keep = torch.empty_like(valid)
+    # the kept-box list: as many rows an image as the kernel says it can keep
+    rows = _build.library().yt_nms_scratch_rows(k, tile, stop)
+    scratch = torch.empty(bsz, rows, 4, dtype=torch.float32, device=boxes.device)
+    _build.launch(
+        nms_mask, "yt_nms_mask", boxes, boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+        scratch.data_ptr(), bsz, k, float(iou_thresh), tile, stop,
+    )
+    return keep
+
+
+def _nms_fake(boxes, valid, iou_thresh: float, tile_size: int, stop_after: int):
+    return torch.empty_like(valid)
+
+
 def nms_mask(
     boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     tile_size: int = 256, stop_after: int = 0,
 ) -> torch.Tensor:
     """Greedy NMS keep mask, (B, K, 4) f32 + (B, K) bool -> (B, K) bool.
 
-    Calls the op ``yolort_tpu::nms_mask`` (``ops/library.py``): CUDA
-    tensors launch ``csrc/nms_mask.cu`` on the current stream (no
+    Calls the op ``yolort_tpu::nms_mask``: CUDA tensors launch
+    ``csrc/nms_mask.cu`` on the current stream (``_nms_cuda``, no
     synchronisation); CPU tensors take ``nms_mask_reference``.  Any other
     device, or input the kernel does not take, raises."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
@@ -84,10 +110,8 @@ def nms_mask(
         raise ValueError(f"tile_size must be positive, got {tile_size}")
     if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms_mask runs on cuda or cpu tensors, not {boxes.device}")
-    if boxes.device.type == "cuda" and not (boxes.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("nms_mask needs contiguous boxes and valid")
     return torch.ops.yolort_tpu.nms_mask(boxes, valid, float(iou_thresh), int(tile_size),
                                          int(stop_after))
 
 
-nms_mask.launches = 0
+register("nms_mask", nms_mask_reference, _nms_cuda, _nms_fake, nms_mask)

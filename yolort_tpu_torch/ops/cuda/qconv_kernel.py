@@ -241,15 +241,11 @@ def qconv1x1(xq, wq, scale, bias, *, act="silu", inv_out_scale=None, out_dtype=t
     out = torch.empty((n, cout, h, w), dtype=out_t, device=xq.device,
                       memory_format=torch.channels_last)
     plan = _plan_for(xq, wq, out, 1)
-    lib = _build.library()
-    with torch.cuda.device(xq.device):
-        rc = lib.yt_qconv1x1(
-            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, ACTS[act],
-            _OUT_KINDS[out_t], plan.tile, int(plan.gather), plan.smem, _build.stream_of(xq),
-        )
-    _build.check(rc, "qconv1x1")
-    qconv1x1.launches += 1
+    _build.launch(
+        qconv1x1, "yt_qconv1x1", xq, xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, ACTS[act],
+        _OUT_KINDS[out_t], plan.tile, int(plan.gather), plan.smem,
+    )
     return out
 
 
@@ -280,16 +276,11 @@ def qconv_kxk(xq, wq, scale, bias, *, k, stride=1, pad=None, act="silu", inv_out
     out = torch.empty((n, cout, ho, wo), dtype=out_t, device=xq.device,
                       memory_format=torch.channels_last)
     plan = _plan_for(xq, wq, out, k)
-    lib = _build.library()
-    with torch.cuda.device(xq.device):
-        rc = lib.yt_qconv_kxk(
-            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, k, stride, pad,
-            ho, wo, ACTS[act], _OUT_KINDS[out_t], plan.tile, int(plan.gather), plan.smem,
-            _build.stream_of(xq),
-        )
-    _build.check(rc, "qconv_kxk")
-    qconv_kxk.launches += 1
+    _build.launch(
+        qconv_kxk, "yt_qconv_kxk", xq, xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, k, stride,
+        pad, ho, wo, ACTS[act], _OUT_KINDS[out_t], plan.tile, int(plan.gather), plan.smem,
+    )
     return out
 
 
@@ -323,15 +314,11 @@ def qconv_grouped(xq, wq, scale, bias, *, k, stride=1, pad=None, groups, act="si
     cout = wq.shape[0]
     out = torch.empty((n, cout, ho, wo), dtype=out_t, device=xq.device,
                       memory_format=torch.channels_last)
-    lib = _build.library()
-    with torch.cuda.device(xq.device):
-        rc = lib.yt_qconv_grouped(
-            xq.data_ptr(), wq.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, k, stride, pad,
-            ho, wo, groups, ACTS[act], _OUT_KINDS[out_t], _build.stream_of(xq),
-        )
-    _build.check(rc, "qconv_grouped")
-    qconv_grouped.launches += 1
+    _build.launch(
+        qconv_grouped, "yt_qconv_grouped", xq, xq.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), float(inv_out_scale or 0.0), out.data_ptr(), n, h, w, c, cout, k, stride,
+        pad, ho, wo, groups, ACTS[act], _OUT_KINDS[out_t],
+    )
     return out
 
 

@@ -17,6 +17,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from yolort_tpu_torch.ops.cuda import _build
+from yolort_tpu_torch.ops.library import register
 
 NEG_LOGIT = -1.0e4  # floor of the masked maxima, as the JAX reductions fill
 MAX_LEVELS = 4
@@ -63,6 +64,35 @@ def fused_cells_stage1_reference(levels: Sequence[torch.Tensor], num_anchors: in
     return cells, torch.maximum(x[..., 4], neg), torch.maximum(x[..., 5:].amax(-1), neg)
 
 
+def _stage1_cuda(levels, num_anchors: int, kw: int):
+    """The op's CUDA implementation: one launch on checked levels."""
+    if not all(lv.is_contiguous() for lv in levels):
+        raise ValueError("fused_cells_stage1 needs contiguous levels (NHWC head outputs as views)")
+    first = levels[0]
+    bsz, C = first.shape[0], num_anchors * kw
+    rows = [_rows(lv) for lv in levels]
+    n_cells = sum(rows)
+    cells = torch.empty(bsz, n_cells, C, dtype=first.dtype, device=first.device)
+    obj = torch.empty(bsz, n_cells, num_anchors, dtype=first.dtype, device=first.device)
+    cls = torch.empty_like(obj)
+    pad = MAX_LEVELS - len(levels)
+    neg = float(torch.tensor(NEG_LOGIT, dtype=first.dtype))  # -9984.0 in bfloat16
+    _build.launch(
+        fused_cells_stage1, "yt_cells_stage1", first, *[lv.data_ptr() for lv in levels],
+        *[None] * pad, *rows, *[0] * pad, len(levels), bsz, C, num_anchors, kw, neg,
+        first.element_size(), cells.data_ptr(), obj.data_ptr(), cls.data_ptr(),
+    )
+    return cells, obj, cls
+
+
+def _stage1_fake(levels, num_anchors: int, kw: int):
+    first = levels[0]
+    n_cells = sum(_rows(lv) for lv in levels)
+    cells = first.new_empty(first.shape[0], n_cells, num_anchors * kw)
+    obj = first.new_empty(first.shape[0], n_cells, num_anchors)
+    return cells, obj, torch.empty_like(obj)
+
+
 def fused_cells_stage1(levels: Sequence[torch.Tensor], num_anchors: int, kw: int):
     """Cells table and stage-1 maxima in one pass.
 
@@ -70,8 +100,8 @@ def fused_cells_stage1(levels: Sequence[torch.Tensor], num_anchors: int, kw: int
     (float32 or bfloat16).  Returns (cells (B, sum R_l, C), obj (B, sum R_l,
     A), cls (B, sum R_l, A)) in that dtype, equal to
     ``fused_cells_stage1_reference``.  Calls the op
-    ``yolort_tpu::fused_cells_stage1`` (``ops/library.py``): CUDA tensors
-    launch the kernel on the current stream and must be contiguous (a
+    ``yolort_tpu::fused_cells_stage1``: CUDA tensors launch the kernel on
+    the current stream (``_stage1_cuda``) and must be contiguous (a
     strided level raises rather than being copied); any base address and
     row count is taken.  CPU tensors take the plain version."""
     levels = list(levels)
@@ -90,9 +120,8 @@ def fused_cells_stage1(levels: Sequence[torch.Tensor], num_anchors: int, kw: int
             raise ValueError("levels must share one dtype and one device")
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_cells_stage1 runs on cuda or cpu tensors, not {first.device}")
-    if first.device.type == "cuda" and not all(lv.is_contiguous() for lv in levels):
-        raise ValueError("fused_cells_stage1 needs contiguous levels (NHWC head outputs as views)")
     return torch.ops.yolort_tpu.fused_cells_stage1(levels, num_anchors, kw)
 
 
-fused_cells_stage1.launches = 0
+register("fused_cells_stage1", fused_cells_stage1_reference, _stage1_cuda, _stage1_fake,
+         fused_cells_stage1)

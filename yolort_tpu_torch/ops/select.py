@@ -2,7 +2,9 @@
 
 Port of ``yolort_tpu/ops/select.py`` for the paths the main program runs:
 
-  * ``_bisect_kth_bits`` — the exact k-th value search (16-ary bisection);
+  * ``_bisect_kth_bits`` — the exact k-th value search (16-ary bisection),
+    from ``ops/cuda/lookup_kernel.py``, where ``bisect_count``'s plain
+    version uses it;
   * ``select_topk_indices`` — the stage-1 anchor screen: the k-th value,
     then one int32 selection over ``tier << B | index`` keys;
   * ``select_topk_indices_compact`` — the same (ok, idx) contract through
@@ -32,8 +34,9 @@ import torch
 
 from yolort_tpu_torch.ops.cuda.compact_kernel import compact_place
 from yolort_tpu_torch.ops.cuda.lookup_kernel import (
-    CHUNK, NO_VALID_BITS, bisect_count, extract_hits, lookup_fetch, row_fetch, select_extract,
+    CHUNK, bisect_count, extract_hits, lookup_fetch, row_fetch, select_extract,
 )
+from yolort_tpu_torch.ops.cuda.lookup_kernel import BISECT_PASSES, _bisect_kth_bits  # noqa: F401
 
 ROW_GATHERS = ("pallas_bisect", "pallas_lookup", "pallas_full")
 
@@ -41,33 +44,6 @@ ROW_GATHERS = ("pallas_bisect", "pallas_lookup", "pallas_full")
 def f32_bits(x: float) -> int:
     """The int32 bit pattern of float32(x)."""
     return int(np.float32(x).view(np.int32))
-
-
-BISECT_PASSES = 9  # 16-ary passes that shrink the int32 range to a point
-
-
-def _bisect_kth_bits(bits: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
-    """Exact k-th largest valid int32 bit pattern per row, (B, n) -> (B,),
-    by the branchless 16-ary search of the JAX package: the converged ``lo``
-    satisfies count(bits >= lo) >= k > count(bits >= lo + 1), or is the
-    smallest valid pattern when fewer than k are valid, or 0x40000000 when
-    none is.  int32 arithmetic throughout, as in JAX."""
-    if bits.dtype != torch.int32:
-        raise ValueError(f"_bisect_kth_bits takes int32 bits, got {bits.dtype}")
-    arms = 16
-    masked = torch.where(valid, bits, torch.iinfo(torch.int32).min)
-    lo = torch.where(valid, bits, NO_VALID_BITS).amin(-1)
-    hi = torch.full_like(lo, NO_VALID_BITS)
-    for _ in range(BISECT_PASSES):
-        step = ((hi - lo) // arms).clamp_min(1)
-        m = torch.zeros_like(lo)
-        for i in range(1, arms):
-            piv = torch.minimum(lo + step * i, hi)
-            m += ((masked >= piv[:, None]).sum(-1) >= k).to(torch.int32)
-        new_lo = torch.where(m > 0, lo + step * m, lo)
-        new_hi = torch.where(m < arms - 1, lo + step * (m + 1), hi)
-        lo, hi = new_lo, torch.minimum(new_hi, hi)
-    return lo
 
 
 def _chunk_table(flat: torch.Tensor) -> torch.Tensor:
