@@ -39,14 +39,20 @@ Phases, each fatal on failure:
      and the stage-1 tables (797,128) and (479,128) at k = 4104 and 520,
      timed at batch 8 warm and with the L2 flushed, beside their bounds;
      row_fetch timed at both stage-2 tables, warm and cold, with random
-     and with main-path indices;
+     and with main-path indices; bias_act (the float convs' epilogue) at
+     each benchmark cell's largest and smallest conv output
+     (EPILOGUE_SHAPES: the Focus conv's, and a head's with C = 255) in
+     float32 and bfloat16, with SiLU and with no activation, bit-identical
+     to its plain version, and timed in the cell's dtype beside its byte
+     bound and ATen's add_ and activation;
   4. slice: yolov5s at full width, seeded random weights with the head
      biases shifted to a realistic candidate load, serves uint8 frames of
      three sizes in float32 and bfloat16 under the eval (0.005 / 4096) and
      serving (0.25 / 512) configs, once per stage-2 postprocess route
      (row_gather) of ROUTES; every kernel of a route must have launched
      (the default route exactly fused_cells_stage1 1, nms_mask 1,
-     bisect_count 2, row_fetch 1 per batch), every image must carry
+     bisect_count 2, row_fetch 1 per batch; every route bias_act once a
+     biased float conv, 60, per batch), every image must carry
      detections, each route's detections must equal the default route's
      on the same head outputs, and the card's postprocess must agree with
      the CPU run of the port on every route;
@@ -199,8 +205,13 @@ Phases, each fatal on failure:
      tools/regression --selftest; (d) FeatureExtractor against the CPU, no
      hook left; (e) a trace naming the four serving kernels, model_info,
      device_memory_stats.
+Every read of the launch counts (``launch_counts``) also holds bias_act
+to the network calls made since the counts were set to 0: one launch a
+biased float conv of each call that takes the fused epilogue
+(``NetworkCalls``), so every path above checks it.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels as JSON, with each kernel's launches by path (float, int8,
+the kernels as JSON (the TPU kernels' counterparts, then bias_act, which
+no TPU kernel had), with each kernel's launches by path (float, int8,
 cpa, decoded, fixed_shape, r31_int8, p6, p6_int8, checkpoint, train_eval,
 zoo_lite, zoo_yaml, ensemble, tta, int8_lite, int8_lite_grouped, int8_ap,
 export, aoti, streaming, export_moved, export_paths, int8_stream,
@@ -252,6 +263,18 @@ TPU_KERNELS = {
     "row_fetch_p": ("yolort_tpu_torch/csrc/row_fetch.cu",
                     "tools/experiments/fetch_block_sweep.py:89"),
 }
+# the port's kernels that no TPU kernel had, named apart from those: the
+# float convs' epilogue, once a biased float conv of every network call on
+# the card (``NetworkCalls``)
+EPILOGUE = "bias_act"
+PORT_KERNELS = {
+    EPILOGUE: ("yolort_tpu_torch/csrc/bias_act.cu",
+               "none: a conv's bias and activation, which XLA fuses into the conv (under cuDNN "
+               "ATen's add_ and activation passes)"),
+}
+# the biased float convs of a fused r6.0 network (yolov5s, the smoke's
+# float slice, checks it), each one bias_act launch a forward
+R60_CONVS = 60
 # stage-2 postprocess routes (row_gather), the default first, and the
 # kernels each one launches
 ROUTES = ("pallas_bisect", "pallas_lookup", "pallas_full")
@@ -263,6 +286,89 @@ ROUTE_KERNELS = {
 DEFAULT_PER_BATCH = {"fused_cells_stage1": 1, "nms_mask": 1, "bisect_count": 2, "row_fetch": 1}
 # the timing entry points, each with the kernel it runs
 ENTRY_POINTS = {"lookup_kernel_variants": "lookup_fetch_variant", "fetch_block_sweep": "row_fetch_p"}
+
+
+# --------------------------------------------------------------------------
+# launch counts
+# --------------------------------------------------------------------------
+class NetworkCalls:
+    """The ``bias_act`` launches that the network calls since the last
+    ``reset_counts`` owe.  ``install`` wraps ``Detector.head_outputs`` at
+    its class: each call on which ``blocks.fused_epilogue`` holds owes one
+    launch a biased float conv of its network (``blocks.biased_float_convs``),
+    eager, captured or replayed alike (a replay adds what its capture
+    launched); a call that a compiler traces owes none.  The wrapper walks
+    the network's modules once a call, some tens of microseconds of host
+    time beside the smoke's timed calls."""
+
+    def __init__(self) -> None:
+        self.owed = self.calls = self.fused = 0
+
+    def install(self) -> None:
+        import torch
+
+        from yolort_tpu_torch.models.yolo import Detector
+        from yolort_tpu_torch.ops import blocks
+
+        inner = Detector.head_outputs
+
+        def head_outputs(det, images):
+            if not torch.compiler.is_compiling():
+                self.calls += 1
+                if blocks.fused_epilogue(images):
+                    self.fused += 1
+                    self.owed += blocks.biased_float_convs(det)
+            return inner(det, images)
+
+        Detector.head_outputs = head_outputs
+
+
+NETWORK = NetworkCalls()
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count and the network calls' debt (``NETWORK``)
+    set to 0."""
+    from yolort_tpu_torch.ops.cuda import reset_launch_counts
+
+    reset_launch_counts()
+    NETWORK.owed = NETWORK.calls = NETWORK.fused = 0
+
+
+def launch_counts(label: str = "") -> dict:
+    """Every hand-written kernel's launches since ``reset_counts``, by name,
+    after a sync; raises unless ``bias_act`` launched exactly what the
+    network calls since then owe (``NETWORK``)."""
+    import torch
+
+    from yolort_tpu_torch.ops.cuda import KERNELS
+
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    if counts[EPILOGUE] != NETWORK.owed:
+        raise AssertionError(f"{label}: {EPILOGUE} launched {counts[EPILOGUE]} times; the "
+                             f"{NETWORK.calls} network calls ({NETWORK.fused} with the fused "
+                             f"epilogue) owe {NETWORK.owed}")
+    return counts
+
+
+def tpu(counts: dict) -> dict:
+    """The TPU kernels' counterparts' part of ``counts`` (``TPU_KERNELS``):
+    what a route's or a path's kernels are held to, ``bias_act`` being held
+    to the network calls by ``launch_counts``."""
+    return {k: counts[k] for k in TPU_KERNELS}
+
+
+def epilogue_convs(models) -> int:
+    """``bias_act`` launches a forward of ``models`` (YOLOv5s or Detectors
+    of one network, by dtype) on the card: its biased float convs, the same
+    in every dtype."""
+    from yolort_tpu_torch.ops import blocks
+
+    ns = {blocks.biased_float_convs(getattr(m, "model", m)) for m in models.values()}
+    if len(ns) != 1:
+        raise AssertionError(f"the dtypes' networks have {sorted(ns)} biased float convs")
+    return ns.pop()
 
 
 # --------------------------------------------------------------------------
@@ -563,6 +669,76 @@ def phase_kernels(device, card: str) -> dict:
     res["row_fetch"] = dict(**timed[2565], others=[timed[325]])
     res["row_fetch"]["max_abs_err"] = err
     return res
+
+
+# bias_act's shapes: each benchmark cell's largest conv output (the Focus
+# conv, SiLU) and its smallest (a head at the coarsest level, C = 255, no
+# activation), and the cell's dtype
+EPILOGUE_SHAPES = {
+    "s640-eval-b32": ((32, 32, 240, 320), (32, 255, 15, 20), "float32"),
+    "s6-video-b8": ((8, 32, 384, 640), (8, 255, 12, 20), "bfloat16"),
+    "ts-tile-b16": ((16, 32, 640, 640), (16, 255, 40, 40), "bfloat16"),
+}
+
+
+def phase_epilogue_kernel(device, card: str) -> dict:
+    """bias_act against its plain version on the card, bit for bit, at every
+    shape of EPILOGUE_SHAPES in float32 and bfloat16, with SiLU and with no
+    activation (the heads'), one launch each; then timed at each shape in
+    its cell's dtype and activation (CUDA graph replay) beside its byte
+    bound (one read and one write of the output) and ATen's ``add_`` of the
+    bias and activation on the same output (what a biased conv runs without
+    the kernel)."""
+    import torch
+
+    from yolort_tpu_torch.experiments.timing import graph_ms
+    from yolort_tpu_torch.ops.cuda import bias_act, bias_act_reference
+    from yolort_tpu_torch.ops.cuda.epilogue_kernel import ACTS
+
+    gen = torch.Generator(device=device).manual_seed(31)
+
+    def operands(shape, dtype):
+        n, c, h, w = shape
+        y = (4 * torch.randn(n, h, w, c, device=device, generator=gen)).to(dtype)
+        return y.permute(0, 3, 1, 2), torch.randn(c, device=device, generator=gen).to(dtype)
+
+    by_shape = {}
+    for cell, (big, small, cell_dtype) in EPILOGUE_SHAPES.items():
+        for size, shape, act in (("largest", big, "silu"), ("smallest", small, "none")):
+            for dtype in (torch.float32, torch.bfloat16):
+                y, b = operands(shape, dtype)
+                for a in ("silu", "none"):
+                    want = bias_act_reference(y, b, a)
+                    before = bias_act.launches
+                    got = bias_act(y.clone(memory_format=torch.channels_last), b, a)
+                    torch.cuda.synchronize()
+                    if bias_act.launches != before + 1 or not same_bits(got, want):
+                        raise AssertionError(f"bias_act {cell} {size} {shape} {dtype} {a}: "
+                                             f"differs from its plain version (or launched "
+                                             f"{bias_act.launches - before} times)")
+                    del want, got
+                print(f"[kernels] bias_act {cell} {size} {shape} {dtype}: silu and none "
+                      f"bit-identical to the plain version, one launch each", flush=True)
+                if str(dtype) != f"torch.{cell_dtype}":
+                    continue
+                yc = y.clone(memory_format=torch.channels_last)
+                ms = graph_ms(lambda: bias_act(yc, b, act))
+                aten = graph_ms(lambda: ACTS[act](yc.add_(b.view(1, -1, 1, 1))))
+                bms, bby = bound(2 * y.numel() * y.element_size())
+                by_shape[f"{cell} {size}"] = r = dict(
+                    ms=ms, bound_ms=bms, bound_by=bby, device_share_of_bound=bms / ms,
+                    library_ms=aten, at=f"{shape} {cell_dtype} {act}")
+                print(f"[times] bias_act {cell} {size} {shape} {cell_dtype} {act}: kernel "
+                      f"{ms:.4f} ms (graph replay), bound {bms:.4f} ms ({bby}), "
+                      f"{fmt_share(r['device_share_of_bound'])} of bound; ATen's add_ + {act} "
+                      f"{aten:.4f} ms | {card}", flush=True)
+                del yc
+            del y, b
+    torch.cuda.empty_cache()
+    main = by_shape["ts-tile-b16 largest"]
+    return {EPILOGUE: dict(**main, library_call="ATen's add_ of the bias, then the activation",
+                           max_abs_err=0.0,
+                           by_shape={k: v for k, v in by_shape.items() if v is not main})}
 
 
 def phase_sweep_kernels(device, card: str) -> dict:
@@ -993,26 +1169,24 @@ def serve_routes(models, requests, label: str, convs=None) -> dict:
     (the default route exactly DEFAULT_PER_BATCH a batch) and no other;
     every image must carry detections; each route must serve the default
     route's detections exactly.  ``convs`` (an int8 model's qconv kernel ->
-    launches a forward, ``conv_launches``) are launched exactly that many
-    times a batch on every route."""
-    import torch
-
-    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
-
-    convs = convs or {}
+    launches a forward, ``conv_launches``) and ``bias_act``, once a biased
+    float conv of the network (``epilogue_convs``), are launched exactly
+    that many times a batch on every route."""
+    convs = dict(convs or {})
+    if epilogue_convs(models):
+        convs[EPILOGUE] = epilogue_convs(models)
     runs = [(dt, name, cfg) for dt in models for name, cfg in (("eval", EVAL), ("serving", SERVING))]
     batches = len(runs) * len(requests)
     launches, outs = {}, {}
     for route in ROUTES:
         for m in models.values():
             m.model.row_gather = route
-        reset_launch_counts()
+        reset_counts()
         for dt, name, cfg in runs:
             m = models[dt]
             m.model.score_thresh, m.model.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
             outs[(route, dt, name)] = [m(req) for req in requests]
-        torch.cuda.synchronize()
-        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        counts = launch_counts(f"{label} route {route}")
         launches[route] = counts
         print(f"[{label}] route {route}: launches over {batches} batches {counts}", flush=True)
         for kname, n in counts.items():
@@ -1143,6 +1317,9 @@ def phase_slice(device, card: str) -> dict:
 
     requests = [frames(10, 8, 720, 1280), frames(11, 4, 480, 640), frames(12, 1, 1080, 1920)]
     models = build_shifted(yolort_tpu_torch.yolov5s, device, requests, "slice")
+    if epilogue_convs(models) != R60_CONVS:
+        raise AssertionError(f"slice: yolov5s has {epilogue_convs(models)} biased float convs, "
+                             f"want {R60_CONVS}")
     out = serve_routes(models, requests, "slice")
     unpaired = pair_routes_with_cpu(models, requests, "slice")
     return dict(**out, unpaired=unpaired, models=models, requests=requests)
@@ -1372,20 +1549,20 @@ def phase_int8_slice(qmodel, requests, device, card: str, label: str = "int8",
     import torch
 
     from yolort_tpu_torch import YOLOv5
-    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 
     models = {dt: YOLOv5(model=qmodel, device=device, dtype=dt, size=size,
                          size_divisible=size_divisible) for dt in (torch.float32, torch.bfloat16)}
-    reset_launch_counts()
+    # the convs the recipe leaves in float take the fused epilogue
+    network = ("qconv1x1", "qconv_kxk") + ((EPILOGUE,) if epilogue_convs(models) else ())
+    reset_counts()
     outs = {}
     for dt, m in models.items():
         for name, cfg in (("eval", EVAL), ("serving", SERVING)):
             qmodel.score_thresh, qmodel.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
             outs[(dt, name)] = [m(req) for req in requests]
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    launches = launch_counts(label)
     print(f"[{label}] int8 path launches: {launches}", flush=True)
-    on_path = ROUTE_KERNELS[DEFAULT_ROUTE] + ("qconv1x1", "qconv_kxk")
+    on_path = ROUTE_KERNELS[DEFAULT_ROUTE] + network
     for kname, n in launches.items():
         if kname in on_path and n <= 0:
             raise AssertionError(f"{label}: kernel {kname} was not launched on the int8 path")
@@ -1401,15 +1578,14 @@ def phase_int8_slice(qmodel, requests, device, card: str, label: str = "int8",
     qmodel.score_thresh, qmodel.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
     for route in ROUTES[1:]:
         qmodel.row_gather = route
-        reset_launch_counts()
+        reset_counts()
         for dt, m in models.items():
             for d, d0 in zip(m(requests[1]), outs[(dt, "serving")][1]):
                 if not all(np.array_equal(d[key], d0[key]) for key in ("boxes", "scores", "labels")):
                     raise AssertionError(f"{label} {route} {dt} serving: detections differ from "
                                          f"the default route's")
-        torch.cuda.synchronize()
-        counts = {fn.__name__: fn.launches for fn in KERNELS}
-        want = ROUTE_KERNELS[route] + ("qconv1x1", "qconv_kxk")
+        counts = launch_counts(f"{label} route {route}")
+        want = ROUTE_KERNELS[route] + network
         for kname, n in counts.items():
             if (kname in want) != (n > 0):
                 raise AssertionError(f"{label} route {route}: kernel {kname} launched {n} times")
@@ -1794,7 +1970,6 @@ def phase_checkpoints(tmp: str, made: dict, device, card: str) -> dict:
     import torch
 
     from yolort_tpu_torch import YOLOv5
-    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 
     requests = {"s6 r6.0": [frames(17, 2, 720, 1280), frames(18, 1, 1280, 1280)]}
     unpaired, launches = 0, {}
@@ -1805,14 +1980,13 @@ def phase_checkpoints(tmp: str, made: dict, device, card: str) -> dict:
                   for dt in (torch.float32, torch.bfloat16)}
         cpu = YOLOv5.load_from_yolov5(path, device="cpu", **load_kw)
         reqs = requests.get(label, [frames(19, 2, 480, 640)])
-        reset_launch_counts()
+        reset_counts()
         for dt, m in models.items():
             counts = [check_served([m(req)], f"checkpoint {label} {dt}") for req in reqs]
             print(f"[checkpoint] {label} {dt} served: detections/img {counts}", flush=True)
-        torch.cuda.synchronize()
-        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        counts = launch_counts(f"checkpoint {label}")
         for kname, n in counts.items():
-            if (kname in ROUTE_KERNELS[DEFAULT_ROUTE]) != (n > 0):
+            if (kname in ROUTE_KERNELS[DEFAULT_ROUTE] + (EPILOGUE,)) != (n > 0):
                 raise AssertionError(f"checkpoint {label}: kernel {kname} launched {n} times")
         for kname, n in counts.items():
             launches[kname] = launches.get(kname, 0) + n
@@ -1974,23 +2148,20 @@ def phase_flatten_paths(models, requests, card: str) -> dict:
     postprocess time per route (CUDA events, device)."""
     import torch
 
-    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
-
     runs = [(dt, name, cfg) for dt in models for name, cfg in (("eval", EVAL), ("serving", SERVING))]
     batches = len(runs) * len(requests)
     out = {}
     for path in ("cpa", "decoded"):
         launches, served = {}, {}
         for route in ROUTES:
-            reset_launch_counts()
+            reset_counts()
             for dt, name, cfg in runs:
                 served[(route, dt, name)] = [run_path(path, models[dt], req, route, cfg)
                                              for req in requests]
-            torch.cuda.synchronize()
-            counts = {fn.__name__: fn.launches for fn in KERNELS}
-            want = {k: FLATTEN_KERNELS[route].get(k, 0) * batches for k in counts}
+            counts = launch_counts(f"{path} route {route}")
+            want = {k: FLATTEN_KERNELS[route].get(k, 0) * batches for k in TPU_KERNELS}
             print(f"[{path}] route {route}: launches over {batches} batches {counts}", flush=True)
-            if counts != want:
+            if tpu(counts) != want:
                 raise AssertionError(f"{path} route {route}: launches {counts}, want {want}")
             launches[route] = counts
         for (route, dt, name), res in served.items():
@@ -2065,23 +2236,21 @@ def phase_fixed_shape(models, device, card: str, hub_name: str = "yolov5s") -> d
     import torch
 
     from yolort_tpu_torch import YOLOv5
-    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 
     mixed = [frames(24, 1, 720, 1280)[0], frames(25, 1, 480, 640)[0], frames(26, 1, 1080, 1920)[0]]
     fixed = {dt: YOLOv5(model=m.model, device=device, dtype=dt, size=FIXED_SHAPE,
                         fixed_shape=FIXED_SHAPE) for dt, m in models.items()}
-    reset_launch_counts()
+    reset_counts()
     served = {}
     for dt, fm in fixed.items():
         for name, cfg in (("eval", EVAL), ("serving", SERVING)):
             fm.model.score_thresh, fm.model.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
             served[(dt, name)] = fm(mixed)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in KERNELS}
-    want = {k: DEFAULT_PER_BATCH.get(k, 0) * len(served) for k in launches}
+    launches = launch_counts("fixed_shape")
+    want = {k: DEFAULT_PER_BATCH.get(k, 0) * len(served) for k in TPU_KERNELS}
     print(f"[fixed_shape] {len(served)} mixed-size batches of 3 on a {FIXED_SHAPE} canvas: "
           f"launches {launches}", flush=True)
-    if launches != want:
+    if tpu(launches) != want:
         raise AssertionError(f"fixed_shape: launches {launches}, want {want}")
 
     unpaired = 0
@@ -2265,17 +2434,14 @@ def phase_entry_points() -> dict:
 
     import torch
 
-    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
-
     launches = {}
     for name in ENTRY_POINTS:
         module = importlib.import_module(f"yolort_tpu_torch.experiments.{name}")
         torch.cuda.empty_cache()
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         rc = module.main(["--batch", "128"])
-        torch.cuda.synchronize()
-        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        counts = launch_counts(name)
         if rc != 0 or counts[ENTRY_POINTS[name]] <= 0:
             raise AssertionError(f"{name}: rc {rc}, {ENTRY_POINTS[name]} launched "
                                  f"{counts[ENTRY_POINTS[name]]} times")
@@ -2359,7 +2525,6 @@ def phase_zoo_custom(tmp: str, device, card: str) -> dict:
 
     from yolort_tpu_torch import YOLOv5
     from yolort_tpu_torch.models.yaml_model import load_yaml_from_ultralytics
-    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 
     path = f"{tmp}/custom.pt"
     oracle = torch_fixture().make_custom_checkpoint(path, nc=80, seed=0)
@@ -2368,14 +2533,13 @@ def phase_zoo_custom(tmp: str, device, card: str) -> dict:
               for dt in (torch.float32, torch.bfloat16)}
     cpu = YOLOv5(model=load_yaml_from_ultralytics(path, device="cpu"))
     req = frames(19, 2, 480, 640)
-    reset_launch_counts()
+    reset_counts()
     for dt, m in models.items():
         print(f"[zoo_yaml] custom checkpoint {dt} served: detections/img "
               f"{check_served([m(req)], f'custom checkpoint {dt}')}", flush=True)
-    torch.cuda.synchronize()
-    counts = {fn.__name__: fn.launches for fn in KERNELS}
-    want = {k: DEFAULT_PER_BATCH.get(k, 0) * len(models) for k in counts}
-    if counts != want:
+    counts = launch_counts("custom checkpoint")
+    want = {k: DEFAULT_PER_BATCH.get(k, 0) * len(models) for k in TPU_KERNELS}
+    if tpu(counts) != want:
         raise AssertionError(f"custom checkpoint: launches {counts}, want {want}")
     canvas = cpu.canvas(torch.from_numpy(np.stack(req[:1])))[0]
     with torch.inference_mode():
@@ -2421,7 +2585,6 @@ def phase_ensemble_tta(models_s, device, card: str) -> dict:
     import yolort_tpu_torch
     from yolort_tpu_torch.models.ensemble import Ensemble
     from yolort_tpu_torch.models.tta import tta_decode, tta_inference
-    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 
     batch = frames(24, B, 640, 640)
     models_m = build_shifted(yolort_tpu_torch.yolov5m, device, [batch], "ensemble")
@@ -2438,19 +2601,18 @@ def phase_ensemble_tta(models_s, device, card: str) -> dict:
         runs = [(dt, name, cfg) for dt in models_s for name, cfg in configs]
         launches, dets = {}, {}
         for route in ROUTES:
-            reset_launch_counts()
+            reset_counts()
             for dt, name, cfg in runs:
                 lead, canvas, run, _ = cases[(path, dt)]
                 lead.row_gather = route
                 lead.score_thresh, lead.pre_nms_topk = cfg["score_thresh"], cfg["pre_nms_topk"]
                 with torch.inference_mode():
                     dets[(route, dt, name)] = run(canvas)
-            torch.cuda.synchronize()
-            counts = {fn.__name__: fn.launches for fn in KERNELS}
-            want = {k: FLATTEN_KERNELS[route].get(k, 0) * len(runs) for k in counts}
+            counts = launch_counts(f"{path} route {route}")
+            want = {k: FLATTEN_KERNELS[route].get(k, 0) * len(runs) for k in TPU_KERNELS}
             print(f"[{path}] route {route}: launches over {len(runs)} batches of {B} {counts}",
                   flush=True)
-            if counts != want:
+            if tpu(counts) != want:
                 raise AssertionError(f"{path} route {route}: launches {counts}, want {want}")
             launches[route] = counts
         for (route, dt, name), det in dets.items():
@@ -2815,11 +2977,10 @@ def phase_int8_ap(device, card: str) -> dict:
     over the whole harness."""
     import torch
 
-    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
     from yolort_tpu_torch.utils import quant_probe as QP
 
     images, gts = QP.make_scenes()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     model = QP.train_scene_detector(images, gts, steps=1000, device=device)
     torch.cuda.synchronize()
@@ -2828,7 +2989,7 @@ def phase_int8_ap(device, card: str) -> dict:
     rep = QP.int8_ap_report(model, images, gts, target_delta=0.05)
     torch.cuda.synchronize()
     report_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    launches = launch_counts("int8_ap")
     print(f"[int8_ap] TF32 off while the harness trains, calibrates, scans and evaluates "
           f"(quant_probe.full_float32), deterministic algorithms while it trains, init seed "
           f"{QP.SCENE_SEED}; outside it cudnn.allow_tf32="
@@ -2838,7 +2999,7 @@ def phase_int8_ap(device, card: str) -> dict:
           f"trained 1000 Adam steps in {train_s:.1f} s ({1e3 * train_s / 1000:.2f} ms/step, host "
           f"clock); int8_ap_report in {report_s:.1f} s: {rep} | {card}", flush=True)
     print(f"[int8_ap] launches over the harness {launches}", flush=True)
-    for kname in ("qconv1x1", "qconv_kxk", *DEFAULT_PER_BATCH):
+    for kname in ("qconv1x1", "qconv_kxk", *DEFAULT_PER_BATCH, EPILOGUE):
         if launches[kname] <= 0:
             raise AssertionError(f"int8_ap: kernel {kname} was not launched")
     if rep["float_ap"] < 0.7:
@@ -2918,7 +3079,6 @@ def phase_train(device, card: str) -> dict:
     from yolort_tpu_torch.data.data_module import DetectionDataModule
     from yolort_tpu_torch.models._bridge import params_from_jax, params_to_jax
     from yolort_tpu_torch.models.yolo import build_yolo
-    from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
     from yolort_tpu_torch.trainer.checkpoint import load_train_state, save_train_state
     from yolort_tpu_torch.trainer.fit import evaluate, fit
     from yolort_tpu_torch.trainer.task import DefaultTask, TrainState
@@ -3001,16 +3161,15 @@ def phase_train(device, card: str) -> dict:
     train = DetectionDataModule(data, batch_size=TRAIN_BATCH, shuffle=True, seed=0, **dm_kw)
     val = DetectionDataModule(data[:8], batch_size=TRAIN_BATCH, **dm_kw)
     with tempfile.TemporaryDirectory() as tmp:
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         state = fit(task, train, val, max_epochs=1, seed=2, use_ema=True,
                     checkpoint_path=f"{tmp}/ema.npz", print_freq=1)
-        torch.cuda.synchronize()
-        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        counts = launch_counts("train eval")
         print(f"[train] fit, 1 epoch of {steps} steps + eval: {time.perf_counter() - t0:.2f} s; "
               f"launches {counts}", flush=True)
-        want = {k: DEFAULT_PER_BATCH.get(k, 0) * len(val) for k in counts}
-        if counts != want:
+        want = {k: DEFAULT_PER_BATCH.get(k, 0) * len(val) for k in TPU_KERNELS}
+        if tpu(counts) != want:
             raise AssertionError(f"train eval launches {counts}, want {want}")
         # fit's model now holds the EMA params its evaluation served
         results = evaluate(state.model, val, val.canvas_hw)
@@ -3158,15 +3317,6 @@ def start_cpp_compile():
     return load_checkout_module("deployment/libtorch/build.py", "libtorch_build").start_compile()
 
 
-def launch_counts() -> dict:
-    import torch
-
-    from yolort_tpu_torch.ops.cuda import KERNELS
-
-    torch.cuda.synchronize()
-    return {fn.__name__: fn.launches for fn in KERNELS}
-
-
 def graph_ops(ep) -> dict:
     """The yolort_tpu op calls of an exported program's graph, by op name."""
     out = {}
@@ -3194,7 +3344,6 @@ def phase_export(models, req, card: str) -> dict:
     ``yolort_tpu`` op that many times (no kernel traced through)."""
     import torch
 
-    from yolort_tpu_torch.ops.cuda import reset_launch_counts
     from yolort_tpu_torch.runtime.aot import _pipeline_fn, export_aot, load_aot, plan_for
 
     x = torch.from_numpy(req).cuda()
@@ -3212,9 +3361,9 @@ def phase_export(models, req, card: str) -> dict:
                 t1 = time.perf_counter()
                 pred = load_aot(path)
                 t2 = time.perf_counter()
-                reset_launch_counts()
+                reset_counts()
                 got = pred(req)
-                counts = launch_counts()
+                counts = launch_counts(f"export {dt} {route}")
                 want = {k: (2 if k == "bisect_count" else 1) if k in ROUTE_KERNELS[route] else 0
                         for k in counts}
                 if counts != want:
@@ -3255,7 +3404,6 @@ def phase_export_moved(models, req, card: str) -> dict:
     import torch
 
     from yolort_tpu_torch.models.ensemble import Ensemble
-    from yolort_tpu_torch.ops.cuda import reset_launch_counts
     from yolort_tpu_torch.runtime.aot import _pipeline_fn, export_aot, load_aot, plan_for
 
     yolo = models[torch.float32].model
@@ -3279,9 +3427,9 @@ def phase_export_moved(models, req, card: str) -> dict:
                                  "CPU export's output")
         t2 = time.perf_counter()
         cpu_on_card = load_aot(on_cpu, device="cuda")
-        reset_launch_counts()
+        reset_counts()
         moved_out = cpu_on_card(req)
-        moved = launch_counts()
+        moved = launch_counts("export moved")
         route_want = {k: (2 if k == "bisect_count" else 1) if k in ROUTE_KERNELS[DEFAULT_ROUTE]
                       else 0 for k in moved}
         if moved != route_want:
@@ -3304,9 +3452,9 @@ def phase_export_moved(models, req, card: str) -> dict:
         for name, model in (("classes_per_anchor", yolo), ("decoded", Ensemble([yolo, other]))):
             yolo.classes_per_anchor = CPA if name == "classes_per_anchor" else None
             pred = load_aot(export_aot(model, f"{tmp}/{name}.ytpt", **kw))
-            reset_launch_counts()
+            reset_counts()
             out = pred(req)
-            counts = launch_counts()
+            counts = launch_counts(f"export {name}")
             want_n = {k: FLATTEN_KERNELS[DEFAULT_ROUTE].get(k, 0) for k in counts}
             if counts != want_n:
                 raise AssertionError(f"export {name}: launches {counts}, want {want_n}")
@@ -3333,7 +3481,6 @@ def phase_aoti(models, req, card: str) -> dict:
     exported program and the eager pipeline."""
     import torch
 
-    from yolort_tpu_torch.ops.cuda import reset_launch_counts
     from yolort_tpu_torch.runtime.aot import _pipeline_fn, export_aoti_package, export_program, plan_for
 
     m = models[torch.float32]
@@ -3346,10 +3493,10 @@ def phase_aoti(models, req, card: str) -> dict:
                                   input_hw=RUNTIME_HW)
         compile_s = time.perf_counter() - t0
         runner = torch._inductor.aoti_load_package(pkg)
-    reset_launch_counts()
+    reset_counts()
     with torch.no_grad():
         got = runner(x)
-    counts = launch_counts()
+    counts = launch_counts("aoti")
     want = {k: DEFAULT_PER_BATCH.get(k, 0) for k in counts}
     if counts != want:
         raise AssertionError(f"aoti: launches {counts}, want {want}")
@@ -3367,7 +3514,7 @@ def phase_aoti(models, req, card: str) -> dict:
           f"run, {un} unpaired; a batch (CUDA events, median of 3 x 5): AOTInductor "
           f"{ms['aoti']:.2f} ms, exported program {ms['exported']:.2f} ms, eager pipeline "
           f"{ms['eager']:.2f} ms | {card}", flush=True)
-    reset_launch_counts()
+    reset_counts()
     return dict(launches=counts, compile_s=compile_s, ms=ms, unpaired=un)
 
 
@@ -3413,7 +3560,6 @@ def phase_streaming(models, card: str) -> dict:
     beside ``YOLOv5.__call__``'s pageable copy and images/s on one batch."""
     import torch
 
-    from yolort_tpu_torch.ops.cuda import reset_launch_counts
     from yolort_tpu_torch.runtime.streaming import StreamingPipeline
 
     fr = frames(41, STREAM_FRAMES, *RUNTIME_HW)
@@ -3423,11 +3569,11 @@ def phase_streaming(models, card: str) -> dict:
         m.model.score_thresh, m.model.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
         pipe = StreamingPipeline(m.model, batch_size=STREAM_BATCH, input_hw=RUNTIME_HW, dtype=dt)
         pipe.warmup(1)
-        reset_launch_counts()
+        reset_counts()
         res = list(pipe.run(fr))
-        counts = launch_counts()
+        counts = launch_counts(f"streaming {dt}")
         want = {k: n * batches for k, n in DEFAULT_PER_BATCH.items()}
-        if {k: n for k, n in counts.items() if n} != want or len(res) != STREAM_FRAMES:
+        if {k: n for k, n in tpu(counts).items() if n} != want or len(res) != STREAM_FRAMES:
             raise AssertionError(f"streaming {dt}: {len(res)} results, launches {counts}")
         for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
@@ -3452,7 +3598,7 @@ def phase_streaming(models, card: str) -> dict:
         call_sec = float(np.median(ts))
         call_busy, call_rows = device_profile(lambda: m(call_batch), iters=3)
         pageable = htod_ms(call_rows, "Pageable")
-        reset_launch_counts()
+        reset_counts()
         r = dict(images_s=STREAM_FRAMES / sec, busy_ms_batch=(busy or 0.0) / batches,
                  busy_share=(busy or 0.0) / 1e3 / sec, htod_pinned_ms=pinned,
                  call_images_s=STREAM_BATCH / call_sec, call_busy_ms=call_busy,
@@ -3478,7 +3624,6 @@ def phase_int8_stream(qmodels, card: str) -> dict:
     frame's detections equal ``YOLOv5.__call__`` on the same padded batch;
     the qconv kernels launched a forward's count a batch (42 ``qconv1x1``,
     18 ``qconv_kxk``), the postprocess kernels as the float stream."""
-    from yolort_tpu_torch.ops.cuda import reset_launch_counts
     from yolort_tpu_torch.runtime.streaming import StreamingPipeline
 
     fr = frames(43, INT8_STREAM_FRAMES, *RUNTIME_HW)
@@ -3487,14 +3632,14 @@ def phase_int8_stream(qmodels, card: str) -> dict:
     for dt, m in qmodels.items():
         m.model.score_thresh, m.model.pre_nms_topk = SERVING["score_thresh"], SERVING["pre_nms_topk"]
         pipe = StreamingPipeline(m.model, batch_size=STREAM_BATCH, input_hw=RUNTIME_HW, dtype=dt)
-        reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         res = list(pipe.run(fr))
         sec = time.perf_counter() - t0
-        counts = launch_counts()
+        counts = launch_counts(f"int8 stream {dt}")
         want = {k: n * batches for k, n in {**DEFAULT_PER_BATCH, "qconv1x1": 42,
                                             "qconv_kxk": 18}.items()}
-        if {k: n for k, n in counts.items() if n} != want or len(res) != INT8_STREAM_FRAMES:
+        if {k: n for k, n in tpu(counts).items() if n} != want or len(res) != INT8_STREAM_FRAMES:
             raise AssertionError(f"int8 stream {dt}: {len(res)} results, launches {counts}, "
                                  f"want {want}")
         for k, n in counts.items():
@@ -3532,9 +3677,8 @@ def phase_ir(models, card: str) -> dict:
     costs = cost_analysis(module, raw)
     dot = GraphVisualizer(module, raw).to_dot(max_nodes=10_000)
     nodes = sum(1 for line in dot.splitlines() if "[label=" in line)
-    from yolort_tpu_torch.ops.cuda import reset_launch_counts
 
-    reset_launch_counts()
+    reset_counts()
     print(f"[ir] yolov5s pipeline @640 batch 1: cost_analysis {costs['flops'] / 1e9:.2f} GFLOP, "
           f"{costs['bytes accessed'] / 1e6:.1f} MB accessed; dot of the exported graph {nodes} "
           f"nodes; graph ops {graph_ops(ep)} | {card}", flush=True)
@@ -3634,7 +3778,6 @@ def _phase_parallel(device, card: str, times: dict) -> dict:
     from yolort_tpu_torch import YOLOv5
     from yolort_tpu_torch.data._helper import create_synthetic_coco
     from yolort_tpu_torch.data.data_module import DetectionDataModule
-    from yolort_tpu_torch.ops.cuda import reset_launch_counts
     from yolort_tpu_torch.parallel import data_parallel_infer, make_mesh, replicate
     from yolort_tpu_torch.tools import convert_yolov5_to_yolort, detect, eval_metric
     from yolort_tpu_torch.trainer.fit import evaluate, fit
@@ -3656,10 +3799,10 @@ def _phase_parallel(device, card: str, times: dict) -> dict:
         images = canvas.cpu()  # the global batch, as every rank holds it
         infer = data_parallel_infer(replicate(mesh, yolo), mesh)
         infer(images)
-        reset_launch_counts()
+        reset_counts()
         det = infer(images)
-        counts = launch_counts()
-        if {k: n for k, n in counts.items() if n} != DEFAULT_PER_BATCH:
+        counts = launch_counts("data_parallel_infer")
+        if {k: n for k, n in tpu(counts).items() if n} != DEFAULT_PER_BATCH:
             raise AssertionError(f"data_parallel_infer: launches {counts}")
         with torch.no_grad():
             want = yolo(canvas)
@@ -3699,12 +3842,13 @@ def _phase_parallel(device, card: str, times: dict) -> dict:
         task = DefaultTask(model, total_steps=TRAIN_EPOCHS_MESH * steps, warmup_steps=1,
                            **TRAIN_CFG)
         state = TrainState(model, *task.make_optimizer())
-        reset_launch_counts()
+        reset_counts()
         state = fit(task, train, val, max_epochs=TRAIN_EPOCHS_MESH, use_ema=True, mesh=mesh,
                     print_freq=steps, state=state, checkpoint_path=f"{tmp}/ema.npz")
-        counts = launch_counts()
-        want_n = {k: DEFAULT_PER_BATCH.get(k, 0) * len(val) * TRAIN_EPOCHS_MESH for k in counts}
-        if counts != want_n or state.step != TRAIN_EPOCHS_MESH * steps:
+        counts = launch_counts("fit on the mesh")
+        want_n = {k: DEFAULT_PER_BATCH.get(k, 0) * len(val) * TRAIN_EPOCHS_MESH
+                  for k in TPU_KERNELS}
+        if tpu(counts) != want_n or state.step != TRAIN_EPOCHS_MESH * steps:
             raise AssertionError(f"fit on the mesh: {state.step} steps, launches {counts}, "
                                  f"want {want_n}")
         out["fit_mesh"] = counts
@@ -3733,26 +3877,27 @@ def _phase_parallel(device, card: str, times: dict) -> dict:
         npz = convert_yolov5_to_yolort.cli_main(["--checkpoint_path", pt, "--output_path", tmp])
         img_dir, ann = create_synthetic_coco(f"{tmp}/coco", num_images=12, num_classes=80, seed=5,
                                              image_hw=(480, 640))
-        reset_launch_counts()
+        reset_counts()
         res = eval_metric.cli_main([
             "--checkpoint_path", npz, "--arch", "yolov5_darknet_pan_s_r60", "--image_path",
             str(img_dir), "--annotation_path", str(ann), "--batch_size", "8", "--image_size",
             "640", "--device", "cuda"])
-        counts = launch_counts()
+        counts = launch_counts("eval_metric")
         n_batches = 2  # 12 images at batch 8: the second padded
-        if counts != {k: DEFAULT_PER_BATCH.get(k, 0) * n_batches for k in counts} or not all(
+        if tpu(counts) != {k: DEFAULT_PER_BATCH.get(k, 0) * n_batches for k in TPU_KERNELS} or not all(
                 np.isfinite(v) or np.isnan(v) for v in res.values()):
             raise AssertionError(f"eval_metric: launches {counts}, results {res}")
         out["eval_metric"] = counts
         t1 = time.perf_counter()
-        reset_launch_counts()
+        reset_counts()
         results = detect.cli_main(["--source", str(img_dir), "--checkpoint_path", pt,
                                    "--score_thresh", "0.25", "--save_dir", f"{tmp}/detect",
                                    "--device", "cuda"])
-        counts = launch_counts()
+        counts = launch_counts("detect")
         rendered = len(os.listdir(f"{tmp}/detect"))
         # detect serves the frames as one batch a size: here one size
-        if counts != {k: DEFAULT_PER_BATCH.get(k, 0) for k in counts} or len(results) != 12 \
+        if tpu(counts) != {k: DEFAULT_PER_BATCH.get(k, 0) for k in TPU_KERNELS} \
+                or len(results) != 12 \
                 or rendered != 12:
             raise AssertionError(f"detect: launches {counts}, {len(results)} results, "
                                  f"{rendered} rendered")
@@ -3787,8 +3932,10 @@ PROFILE_PREFIXES = (
     ("+ box gather + NMS + compact", {"nms_mask": 1}),
 )
 # the tool's other rows: the network alone, the decoded path, the pipeline
-PROFILE_ROWS = {"backbone+pan+head": {}, "+decode": {},
-                "postprocess": FLATTEN_KERNELS[DEFAULT_ROUTE], "full pipeline": DEFAULT_PER_BATCH}
+# (the network's rows bias_act once a biased conv of the r6.0 network)
+PROFILE_ROWS = {"backbone+pan+head": {EPILOGUE: R60_CONVS}, "+decode": {EPILOGUE: R60_CONVS},
+                "postprocess": FLATTEN_KERNELS[DEFAULT_ROUTE],
+                "full pipeline": {**DEFAULT_PER_BATCH, EPILOGUE: R60_CONVS}}
 SERVING_KERNELS = ("cells_stage1_kernel", "bisect_count_kernel", "row_fetch_kernel",
                    "nms_mask_kernel")
 
@@ -3866,7 +4013,6 @@ def _phase_pretrained(tmp: str, device, card: str):
     import yolort_tpu_torch
     from yolort_tpu_torch import YOLOv5
     from yolort_tpu_torch.models._checkpoint import convert_yolov5_checkpoint
-    from yolort_tpu_torch.ops.cuda import reset_launch_counts
     from yolort_tpu_torch.utils.robustness import PRETRAINED_REGISTRY
 
     pt, _ = fabricate(tmp, "s r6.0", dict(dm=0.33, wm=0.5))
@@ -3886,10 +4032,10 @@ def _phase_pretrained(tmp: str, device, card: str):
         if m.device != device or next(m.model.parameters()).device != device:
             raise AssertionError(f"pretrained ({form}): the model is not on {device}")
         m(raw)
-        reset_launch_counts()
+        reset_counts()
         got = m(raw)
-        counts = launch_counts()
-        if {k: n for k, n in counts.items() if n} != DEFAULT_PER_BATCH:
+        counts = launch_counts(f"pretrained ({form})")
+        if {k: n for k, n in tpu(counts).items() if n} != DEFAULT_PER_BATCH:
             raise AssertionError(f"pretrained ({form}): launches {counts}")
         if not all(np.array_equal(x[key], y[key]) for x, y in zip(got, want)
                    for key in ("boxes", "scores", "labels")):
@@ -3947,21 +4093,20 @@ def _phase_profile_stages(device, card: str) -> dict:
                   + "; ".join(f"{r['label']} {r['ms']:.3f} / {r['min_ms']:.3f}" for r in rows)
                   + f"; {rows[-1]['images_per_s']:.1f} images/s; every prefix's launches exact, "
                   f"the last bit-equal | {card}", flush=True)
-    return {k: launches.get(k, 0) for k in TPU_KERNELS}
+    return {k: launches.get(k, 0) for k in (*TPU_KERNELS, *PORT_KERNELS)}
 
 
 def _phase_regression(tmp: str, device, card: str) -> dict:
     """(c); returns the selftest's launches."""
-    from yolort_tpu_torch.ops.cuda import reset_launch_counts
     from yolort_tpu_torch.tools import regression
 
-    reset_launch_counts()
+    reset_counts()
     report = regression.cli_main(["--selftest", "--selftest-dir", f"{tmp}/selftest",
                                   "--device", str(device)])
-    counts = launch_counts()
+    counts = launch_counts("regression --selftest")
     batches = 4  # two passes over 8 images at batch 4
-    want = {k: DEFAULT_PER_BATCH.get(k, 0) * batches for k in counts}
-    if report["bit_parity"] != "exact" or report["map_floor"] != "pass" or counts != want:
+    want = {k: DEFAULT_PER_BATCH.get(k, 0) * batches for k in TPU_KERNELS}
+    if report["bit_parity"] != "exact" or report["map_floor"] != "pass" or tpu(counts) != want:
         raise AssertionError(f"regression --selftest: {report}, launches {counts}, want {want}")
     print(f"[last] regression --selftest on the card: bit_parity {report['bit_parity']}, "
           f"map_floor {report['map_floor']}, AP {report['metrics']['AP']} AP50 "
@@ -3976,7 +4121,6 @@ def _phase_taps(m, path: str, device, card: str) -> None:
     import torch
 
     from yolort_tpu_torch import YOLOv5
-    from yolort_tpu_torch.ops.cuda import reset_launch_counts
     from yolort_tpu_torch.utils.hooks import FeatureExtractor
 
     cpu = YOLOv5.load_from_yolov5(path, device="cpu", **SERVING)
@@ -3998,10 +4142,10 @@ def _phase_taps(m, path: str, device, card: str) -> None:
     if any(mod._forward_hooks for mod in m.model.modules()):
         raise AssertionError("FeatureExtractor left a hook on the model")
     raw = frames(61, LAST_BATCH, LAST_SIZE, LAST_SIZE)
-    reset_launch_counts()
+    reset_counts()
     m(raw)
-    counts = launch_counts()
-    if {k: n for k, n in counts.items() if n} != DEFAULT_PER_BATCH:
+    counts = launch_counts("after FeatureExtractor")
+    if {k: n for k, n in tpu(counts).items() if n} != DEFAULT_PER_BATCH:
         raise AssertionError(f"after FeatureExtractor: launches {counts}")
     print(f"[last] FeatureExtractor on the card: {len(got)} taps ({', '.join(got)}), card vs "
           f"CPU within {worst:.2e} of each tap's largest value (bound 1e-3); no hook left, the "
@@ -4041,6 +4185,7 @@ def main() -> int:
     from yolort_tpu_torch import YOLOv5
 
     device = torch.device("cuda", 0)
+    NETWORK.install()
     t0 = time.perf_counter()
 
     def done(phase: str) -> None:
@@ -4053,6 +4198,7 @@ def main() -> int:
     for name, r in phase_postprocess_kernels(device, card).items():
         res.setdefault(name, {}).update(r)
     res.update(phase_sweep_kernels(device, card))
+    res.update(phase_epilogue_kernel(device, card))
     for name, extra in (*phase_p6_kernels(device, card).items(),
                         *phase_zoo_kernels(device, card).items()):
         res[name].update(extra)
@@ -4148,8 +4294,8 @@ def main() -> int:
              **phase_entry_points()}
     done("entry points")
     kernels = []
-    for name, (source, replaces) in TPU_KERNELS.items():
-        by_path = {path: counts[name] for path, counts in paths.items()}
+    for name, (source, replaces) in {**TPU_KERNELS, **PORT_KERNELS}.items():
+        by_path = {path: counts.get(name, 0) for path, counts in paths.items()}
         per_batch = {route: n[name] for route, n in sl["per_batch"].items() if name in n}
         r = {k: v for k, v in res[name].items() if k != "shapes"}
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,

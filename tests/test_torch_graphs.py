@@ -8,7 +8,8 @@
 - The rule and the cache on stand-ins (a CUDA-like input, a capture that
   runs the function once and counts its replays): grad on, ``training``,
   a ``TransformerBlock`` or a forward hook keeps the call eager; a key's
-  first call runs eagerly, its second captures, later ones replay; at most
+  first call runs eagerly, its second captures, later ones replay; a graph
+  captured under ``inference_mode`` replays only there; at most
   ``MAX_GRAPHS`` graphs, the least recently used dropped; a weight moved,
   a dtype changed, a parameter or a layer added drops them, and a module
   built elsewhere or an update in place does not; ``borrow()`` hands out
@@ -18,7 +19,8 @@
 - On the card (``cuda`` marker; skips without one): detections from a
   replay equal the eager ones bit for bit (f32 480x640 batch 32, bf16 P6
   768x1280 batch 8, int8); one capture and then replays, a new batch size
-  capturing anew; a TAN model stays eager with its attention span; eight
+  capturing anew; a ``no_grad`` call after an ``inference_mode`` capture
+  runs and matches; a TAN model stays eager with its attention span; eight
   threads sharing an instance each get their own detections:
 
     python -m pytest --noconftest tests/test_torch_graphs.py -m cuda
@@ -164,6 +166,20 @@ def test_a_key_runs_eagerly_first_then_captures_then_replays(stand_in):
     assert values == {graphs.REPLAYED: [0, 1, 1, 1], graphs.CAPTURED: [1]}
     run_n(cache, net, fn, CudaLike((3, 8, 8, 3)), 2)  # another batch size: its own graph
     assert len(cache) == 2 and len(StandIn.made) == 2
+
+
+def test_a_graph_captured_in_inference_mode_replays_only_there(stand_in):
+    """A graph captured under ``inference_mode`` holds inference tensors,
+    which a ``no_grad`` call may not write: that call gets a key of its own."""
+    cache, net, fn, calls = stand_in
+    x = CudaLike()
+    with torch.inference_mode():
+        [cache.run(net, fn, x) for _ in range(3)]
+    run_n(cache, net, fn, x, 3)
+    with torch.inference_mode():
+        cache.run(net, fn, x)
+    assert len(calls) == 4 and len(cache) == 2
+    assert [g.replays for g in StandIn.made] == [2, 1]
 
 
 @pytest.mark.parametrize("why", ["grad", "training", "transformer", "hook", "cpu"])
@@ -354,6 +370,21 @@ def test_one_capture_then_replays_and_a_new_batch_size_captures_anew(cuda_device
         for j, d in enumerate(out):
             n = int(want.num[j])
             assert np.array_equal(d["scores"], want.scores[j, :n].float().cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_a_no_grad_call_after_an_inference_mode_capture_runs_and_matches(cuda_device):
+    """A graph captured under ``inference_mode`` is not replayed by a
+    ``no_grad`` call of the same shape, whose input it could not take."""
+    m = tiny(cuda_device)
+    canvas = m.canvas(torch.from_numpy(np.stack(frames(3, [(72, 96)] * 2))).to(cuda_device))[0]
+    with torch.inference_mode():
+        want = [o.clone() for o in m.model._network(canvas)]
+        [m.model.head_outputs(canvas) for _ in range(3)]
+    with torch.no_grad():
+        got = [m.model.head_outputs(canvas.clone()) for _ in range(3)]
+    assert len(m.model._graphs) == 2
+    assert all(torch.equal(a, b) for g in got for a, b in zip(g, want))
 
 
 @pytest.mark.cuda

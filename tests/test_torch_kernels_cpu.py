@@ -18,7 +18,7 @@ import torch
 
 import yolort_tpu_torch
 from yolort_tpu_torch.ops.cuda import (
-    KERNELS, _build, bisect_count, bisect_count_reference, compact_place, compact_place_reference,
+    KERNELS, _build, bias_act, bisect_count, bisect_count_reference, compact_place, compact_place_reference,
     fused_cells_stage1, fused_cells_stage1_reference, lookup_fetch, lookup_fetch_reference,
     lookup_fetch_variant, lookup_fetch_variant_reference, nms_mask, nms_mask_reference, qconv,
     qconv1x1, qconv1x1_reference, qconv_grouped, qconv_grouped_reference, qconv_kxk,
@@ -1102,6 +1102,8 @@ def test_every_kernel_counts_its_launches(cuda_device):
     _, ptable, _, _, _, off = _postprocess_inputs(cuda_device)
     calls[lookup_fetch_variant] = lambda: lookup_fetch_variant(ptable, off, 700, "no_boundary")
     calls[row_fetch_p] = lambda: row_fetch_p(table, idx, 4, 2)
+    y = torch.randn(2, 24, 5, 7, device=cuda_device).contiguous(memory_format=torch.channels_last)
+    calls[bias_act] = lambda: bias_act(y, torch.randn(24, device=cuda_device), "silu")
     assert set(calls) == set(KERNELS)
     reset_launch_counts()
     for i, fn in enumerate(KERNELS):

@@ -6,12 +6,14 @@ skips without one), JAX-free:
 - ``yolov5n(pretrained=True)`` from a weights directory holding a
   fabricated checkpoint (``.pt``, then the ``.npz`` of it) serves on the
   card with detections bit-equal to ``YOLOv5.load_from_yolov5`` of the
-  same file, and the route's exact launches;
+  same file, and the route's exact launches (with ``bias_act`` once a
+  biased conv);
 - ``tools/profile_stages`` on the card: each cell-path prefix launches
   exactly its stages' kernels (fused_cells_stage1 1; bisect_count 1; then
   bisect_count 2 and the route's fetch kernel 1; then nms_mask 1), the
   decoded postprocess bisect_count 2, fetch 2, nms_mask 1, the full
-  pipeline the route's four kernels, and the last prefix's detections are
+  pipeline the route's four kernels and ``bias_act`` once a biased conv
+  of the network, and the last prefix's detections are
   bit-equal to ``batched_postprocess_from_heads``'.
 """
 
@@ -22,6 +24,7 @@ import torch
 from torch_fixture import make_checkpoint
 from yolort_tpu_torch import YOLOv5, yolov5n
 from yolort_tpu_torch.models._checkpoint import convert_yolov5_checkpoint
+from yolort_tpu_torch.ops import blocks
 from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 from yolort_tpu_torch.tools import profile_stages
 
@@ -29,6 +32,9 @@ ARCH = "yolov5_darknet_pan_n_r60"
 ROUTES = ("pallas_bisect", "pallas_lookup", "pallas_full")
 FETCH = {"pallas_bisect": "row_fetch", "pallas_lookup": "lookup_fetch",
          "pallas_full": "select_extract"}
+# the biased float convs of a fused r6.0 network (profile_stages' default
+# arch), each one bias_act launch a forward on the card
+R60_CONVS = 60
 
 
 @pytest.fixture
@@ -66,7 +72,7 @@ def test_pretrained_on_the_card_equals_load_from_yolov5(cuda_device, tmp_path, m
     reset_launch_counts()
     got = got_m(frames)
     assert launches() == {"fused_cells_stage1": 1, "nms_mask": 1, "bisect_count": 2,
-                          "row_fetch": 1}
+                          "row_fetch": 1, "bias_act": blocks.biased_float_convs(got_m.model)}
     want = want_m(frames)
     for g, w in zip(got, want):
         assert len(g["boxes"]) > 0
@@ -93,7 +99,7 @@ def test_profile_stages_prefix_launches_on_the_card(cuda_device, route):
         "+ seg extract + box decode": s1_select,
         "+ stage-2 pair select": s2,
         "+ box gather + NMS + compact": {**s2, "nms_mask": 1},
-        "full pipeline": {**s2, "nms_mask": 1},
+        "full pipeline": {**s2, "nms_mask": 1, "bias_act": R60_CONVS},
     }
     assert rows[-2]["bit_equal"] is True
     assert all(r["ms"] > 0 for r in rows)

@@ -42,6 +42,7 @@ import yolort_tpu_torch
 from yolort_tpu_torch.models.ensemble import Ensemble
 from yolort_tpu_torch.models.yolov5 import YOLOv5
 from yolort_tpu_torch.ops import nms as TN
+from yolort_tpu_torch.ops.blocks import biased_float_convs
 from yolort_tpu_torch.utils import profiling
 from yolort_tpu_torch.utils.profiling import shift_head_bias
 
@@ -62,7 +63,8 @@ CHILDREN = ["stack", "stack", "upload", "letterbox", "network", "postprocess", "
             "readback"]
 LAUNCHING = {"letterbox", "network", "postprocess", "cells", "select", "nms"}
 BOTH_READERS = ["stack_ms", "readback_ms", "network_host_ms", "postprocess_host_ms",
-                "idle_launch_ms", "idle_between_ms", "nms_yield", "staging_reuse", "graph_replay"]
+                "idle_launch_ms", "idle_between_ms", "nms_yield", "staging_reuse", "graph_replay",
+                "epilogue_fused"]
 BATCH_READERS = BOTH_READERS + ["select_ms", "nms_ms"]
 NEW_READERS = ([f"{n}.batch" for n in BATCH_READERS]
                + [f"{n}.stream" for n in BOTH_READERS])
@@ -133,13 +135,19 @@ def test_each_call_gives_one_request_with_its_spans_nested(served):
         counts = [e for e in events if e[0].startswith("yolort_tpu::count.")
                   and req[1] <= e[1] <= req[2]]
         readback = next(e for e in inside if e[0] == "yolort_tpu::span.readback")
-        held = [c for c in counts if short(c[0]) != "graph_replayed"]
+        network = ("graph_replayed", "epilogue_fused", "epilogue_plain")
+        held = [c for c in counts if short(c[0]) not in network]
         assert [short(c[0]) for c in held] == ["candidates", "kept"]
         assert all(parent_of(events, c) is readback for c in held)
-        # one graph_replayed a network run (an Ensemble runs two), 0 on the CPU, in span network
-        replayed = [c for c in counts if short(c[0]) == "graph_replayed"]
-        assert len(replayed) == (2 if isinstance(m.model, Ensemble) else 1)
-        assert all(short(parent_of(events, c)[0]) == "network" and c[3] == [0] for c in replayed)
+        # one of each network count a network run (an Ensemble runs two), in span network: on
+        # the CPU no replay, and every biased float conv's epilogue ATen's
+        runs = 2 if isinstance(m.model, Ensemble) else 1
+        for name in network:
+            found = [c for c in counts if short(c[0]) == name]
+            assert len(found) == runs
+            assert all(short(parent_of(events, c)[0]) == "network" for c in found)
+            total = sum(c[3][0] for c in found)
+            assert total == (biased_float_convs(m.model) if name == "epilogue_plain" else 0)
 
 
 def test_spans_and_counters_are_cpu_ops_in_the_chrome_trace(tmp_path):
@@ -259,11 +267,12 @@ class Ev:
         return self._inputs
 
 
-def request_events(t, corr, program=True, grown=False, replayed=1):
+def request_events(t, corr, program=True, grown=False, replayed=1, fused=(60, 0)):
     """One call at ``t`` us: the benchmark's spans, the program's, launches
     and their device work (one kernel launched in each layer); the staging
     arena grown in its ``stack`` where ``grown``; the network's
-    ``graph_replayed`` count ``replayed``."""
+    ``graph_replayed`` count ``replayed`` and its ``epilogue_fused`` /
+    ``epilogue_plain`` counts ``fused``."""
     def launch(at, start, end, name="kernel", api="cudaLaunchKernel"):
         nonlocal corr
         corr += 1
@@ -286,14 +295,16 @@ def request_events(t, corr, program=True, grown=False, replayed=1):
         evs += [Ev("yolort_tpu::count.staged", t + 11, t + 11, inputs=[1]),
                 Ev("yolort_tpu::count.candidates", t + 96, t + 96, inputs=[50]),
                 Ev("yolort_tpu::count.kept", t + 97, t + 97, inputs=[20]),
-                Ev("yolort_tpu::count.graph_replayed", t + 31, t + 31, inputs=[replayed])]
+                Ev("yolort_tpu::count.graph_replayed", t + 31, t + 31, inputs=[replayed]),
+                Ev("yolort_tpu::count.epilogue_fused", t + 59, t + 59, inputs=[fused[0]]),
+                Ev("yolort_tpu::count.epilogue_plain", t + 59, t + 59, inputs=[fused[1]])]
         if grown:
             evs.append(Ev("yolort_tpu::count.staging_grown", t + 5, t + 5, inputs=[1]))
     return evs
 
 
 def hand_run(program=True, device=True, counts=True):
-    evs = (request_events(0, 0, program, grown=True, replayed=0)
+    evs = (request_events(0, 0, program, grown=True, replayed=0, fused=(45, 15))
            + request_events(100, 100, program))
     if not device:
         evs = [e for e in evs if not e._cuda]
@@ -328,8 +339,9 @@ def test_each_reader_reads_its_known_value(name):
     run = hand_run()
     base = name.split(".")[0]
     # two groups staged, the arena grown for one of them; the first call eager, the second
-    # a replay
-    want = {"nms_yield": 40.0, "staging_reuse": 50.0, "graph_replay": 50.0, **WANT_MS}[base]
+    # a replay; 45 of 60 biased convs fused, then all 60
+    want = {"nms_yield": 40.0, "staging_reuse": 50.0, "graph_replay": 50.0,
+            "epilogue_fused": 87.5, **WANT_MS}[base]
     assert read(name, run) == pytest.approx(want, rel=1e-9)
 
 
@@ -353,6 +365,17 @@ def test_readers_give_none_without_device_events_or_program_spans(name):
 def test_graph_replay_reads_none_without_its_counter(name):
     """A program that counts no ``graph_replayed`` (the parent's) reads None."""
     assert read(name, hand_run(counts=False)) is None
+
+
+@pytest.mark.parametrize("name", ["epilogue_fused.batch", "epilogue_fused.stream"])
+def test_epilogue_fused_reads_none_without_its_counters(name):
+    """A program that counts no epilogue (the parent's) reads None, and so
+    does a window whose calls counted no biased conv."""
+    assert read(name, hand_run(counts=False)) is None
+    evs = request_events(0, 0, fused=(0, 0))
+    prof = SimpleNamespace(profiler=SimpleNamespace(kineto_results=SimpleNamespace(
+        events=lambda: evs)))
+    assert read(name, SimpleNamespace(trace=parse(prof), batches=1)) is None
 
 
 def test_program_spans_leave_the_benchmarks_own_metrics_as_they_were():

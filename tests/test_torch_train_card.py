@@ -136,6 +136,7 @@ def test_data_parallel_infer_on_nccl_world_of_one(cuda_device, start):
     deterministic from run to run)."""
     import torch.distributed as dist
 
+    from yolort_tpu_torch.ops import blocks
     from yolort_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
     from yolort_tpu_torch.parallel import (
         data_parallel_infer, data_parallel_train_step, make_mesh, replicate,
@@ -153,7 +154,8 @@ def test_data_parallel_infer_on_nccl_world_of_one(cuda_device, start):
         got = infer(images)
         torch.cuda.synchronize()
         assert {fn.__name__: fn.launches for fn in KERNELS if fn.launches} == {
-            "fused_cells_stage1": 1, "bisect_count": 2, "row_fetch": 1, "nms_mask": 1}
+            "fused_cells_stage1": 1, "bisect_count": 2, "row_fetch": 1, "nms_mask": 1,
+            "bias_act": blocks.biased_float_convs(model)}
         with torch.no_grad():
             want = model(images.to(cuda_device))
         for g, w in zip(got, want):

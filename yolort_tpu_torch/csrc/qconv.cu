@@ -81,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act.cuh"
+
 namespace {
 
 constexpr int kBK = 64;             // K bytes per pipeline stage: two m16n8k32 steps
@@ -88,8 +90,6 @@ constexpr int kStages = 4;          // depth of the cp.async ring
 constexpr int kChunks = kBK / 16;   // 16-byte chunks per stage row
 constexpr int kOutPad = 16;         // bytes added to each staged output row
 
-// the activation codes of qconv_kernel.ACTS
-enum Act { kActNone = 0, kActSilu = 1, kActHardswish = 2, kActLeakyRelu = 3, kActRelu = 4 };
 enum OutKind { kOutInt8 = 0, kOutF32 = 1, kOutBf16 = 2 };
 
 struct Shape {
@@ -169,30 +169,13 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float silu_rn(float y) {
-  const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y)));
-  return __fmul_rn(y, sig);
-}
-
-// y * clip(y + 3, 0, 6) * (1/6), rounded an operation at a time in that
-// order, with 1/6 the float32 constant (the JAX package's hardswish)
-__device__ __forceinline__ float hardswish_rn(float y) {
-  const float c = fminf(fmaxf(__fadd_rn(y, 3.0f), 0.0f), 6.0f);
-  return __fmul_rn(__fmul_rn(y, c), 1.0f / 6.0f);
-}
-
-// where(y >= 0, y, 0.1 * y), 0.1 the float32 constant
-__device__ __forceinline__ float leaky_relu_rn(float y) {
-  return y >= 0.0f ? y : __fmul_rn(0.1f, y);
-}
-
 __device__ __forceinline__ float epilogue_value(int acc, float sc, float bi, int act) {
   float y = __fadd_rn(__fmul_rn(__int2float_rn(acc), sc), bi);
   switch (act) {
     case kActSilu: return silu_rn(y);
     case kActHardswish: return hardswish_rn(y);
     case kActLeakyRelu: return leaky_relu_rn(y);
-    case kActRelu: return fmaxf(y, 0.0f);  // max(y, 0) after the rounded multiply-add
+    case kActRelu: return relu_rn(y);
     default: return y;
   }
 }

@@ -27,7 +27,7 @@ from yolort_tpu_torch.ops.nms import (
     Detections, batched_postprocess, batched_postprocess_from_heads,
 )
 from yolort_tpu_torch.utils.graphs import GraphCache
-from yolort_tpu_torch.utils.profiling import span
+from yolort_tpu_torch.utils.profiling import count, recording, span
 
 
 def resolve_device(device) -> torch.device:
@@ -129,8 +129,20 @@ class Detector(nn.Module):
         grad off, from a shape's second call on, a replay of the network's
         CUDA graph (``utils/graphs.py``), the eager outputs bit for bit:
         inside ``forward`` and ``decode`` the graph's own output tensors,
-        elsewhere copies of them."""
-        return self._graphs.run(self, self._network, images)
+        elsewhere copies of them.
+
+        Counters while the profiler records: ``epilogue_fused`` and
+        ``epilogue_plain``, the network's biased float convs whose bias
+        and activation the ``bias_act`` kernel applies at this call, and
+        the rest (``blocks.fused_epilogue`` on the images decides for
+        every conv of the network), on a replay as on an eager call."""
+        outs = self._graphs.run(self, self._network, images)
+        if recording():
+            n = blocks.biased_float_convs(self)
+            fused = n if blocks.fused_epilogue(images) else 0
+            count("epilogue_fused", fused)
+            count("epilogue_plain", n - fused)
+        return outs
 
     def _network(self, images: torch.Tensor) -> List[torch.Tensor]:
         return self.head(self.features(images))

@@ -1,6 +1,6 @@
 """YOLOv5 building blocks as ``nn.Module``s, float and int8 paths.
 
-Port of ``yolort_tpu/ops/blocks.py`` (the activations, ``fuse_conv_bn``,
+Port of ``yolort_tpu/ops/blocks.py`` (``hardsigmoid``, ``fuse_conv_bn``,
 Conv, Conv2dOnly, BatchNorm, Bottleneck, C3, BottleneckCSP, SPP/SPPF,
 ``space_to_depth``, Focus, Linear, TransformerLayer, TransformerBlock,
 C3TR, ``max_pool_same``, ``upsample2x``, the Ghost blocks (DWConv,
@@ -9,7 +9,9 @@ the MobileNetV3 blocks (SqueezeExcite, InvertedResidual), and the
 int8-compute glue:
 ``QTensor``, ``_as_float``, ``_qconcat``, ``_qadd``; the JAX
 ``_quantize_input`` and ``_requantize`` are ``quantize_int8`` of the qconv
-module, whose kernel epilogue does the requantize).
+module, whose kernel epilogue does the requantize).  The other
+activations are ``ACTS`` of ``ops/cuda/epilogue_kernel.py``, the plain
+versions of the float convs' epilogue kernel (``fused_epilogue``).
 Activations are NCHW in ``channels_last`` memory; weights are OIHW.  Child
 names mirror the JAX params tree (``cv1``, ``m.0``, ...), so
 ``models/_bridge.py`` loads a JAX tree by walking it.
@@ -43,7 +45,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from yolort_tpu_torch.ops.cuda.epilogue_kernel import ACTS, KINDS, bias_act_, leaky_relu01, relu
 from yolort_tpu_torch.ops.cuda.qconv_kernel import pack_weight, qconv, quantize_int8
+from yolort_tpu_torch.utils.graphs import eager_on_card
 from yolort_tpu_torch.utils.profiling import count, span
 
 # BatchNorm epsilon of the model zoo (as in the JAX package)
@@ -55,31 +59,10 @@ def autopad(k: int, p: Optional[int] = None) -> int:
     return k // 2 if p is None else p
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    return F.silu(x)
-
-
-def hardswish(x: torch.Tensor) -> torch.Tensor:
-    """x * relu6(x + 3) / 6, written as the JAX package computes it."""
-    return x * torch.clamp(x + 3.0, 0.0, 6.0) * (1.0 / 6.0)
-
-
-def leaky_relu01(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(x >= 0, x, 0.1 * x)
-
-
-def relu(x: torch.Tensor) -> torch.Tensor:
-    return F.relu(x)
-
-
 def hardsigmoid(x: torch.Tensor) -> torch.Tensor:
     """clip(x / 6 + 0.5, 0, 1), as the JAX package computes it (not
     ``F.hardsigmoid``'s relu6(x + 3) / 6, which rounds differently)."""
     return torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
-
-
-ACTS = {"silu": silu, "hardswish": hardswish, "leaky_relu": leaky_relu01, "relu": relu,
-        "none": lambda x: x}
 
 
 def act_for_version(version: str) -> str:
@@ -270,6 +253,42 @@ class _Int8Conv:
         return y if os is None else QTensor(y, os, ft)
 
 
+def fused_epilogue(x: torch.Tensor) -> bool:
+    """Whether a float conv with a bias, on input ``x``, adds the bias and
+    applies its activation with the ``bias_act`` kernel, in place on the
+    conv's output, rather than as ATen does (the bias passed to the conv,
+    which cuDNN adds in a pass of its own, then the activation): ``x`` of a
+    dtype the kernel stores (``KINDS``), ``eager_on_card`` (grad off,
+    nothing tracing, exporting or intercepting: an exported or traced
+    program keeps ATen's conv, add and activation), cuDNN on.  It reads the
+    call alone, so a network's input decides for all of its convs."""
+    return x.dtype in KINDS and eager_on_card(x) and torch._C._get_cudnn_enabled()
+
+
+def _conv_bias_act(x, weight, bias, s, pad, g, act: str):
+    """act(conv(x) + bias): where ``fused_epilogue`` holds, the conv without
+    its bias, then ``bias_act_`` in place on its output (``channels_last``,
+    as the networks hold their activations: an output in another layout is
+    copied first); elsewhere ATen's conv with the bias, then
+    ``ACTS[act]``."""
+    if fused_epilogue(x):
+        y = F.conv2d(x, weight, None, s, pad, 1, g)
+        return bias_act_(y.contiguous(memory_format=torch.channels_last), bias, act)
+    return ACTS[act](F.conv2d(x, weight, bias, s, pad, 1, g))
+
+
+def biased_float_convs(module: nn.Module) -> int:
+    """The float Conv / Conv2dOnly layers of ``module`` with a bias: those
+    whose epilogue ``fused_epilogue`` decides."""
+    n, todo = 0, [module]
+    while todo:
+        m = todo.pop()
+        if isinstance(m, _Int8Conv) and not m.quantized and m._parameters.get("bias") is not None:
+            n += 1
+        todo += (c for c in m._modules.values() if c is not None)
+    return n
+
+
 class Conv2dOnly(_Int8Conv, nn.Module):
     """Bare conv with optional bias (the detection-head 1x1 convs)."""
 
@@ -297,7 +316,10 @@ class Conv2dOnly(_Int8Conv, nn.Module):
     def forward(self, x):
         if self.quantized:
             return self._forward_int8(x, "none")
-        return F.conv2d(_as_float(x), self.weight, self.bias, self.s, self.pad, 1, self.g)
+        x = _as_float(x)
+        if self.bias is None:
+            return F.conv2d(x, self.weight, None, self.s, self.pad, 1, self.g)
+        return _conv_bias_act(x, self.weight, self.bias, self.s, self.pad, self.g, "none")
 
 
 class Conv(_Int8Conv, nn.Module):
@@ -347,7 +369,7 @@ class Conv(_Int8Conv, nn.Module):
             return self._forward_int8(x, self.act)
         x = _as_float(x)
         if self.bias is not None:
-            return ACTS[self.act](F.conv2d(x, self.weight, self.bias, self.s, self.pad, 1, self.g))
+            return _conv_bias_act(x, self.weight, self.bias, self.s, self.pad, self.g, self.act)
         y = F.conv2d(x, self.weight, None, self.s, self.pad, 1, self.g)
         return ACTS[self.act](_batch_norm(y, self.gamma, self.beta, self.mean, self.var))
 

@@ -11,6 +11,11 @@ from yolort_tpu_torch.ops.cuda.compact_kernel import (  # noqa: F401
     compact_place,
     compact_place_reference,
 )
+from yolort_tpu_torch.ops.cuda.epilogue_kernel import (  # noqa: F401
+    bias_act,
+    bias_act_,
+    bias_act_reference,
+)
 from yolort_tpu_torch.ops.cuda.lookup_kernel import (  # noqa: F401
     bisect_count,
     bisect_count_reference,
@@ -39,9 +44,12 @@ from yolort_tpu_torch.ops.cuda.stage1_kernel import (  # noqa: F401
     fused_cells_stage1_reference,
 )
 
+# every hand-written kernel, each counting its launches: the counterparts
+# of the TPU kernels, then the float convs' epilogue, which no TPU kernel
+# had (a float network on the card launches it once a biased conv)
 KERNELS = (nms_mask, bisect_count, row_fetch, qconv1x1, qconv_kxk, qconv_grouped,
            fused_cells_stage1, lookup_fetch, select_extract, compact_place, lookup_fetch_variant,
-           row_fetch_p)
+           row_fetch_p, bias_act)
 
 
 def reset_launch_counts() -> None:

@@ -23,11 +23,11 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "yolort_tpu_torch"
 SOURCES = (
     "nms_mask.cu", "bisect_count.cu", "row_fetch.cu", "qconv.cu", "cells_stage1.cu",
-    "lookup_fetch.cu", "select_extract.cu", "compact_select.cu",
+    "lookup_fetch.cu", "select_extract.cu", "compact_select.cu", "bias_act.cu",
 )
-HEADERS = ("tier_rank.cuh",)  # included by the sources; part of the library's hash
-# -fmad=false: no contraction of a*b+c, so the NMS IoU and the qconv
-# epilogue round per operation exactly as the plain versions do (the
+HEADERS = ("tier_rank.cuh", "act.cuh")  # included by the sources; part of the library's hash
+# -fmad=false: no contraction of a*b+c, so the NMS IoU and the conv
+# epilogues round per operation exactly as the plain versions do (the
 # sources also use the _rn intrinsics); -Xptxas -v writes registers/spills
 # to the build log
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "yt_nms_mask": (_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
     "yt_nms_scratch_rows": (_I, _I, _I),
@@ -51,6 +52,7 @@ _SIGNATURES = {
     "yt_lookup_fetch_variant": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P),
     "yt_select_extract": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     "yt_compact_place": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    "yt_bias_act": (_P, _P, _L, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -133,21 +135,23 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def stream_of(t) -> ctypes.c_void_p:
-    import torch
-
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 def launch(wrapper, entry: str, t, *args) -> None:
     """Call the library's C entry point ``entry`` with ``args`` and the
-    current stream of ``t``'s device, raise if it reports a CUDA error, and
-    count one launch of ``wrapper`` (its ``launches``, which ``KERNELS``
-    reads): every hand-written kernel is launched here."""
+    current stream of ``t``'s device, switching to that device only where
+    it is not the current one, raise if it reports a CUDA error, and count
+    one launch of ``wrapper`` (its ``launches``, which ``KERNELS`` lists):
+    every hand-written kernel is launched here.  Lean on the host, since a
+    network launches one for each conv: the raw stream handle, no
+    ``torch.cuda.Stream`` object and no device guard on the usual path."""
     import torch
 
-    lib = library()
-    with torch.cuda.device(t.device):
-        rc = getattr(lib, entry)(*args, stream_of(t))
+    fn = getattr(_loaded.get("lib") or library(), entry)
+    dev = t.get_device()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if dev == torch._C._cuda_getDevice():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
     check(rc, wrapper.__name__)
     wrapper.launches += 1

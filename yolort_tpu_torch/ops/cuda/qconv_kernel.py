@@ -36,8 +36,9 @@ import torch.nn.functional as F
 
 from yolort_tpu_torch.ops.cuda import _build
 
-# the epilogue's activations and their codes in csrc/qconv.cu (the
-# activations of the JAX package's qconv ``_act``, and its blocks' relu)
+# the epilogue's activations and their codes in csrc/act.cuh, which the
+# float convs' epilogue shares (the activations of the JAX package's qconv
+# ``_act``, and its blocks' relu)
 ACTS = {"none": 0, "silu": 1, "hardswish": 2, "leaky_relu": 3, "relu": 4}
 # the float32 constants of the JAX program's weak-typed 1/6 and 0.1
 ONE_SIXTH = float(np.float32(1.0 / 6.0))

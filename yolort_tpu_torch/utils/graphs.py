@@ -15,12 +15,16 @@ from the call and the module alone:
   ``training``;
 - nothing traces, exports or intercepts the call: no compiler, no
   ``torch.jit`` trace, no dispatch or function mode (fake tensors,
-  ``FlopCounterMode``), no autocast, no capture already under way;
+  ``FlopCounterMode``), no autocast, no capture already under way (all
+  but the eval mode and the capture are ``eager_on_card``, which the float
+  convs' fused epilogue in ``ops/blocks.py`` applies too);
 - no layer of ``module`` sets ``EAGER_ONLY`` (a layer that records program
   spans or counters: a replay runs no Python), and no module has a forward
   hook (a replay calls none);
-- the key (shape, strides, dtype, device and the backend flags that pick
-  kernels) was seen once before.  The first call of a key runs eagerly,
+- the key (shape, strides, dtype, device, the backend flags that pick
+  kernels, and whether ``inference_mode`` is on: a graph captured in it
+  holds inference tensors, which no call outside it may write) was seen
+  once before.  The first call of a key runs eagerly,
   which does cuDNN's and the allocator's lazy set-up; the second captures
   and replays; every later one replays.
 
@@ -68,15 +72,29 @@ def _backend_flags():
             torch.backends.cuda.matmul.allow_tf32, torch.are_deterministic_algorithms_enabled())
 
 
-def _call_engages(module, x) -> bool:
-    """The rule's part that reads the call: a CUDA tensor, grad off, the
-    module in eval mode, nothing tracing or intercepting."""
-    return (x.is_cuda and not torch.is_grad_enabled() and not module.training
+def unintercepted(x) -> bool:
+    """Grad off, and nothing tracing, exporting or intercepting a call on
+    ``x``: no tensor subclass, compiler, ``torch.jit`` trace, dispatch or
+    function mode (fake tensors, ``FlopCounterMode``), no CUDA autocast."""
+    return (not torch.is_grad_enabled()
             and not (isinstance(x, torch.Tensor) and type(x) is not torch.Tensor)
             and not torch.compiler.is_compiling() and not torch.compiler.is_exporting()
             and not torch.jit.is_tracing() and not is_in_torch_dispatch_mode()
             and not torch._C._is_torch_function_mode_enabled()
-            and not torch.is_autocast_enabled(x.device.type)
+            and not torch.is_autocast_enabled("cuda"))
+
+
+def eager_on_card(x) -> bool:
+    """``x`` on a CUDA device, ``unintercepted``: the part of the rule that
+    the float convs' fused epilogue (``ops/blocks.py`` ``fused_epilogue``)
+    shares."""
+    return x.is_cuda and unintercepted(x)
+
+
+def _call_engages(module, x) -> bool:
+    """The rule's part that reads the call: ``eager_on_card``, the module in
+    eval mode, no capture under way."""
+    return (eager_on_card(x) and not module.training
             and not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()))
 
 
@@ -203,7 +221,8 @@ class GraphCache:
         reads = _reads(module)
         if reads is None:
             return None
-        key = (tuple(x.shape), x.stride(), x.dtype, x.device, _backend_flags())
+        key = (tuple(x.shape), x.stride(), x.dtype, x.device, _backend_flags(),
+               torch.is_inference_mode_enabled())
         self._lock.acquire()
         try:
             if reads != self._reads:  # a weight moved or a layer changed
